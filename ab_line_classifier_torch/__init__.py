@@ -9,8 +9,9 @@ the JAX package: it keeps its own copies of what it needs.
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``; with no GPU and no explicit CPU request it raises
 (:func:`resolve_device`). On CUDA, preprocessing runs the hand-written
-kernel in ``csrc/preprocess.cu``; on the CPU it runs that kernel's plain
-PyTorch version.
+kernel in ``csrc/preprocess.cu`` and every stride-1 ``SAME`` depthwise
+layer the one in ``csrc/depthwise.cu``; on the CPU each runs its kernel's
+plain PyTorch version.
 """
 
 from __future__ import annotations

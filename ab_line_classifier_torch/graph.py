@@ -13,9 +13,27 @@ numbering), so the reference's index-based operations keep their meaning:
   and attribution build on.
 
 Parameterized layers are submodules named by their Keras layer name, so the
-state-dict keys read ``block1_conv1.weight``. Layouts: the module's public
-tensors are NHWC, as in the JAX package; inside, 4-D activations are NCHW
-views of NHWC memory (``channels_last``), the layout cuDNN wants.
+state-dict keys read ``block1_conv1.weight`` (a separable conv's nested
+layers read ``block2_sepconv1.depthwise.weight``). Layouts: the module's
+public tensors are NHWC, as in the JAX package; inside, 4-D activations are
+NCHW views of NHWC memory (``channels_last``), the layout cuDNN and the
+depthwise kernel want.
+
+Precision. A mixed-precision model is cast to bfloat16 as a whole
+(``module.to(dtype=torch.bfloat16)``), which casts every conv and dense
+weight, as flax's ``dtype=bfloat16`` layers do. :class:`BatchNorm` and
+:class:`Normalization` keep their parameters and statistics in float32
+through such a cast (their ``_apply`` restores the float32 tensors, moved to
+the new device), because flax keeps them in float32: its ``BatchNorm``
+normalizes a bfloat16 input in float32 against float32 statistics and casts
+to bfloat16 at the end, which is what ``F.batch_norm`` does with a bfloat16
+input and float32 statistics. ``Normalization`` computes in the input's
+dtype, as the JAX layer does.
+
+TF ``SAME`` padding: at stride 1 with an odd kernel it is symmetric; at
+stride 2 it depends on the input size and puts the odd pixel bottom/right
+(``ops/padding.py``), so those convs and max-pools pad explicitly (max-pool
+with ``-inf``); ``padding='same'`` in PyTorch refuses stride > 1.
 """
 
 from __future__ import annotations
@@ -28,6 +46,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ab_line_classifier_torch.ops import depthwise as DW
+from ab_line_classifier_torch.ops.depthwise_cuda import pack_weight
+from ab_line_classifier_torch.ops.padding import pad_same
+
 INPUT = "__input__"
 
 # Layer kinds with special call conventions or freeze semantics.
@@ -39,7 +61,8 @@ KIND_DROPOUT = "dropout"
 KIND_FN = "fn"  # pure function of its inputs (activation, pool, add, pad...)
 KIND_NORM = "norm"
 
-_NOT_YET = "waits for the zoo slice of the port (ROADMAP Queue A item 8)"
+# Public NHWC axis -> internal NCHW axis of a 4-D activation.
+_INTERNAL_AXIS = {0: 0, 1: 2, 2: 3, 3: 1}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -262,28 +285,224 @@ def _keras_init(module: nn.Module, generator: torch.Generator,
     return module
 
 
+class SameConv2d(nn.Conv2d):
+    """``nn.Conv2d`` with TF ``SAME`` padding computed from the input size
+    (the stride-2 case, where it can be asymmetric)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(pad_same(x, self.kernel_size, self.stride))
+
+
 def conv2d(name: str, inp: str, in_features: int, features: int,
            kernel: Tuple[int, int], strides: Tuple[int, int] = (1, 1),
            padding: str = "SAME", use_bias: bool = True,
            act: Optional[Callable] = None) -> LayerSpec:
-    """Keras Conv2D. Stride-1 ``SAME`` with an odd kernel is symmetric
-    padding; TF's asymmetric stride-2 ``SAME`` is not needed yet."""
-    if padding == "VALID":
-        pad = (0, 0)
-    elif padding == "SAME" and tuple(strides) == (1, 1) and all(
-            k % 2 for k in kernel):
-        pad = (kernel[0] // 2, kernel[1] // 2)
-    else:
-        raise NotImplementedError(
-            f"conv {name!r}: {padding} padding at strides {strides} with "
-            f"kernel {kernel} {_NOT_YET}")
+    """Keras Conv2D. ``VALID``, or TF ``SAME``: symmetric padding inside
+    the conv at stride 1 with an odd kernel, explicit padding otherwise."""
+    kernel, strides = tuple(kernel), tuple(strides)
+    if padding not in ("SAME", "VALID"):
+        raise ValueError(f"conv {name!r}: unknown padding {padding!r}")
+    symmetric = strides == (1, 1) and all(k % 2 for k in kernel)
+    cls = SameConv2d if padding == "SAME" and not symmetric else nn.Conv2d
+    pad = ((kernel[0] // 2, kernel[1] // 2) if padding == "SAME" and symmetric
+           else (0, 0))
 
     def factory(generator):
-        return _keras_init(nn.Conv2d(in_features, features, tuple(kernel),
-                                     stride=tuple(strides), padding=pad,
-                                     bias=use_bias), generator)
+        return _keras_init(cls(in_features, features, kernel, stride=strides,
+                               padding=pad, bias=use_bias), generator)
     return LayerSpec(name=name, kind=KIND_CONV, inputs=(inp,),
                      module_fn=factory, post_fn=act, features=features)
+
+
+class DepthwiseConv(nn.Module):
+    """Keras DepthwiseConv2D (depth multiplier 1) on the depthwise kernel
+    (``ops/depthwise.py::depthwise_conv``): on CUDA every stride-1 ``SAME``
+    layer with an odd kernel up to 7 launches the hand-written kernel, any
+    other configuration runs the grouped conv. ``weight`` is
+    ``[C, 1, K, K]``, PyTorch's grouped-conv layout. The kernel reads the
+    weight repacked to float32 ``[K, K, C]``; the repacked copy is cached
+    here and rebuilt only when the weight changes (another tensor, device
+    or dtype, or an in-place update)."""
+
+    def __init__(self, channels: int, kernel: Tuple[int, int],
+                 strides: Tuple[int, int] = (1, 1), padding: str = "SAME",
+                 use_bias: bool = False):
+        super().__init__()
+        if kernel[0] != kernel[1] or strides[0] != strides[1]:
+            raise ValueError("DepthwiseConv takes square kernels and strides")
+        self.stride = int(strides[0])
+        self.padding = padding
+        self.weight = nn.Parameter(torch.empty(channels, 1, *kernel))
+        self.bias = (nn.Parameter(torch.zeros(channels)) if use_bias
+                     else None)
+        self._packed: Tuple[Any, Optional[torch.Tensor]] = (None, None)
+
+    def packed_weight(self) -> torch.Tensor:
+        w = self.weight
+        key = (w.data_ptr(), w._version, w.dtype, w.device)
+        if self._packed[0] != key:
+            self._packed = (key, pack_weight(w))
+        return self._packed[1]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = DW.depthwise_conv(x, self.weight, self.stride, self.padding,
+                              packed=self.packed_weight() if x.is_cuda
+                              else None)
+        if self.bias is not None:
+            y = y + self.bias.view(1, -1, 1, 1)
+        return y
+
+
+def depthwise_conv2d(name: str, inp: str, channels: int,
+                     kernel: Tuple[int, int],
+                     strides: Tuple[int, int] = (1, 1), padding: str = "SAME",
+                     use_bias: bool = False) -> LayerSpec:
+    def factory(generator):
+        return _keras_init(DepthwiseConv(channels, tuple(kernel),
+                                         tuple(strides), padding, use_bias),
+                           generator)
+    return LayerSpec(name=name, kind=KIND_DEPTHWISE, inputs=(inp,),
+                     module_fn=factory, features=channels)
+
+
+class SeparableConv(nn.Module):
+    """Keras SeparableConv2D as one layer: a depthwise conv (no bias), then
+    a 1x1 pointwise conv; nested as ``depthwise`` / ``pointwise``."""
+
+    def __init__(self, in_features: int, features: int,
+                 kernel: Tuple[int, int], strides: Tuple[int, int] = (1, 1),
+                 padding: str = "SAME", use_bias: bool = True):
+        super().__init__()
+        self.depthwise = DepthwiseConv(in_features, kernel, strides, padding)
+        self.pointwise = nn.Conv2d(in_features, features, 1, bias=use_bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.pointwise(self.depthwise(x))
+
+
+def separable_conv2d(name: str, inp: str, in_features: int, features: int,
+                     kernel: Tuple[int, int],
+                     strides: Tuple[int, int] = (1, 1),
+                     padding: str = "SAME", use_bias: bool = True
+                     ) -> LayerSpec:
+    def factory(generator):
+        m = SeparableConv(in_features, features, tuple(kernel),
+                          tuple(strides), padding, use_bias)
+        _keras_init(m.depthwise, generator)
+        _keras_init(m.pointwise, generator)
+        return m
+    # kind=conv: Grad-CAM's last-conv scan matches SeparableConv2D layers.
+    return LayerSpec(name=name, kind=KIND_CONV, inputs=(inp,),
+                     module_fn=factory, features=features)
+
+
+class _Float32State(nn.Module):
+    """Keeps every parameter and buffer in float32 through dtype casts
+    (``module.to(dtype=...)``, ``.bfloat16()``): the float32 values are
+    restored, on the device the cast moved to."""
+
+    def _apply(self, fn, recurse=True):
+        kept = {n: t.detach() for n, t in list(self._parameters.items())
+                + list(self._buffers.items()) if t is not None}
+        super()._apply(fn, recurse)
+        for n, old in kept.items():
+            new = getattr(self, n)
+            if new.dtype == torch.float32:
+                continue
+            fixed = old.to(device=new.device)
+            if n in self._parameters:
+                self._parameters[n] = nn.Parameter(
+                    fixed, requires_grad=new.requires_grad)
+            else:
+                self._buffers[n] = fixed
+        return self
+
+
+class BatchNorm(_Float32State):
+    """Keras BatchNormalization (flax ``BatchNorm``): ``weight``/``bias``
+    (flax ``scale``/``bias``) and the ``running_mean``/``running_var``
+    buffers (flax ``batch_stats`` ``mean``/``var``), all float32. Serving
+    normalizes with the running statistics. In training mode it normalizes
+    with the batch's and updates the running ones with Keras's momentum,
+    but through ``F.batch_norm``, whose running variance is the unbiased
+    estimate where flax keeps the biased one (training parity is ROADMAP
+    Queue A item 12)."""
+
+    def __init__(self, features: int, momentum: float = 0.99,
+                 epsilon: float = 1e-3, scale: bool = True):
+        super().__init__()
+        self.momentum, self.epsilon = momentum, epsilon
+        self.weight = nn.Parameter(torch.ones(features)) if scale else None
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.batch_norm(x, self.running_mean, self.running_var,
+                            self.weight, self.bias, self.training,
+                            1.0 - self.momentum, self.epsilon)
+
+
+def adapt_batch_norm(module: nn.Module, x: torch.Tensor) -> None:
+    """Set every :class:`BatchNorm`'s running statistics from its own input
+    in one inference pass of ``module`` over ``x``, each layer after the
+    ones before it: the mean, and the variance plus a quarter of the
+    squared mean, so that a channel barely varying around a large mean is
+    not blown up into its rounding noise. Gives randomly weighted models
+    O(1) activations for testing."""
+    def hook(bn, args):
+        a = args[0].to(torch.float32)
+        dims = [d for d in range(a.ndim) if d != 1]
+        mean = a.mean(dims)
+        bn.running_mean.copy_(mean)
+        bn.running_var.copy_(a.var(dims, unbiased=False) + 0.25 * mean ** 2)
+
+    hooks = [m.register_forward_pre_hook(hook) for m in module.modules()
+             if isinstance(m, BatchNorm)]
+    try:
+        with torch.no_grad():
+            module(x)
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def batch_norm(name: str, inp: str, features: int, momentum: float = 0.99,
+               epsilon: float = 1e-3, scale: bool = True) -> LayerSpec:
+    """Keras BatchNormalization defaults: momentum 0.99, epsilon 1e-3."""
+    return LayerSpec(name=name, kind=KIND_BN, inputs=(inp,),
+                     module_fn=lambda generator: BatchNorm(
+                         features, momentum, epsilon, scale),
+                     features=features)
+
+
+class Normalization(_Float32State):
+    """Keras ``layers.Normalization(axis=-1)``: ``(x - mean) /
+    max(sqrt(variance), 1e-7)``, the statistics float32 buffers ``mean`` and
+    ``variance`` (flax ``batch_stats``) cast to the input's dtype, as in the
+    JAX layer; nothing updates them."""
+
+    def __init__(self, mean: Sequence[float], variance: Sequence[float]):
+        super().__init__()
+        self.register_buffer("mean", torch.tensor(mean, dtype=torch.float32))
+        self.register_buffer("variance",
+                             torch.tensor(variance, dtype=torch.float32))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shape = (1, -1, 1, 1) if x.ndim == 4 else (1, -1)
+        denom = torch.clamp(torch.sqrt(self.variance), min=1e-7)
+        return ((x - self.mean.to(x.dtype).view(shape))
+                / denom.to(x.dtype).view(shape))
+
+
+def normalization(name: str, inp: str, mean: Sequence[float],
+                  variance: Sequence[float]) -> LayerSpec:
+    mean = tuple(float(m) for m in mean)
+    variance = tuple(float(v) for v in variance)
+    return LayerSpec(name=name, kind=KIND_NORM, inputs=(inp,),
+                     module_fn=lambda generator: Normalization(mean,
+                                                               variance),
+                     features=len(mean))
 
 
 def dense(name: str, inp: str, in_features: int, features: int,
@@ -297,7 +516,33 @@ def dense(name: str, inp: str, in_features: int, features: int,
                      module_fn=factory, post_fn=act, features=features)
 
 
-def dropout(name: str, inp: str, rate: float) -> LayerSpec:
+class BroadcastDropout(nn.Module):
+    """flax ``Dropout`` with ``broadcast_dims``: one keep/drop draw shared
+    along those (public NHWC) axes, e.g. ``(1, 2, 3)`` drops whole samples
+    (stochastic depth), ``(1, 2)`` whole channels (SpatialDropout2D).
+    Identity when not training."""
+
+    def __init__(self, rate: float, broadcast_dims: Tuple[int, ...]):
+        super().__init__()
+        self.rate, self.broadcast_dims = rate, tuple(broadcast_dims)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        shape = list(x.shape)
+        for d in self.broadcast_dims:
+            shape[_INTERNAL_AXIS[d] if x.ndim == 4 else d] = 1
+        mask = torch.rand(shape, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def dropout(name: str, inp: str, rate: float,
+            broadcast_dims: Tuple[int, ...] = ()) -> LayerSpec:
+    if broadcast_dims:
+        return LayerSpec(name=name, kind=KIND_DROPOUT, inputs=(inp,),
+                         module_fn=lambda generator: BroadcastDropout(
+                             rate, broadcast_dims))
     return LayerSpec(name=name, kind=KIND_DROPOUT, inputs=(inp,),
                      module_fn=lambda generator: nn.Dropout(rate))
 
@@ -323,18 +568,53 @@ def softmax(name: str, inp: str) -> LayerSpec:
 def max_pool(name: str, inp: str, window: Tuple[int, int],
              strides: Optional[Tuple[int, int]] = None,
              padding: str = "VALID") -> LayerSpec:
-    if padding != "VALID":
-        raise NotImplementedError(f"max_pool {name!r}: {padding} padding "
-                                  f"{_NOT_YET}")
+    """Max-pool; TF ``SAME`` pads with ``-inf`` (flax's ``reduce_window``
+    init), so padding never wins the max."""
     window, strides = tuple(window), tuple(strides or window)
+    if padding == "SAME":
+        def fn(x):
+            return F.max_pool2d(pad_same(x, window, strides, -math.inf),
+                                window, strides)
+    else:
+        def fn(x):
+            return F.max_pool2d(x, window, strides)
+    return LayerSpec(name=name, kind=KIND_FN, inputs=(inp,), fn=fn)
+
+
+def avg_pool(name: str, inp: str, window: Tuple[int, int],
+             strides: Optional[Tuple[int, int]] = None,
+             padding: str = "VALID") -> LayerSpec:
+    """Average pool; ``SAME`` pads with zeros that count in the average
+    (flax ``avg_pool``'s ``count_include_pad=True``)."""
+    window, strides = tuple(window), tuple(strides or window)
+    same = padding == "SAME"
     return LayerSpec(
         name=name, kind=KIND_FN, inputs=(inp,),
-        fn=lambda x: F.max_pool2d(x, window, strides))
+        fn=lambda x: F.avg_pool2d(
+            pad_same(x, window, strides) if same else x, window, strides))
 
 
 def global_avg_pool(name: str, inp: str) -> LayerSpec:
     return LayerSpec(name=name, kind=KIND_FN, inputs=(inp,),
                      fn=lambda x: x.mean(dim=(2, 3)))
+
+
+def zero_pad(name: str, inp: str,
+             pad: Tuple[Tuple[int, int], Tuple[int, int]]) -> LayerSpec:
+    """Keras ZeroPadding2D: ``((top, bottom), (left, right))``."""
+    (top, bottom), (left, right) = pad
+    return LayerSpec(name=name, kind=KIND_FN, inputs=(inp,),
+                     fn=lambda x: F.pad(x, (left, right, top, bottom)))
+
+
+def add(name: str, a: str, b: str) -> LayerSpec:
+    return LayerSpec(name=name, kind=KIND_FN, inputs=(a, b),
+                     fn=lambda x, y: x + y)
+
+
+def multiply(name: str, a: str, b: str) -> LayerSpec:
+    return LayerSpec(name=name, kind=KIND_FN, inputs=(a, b),
+                     fn=lambda x, y: x * y)
 
 
 def input_node() -> LayerSpec:

@@ -1,7 +1,7 @@
 """Model registry — ``get_model(name)`` / ``build_model`` (port of
 the JAX package's ``models/registry.py``).
 
-Only the VGG16 family is ported so far. Every other zoo name raises
+Every model of the zoo is ported. An unknown name raises
 ``NotImplementedError``: the JAX registry falls back to ``cnn0`` for an
 unknown name, and here that fallback would silently build a model other
 than the one asked for.
@@ -13,14 +13,24 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 
+from ab_line_classifier_torch.models.cnn0 import build_cnn0
 from ab_line_classifier_torch.models.common import ModelSpec
+from ab_line_classifier_torch.models.efficientnet import build_efficientnetb7
+from ab_line_classifier_torch.models.mobilenet_v2 import build_mobilenetv2
 from ab_line_classifier_torch.models.preprocess import get_preprocess_fn
+from ab_line_classifier_torch.models.resnet_v2 import build_custom_resnetv2
 from ab_line_classifier_torch.models.vgg import build_cutoffvgg16, build_vgg16
+from ab_line_classifier_torch.models.xception import build_xception
 
 # name -> (builder, preprocess mode).
 _REGISTRY: Dict[str, Tuple[Callable[..., ModelSpec], str]] = {
     "vgg16": (build_vgg16, "caffe"),
     "cutoffvgg16": (build_cutoffvgg16, "caffe"),
+    "mobilenetv2": (build_mobilenetv2, "tf"),
+    "xception": (build_xception, "tf"),
+    "efficientnetb7": (build_efficientnetb7, "identity"),
+    "custom_resnetv2": (build_custom_resnetv2, "tf"),
+    "cnn0": (build_cnn0, "tf"),
 }
 
 MODEL_NAMES = tuple(_REGISTRY)
@@ -30,8 +40,8 @@ def _entry(model_name: str) -> Tuple[Callable[..., ModelSpec], str]:
     name = model_name.lower()
     if name not in _REGISTRY:
         raise NotImplementedError(
-            f"model {model_name!r} is not ported to PyTorch yet (ported: "
-            f"{MODEL_NAMES}); the rest of the zoo is ROADMAP Queue A item 8")
+            f"no model {model_name!r} in the zoo (models: {MODEL_NAMES}); "
+            f"the port does not fall back to another model")
     return _REGISTRY[name]
 
 

@@ -13,7 +13,6 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
-import torch
 import torch.nn.functional as F
 
 from ab_line_classifier_torch import graph as G
@@ -21,10 +20,6 @@ from ab_line_classifier_torch.models import common as C
 
 # (n_convs, filters) per VGG16 block.
 VGG16_BLOCKS = ((2, 64), (2, 128), (3, 256), (3, 512), (3, 512))
-
-
-def _dtype(mixed_precision: bool) -> torch.dtype:
-    return torch.bfloat16 if mixed_precision else torch.float32
 
 
 def vgg16_backbone(in_channels: int = 3) -> G.LayerGraph:
@@ -53,7 +48,7 @@ def build_vgg16(hparams: Dict[str, Any], input_shape: Tuple[int, int, int],
         dropout=float(hparams["DROPOUT"]), output_bias=output_bias)
     return C.ModelSpec(name="vgg16", graph=graph, preprocess_mode="caffe",
                        input_shape=tuple(input_shape), n_classes=n_classes,
-                       dtype=_dtype(mixed_precision))
+                       dtype=C.compute_dtype(mixed_precision))
 
 
 def build_cutoffvgg16(hparams: Dict[str, Any],
@@ -73,4 +68,4 @@ def build_cutoffvgg16(hparams: Dict[str, Any],
     return C.ModelSpec(name="cutoffvgg16", graph=graph,
                        preprocess_mode="caffe",
                        input_shape=tuple(input_shape), n_classes=n_classes,
-                       dtype=_dtype(mixed_precision))
+                       dtype=C.compute_dtype(mixed_precision))

@@ -18,18 +18,43 @@ import torch
 from torch import nn
 
 from ab_line_classifier_torch import resolve_device
+from ab_line_classifier_torch.graph import DepthwiseConv
 from ab_line_classifier_torch.models import build_model
 from ab_line_classifier_torch.models.common import ModelSpec
 
-CUTOFFVGG16_HPARAMS = {"LR_EXTRACT": 3e-4, "LR_FINETUNE": 9.3e-6,
-                       "DROPOUT": 0.45, "CUTOFF_LAYER": 10,
-                       "FINETUNE_LAYER": 7, "EXTRACT_EPOCHS": 6}
+# Each model's config.yml HPARAMS (the card has no PyYAML to read them).
+ZOO_HPARAMS = {
+    "cutoffvgg16": {"LR_EXTRACT": 3e-4, "LR_FINETUNE": 9.3e-6,
+                    "DROPOUT": 0.45, "CUTOFF_LAYER": 10, "FINETUNE_LAYER": 7,
+                    "EXTRACT_EPOCHS": 6},
+    "mobilenetv2": {"LR": 1e-4, "DROPOUT": 0.35, "L2_LAMBDA": 1e-3,
+                    "NODES_DENSE0": 32, "FREEZE_IDX": 116, "CUTOFF_IDX": 115},
+    "vgg16": {"LR": 0.01, "DROPOUT": 0.5, "L2_LAMBDA": 0.01,
+              "NODES_DENSE0": 64, "FREEZE_IDX": -1},
+    "xception": {"LR": 0.01, "DROPOUT": 0.5, "FREEZE_IDX": -1,
+                 "L2_LAMBDA": 0.01},
+    "efficientnetb7": {"LR": 0.1, "DROPOUT": 0.5, "L2_LAMBDA": 0.01,
+                       "FREEZE_IDX": -1},
+    "cnn0": {"LR": 1e-3, "DROPOUT": 0.35, "L2_LAMBDA": 1e-4,
+             "NODES_DENSE0": 64, "KERNEL_SIZE": 3, "STRIDES": 1,
+             "MAXPOOL_SIZE": 2, "BLOCKS": 4, "INIT_FILTERS": 32,
+             "FILTER_EXP_BASE": 2},
+    "custom_resnetv2": {"LR": 4.6e-5, "DROPOUT0": 0.45, "DROPOUT1": 0.40,
+                        "STRIDES": 1, "BLOCKS": 2, "INIT_FILTERS": 16},
+}
+
+
+def build_zoo(name: str, img_dim: Tuple[int, int] = (128, 128)
+              ) -> ModelSpec:
+    """Mixed-precision zoo model ``name`` with its config.yml
+    hyperparameters, 2 classes."""
+    return build_model(name, ZOO_HPARAMS[name], tuple(img_dim) + (3,), 2,
+                       mixed_precision=True)
 
 
 def build_flagship(img_dim: Tuple[int, int] = (128, 128)) -> ModelSpec:
-    """Mixed-precision cutoffvgg16 with its config.yml hyperparameters."""
-    return build_model("cutoffvgg16", CUTOFFVGG16_HPARAMS,
-                       tuple(img_dim) + (3,), 2, mixed_precision=True)
+    """Mixed-precision cutoffvgg16, the production model."""
+    return build_zoo("cutoffvgg16", img_dim)
 
 
 def dispatch_guarded_seconds(run_many: Callable[[int], float],
@@ -80,14 +105,19 @@ def timers(fn: Callable[[], object], device: torch.device):
 
 def flops_per_frame(module: nn.Module, input_shape: Tuple[int, int, int],
                     dtype: torch.dtype, device: torch.device) -> float:
-    """Multiply-add FLOPs (2 per MAC) of one frame through the convs and
-    dense layers, counted from the layer shapes of a one-frame forward."""
+    """Multiply-add FLOPs (2 per MAC) of one frame through the convs,
+    depthwise convs and dense layers, counted from the layer shapes of a
+    one-frame forward."""
     total = 0.0
 
     def conv_hook(mod, inputs, out):
         nonlocal total
         kh, kw = mod.kernel_size
         total += 2.0 * out.numel() * (mod.in_channels // mod.groups) * kh * kw
+
+    def depthwise_hook(mod, inputs, out):
+        nonlocal total
+        total += 2.0 * out.numel() * mod.weight[0, 0].numel()
 
     def dense_hook(mod, inputs, out):
         nonlocal total
@@ -97,6 +127,8 @@ def flops_per_frame(module: nn.Module, input_shape: Tuple[int, int, int],
     for m in module.modules():
         if isinstance(m, nn.Conv2d):
             hooks.append(m.register_forward_hook(conv_hook))
+        elif isinstance(m, DepthwiseConv):
+            hooks.append(m.register_forward_hook(depthwise_hook))
         elif isinstance(m, nn.Linear):
             hooks.append(m.register_forward_hook(dense_hook))
     try:
@@ -118,7 +150,8 @@ def clip_inference_benchmark(batch_size: int = 512,
                              device=None, seed: int = 0,
                              verbose: bool = True) -> Dict:
     """Frames/sec for end-to-end batched clip inference of ``spec``
-    (default: mixed-precision cutoffvgg16) on ``device`` (default cuda).
+    (default: mixed-precision cutoffvgg16; any zoo model through
+    :func:`build_zoo`) on ``device`` (default cuda).
     Weights are ``state_dict``, else a seeded Keras-style init."""
     from ab_line_classifier_torch.predict.predict import Predictor
 

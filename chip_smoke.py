@@ -11,28 +11,42 @@ no result):
 
 1. device — the card's name and power limit (nvidia-smi);
 2. build  — every CUDA kernel from ``ab_line_classifier_torch/csrc`` into
-   ``build/kernels``;
-3. kernel — the preprocess kernel against its plain PyTorch version over
-   modes x resize maps x masks x output dtypes and several source sizes,
-   plus 2048 frames of 1080x1440 (past 2^31 bytes: the 64-bit offsets);
-   then, at the main path's shapes, the same comparison and the kernel's
-   time, the plain version's, a resize-only library yardstick
+   ``build/kernels``, one nvcc per source, all started together;
+3. preprocess kernel (B1) — against its plain PyTorch version over modes x
+   resize maps x masks x output dtypes and several source sizes, plus 2048
+   frames of 1080x1440 (past 2^31 bytes: the 64-bit offsets); then, at the
+   main path's shapes, the same comparison and the kernel's time, the plain
+   version's, a resize-only library yardstick
    (``F.interpolate(mode="nearest-exact")``, which the port never calls)
    and the bytes-moved bound;
-4. main path — full-width cutoffvgg16 (mixed precision, 128x128, random
-   weights from a numpy seed through the weight bridge) serving 4096
-   frames of 480x640 and 4096 of 128x128 through ``Predictor``, then clip
-   grouping and all three aggregations on the card; the kernel's launch
-   count on this phase alone must be > 0. The served forward is then held
-   against the same port on the CPU at ``block3_conv3`` and the logits;
-5. throughput — ``clip_inference_benchmark`` at batch 1024 and 2048 (each
-   run's kernel launches counted), and a ``torch.profiler`` breakdown of
-   one serving batch by kernel.
+4. depthwise kernel (B2) — against its plain version, exactly, over K x
+   dtypes x channel counts x odd/even sizes x batch, one f32 input past
+   2^31 bytes, and the shapes of mobilenetv2's stride-1 depthwise layers
+   at batch 2048 and efficientnetb7's largest 5x5 one; at those shapes the
+   kernel's time, the plain version's, cuDNN's grouped conv
+   (``F.conv2d(groups=C)``, which the port never calls) and the bound;
+5. cutoffvgg16 serving — full width (mixed precision, 128x128, random
+   weights from a numpy seed through the weight bridge), 4096 frames of
+   480x640 and 4096 of 128x128 through ``Predictor``, then clip grouping
+   and all three aggregations on the card; B1's launch count on this phase
+   alone must be > 0. The served forward is held against the same port on
+   the CPU at ``block3_conv3`` and the logits;
+6. mobilenetv2 serving — the same at full width, with batch-norm
+   statistics set from a calibration batch; B2 launches exactly 10 times
+   per forward; GPU against CPU at ``block_12_add`` and the logits;
+7. xception and efficientnetb7 serving — 1024 frames at batch 256 through
+   ``Predictor``, 34 and 51 B2 launches per forward, GPU against CPU at one
+   tap each;
+8. throughput — ``clip_inference_benchmark`` for cutoffvgg16 and
+   mobilenetv2 at batch 1024 and 2048 and for xception and efficientnetb7
+   at 512 (each run's kernel launches counted), and a ``torch.profiler``
+   breakdown by kernel of a cutoffvgg16 and a mobilenetv2 batch.
 
 The last two lines of standard output are a JSON line of per-kernel
 numbers and ``{"ok": true, "device": {...}}``.
 """
 
+import concurrent.futures
 import dataclasses
 import itertools
 import json
@@ -54,18 +68,30 @@ PEAK_F32_FLOPS = 67e12
 
 OUT_HW = (128, 128)
 MAIN_BATCH = 2048
+ZOO_BATCH = 256
 # The bf16 serving tolerance of the port's tests (tests/test_torch_model.py).
 BF16_PROB_ATOL = 2e-2
-# GPU vs CPU (both bf16) at block3_conv3 and the logits: relative
-# Frobenius error. The script prints the CPU's own bf16-vs-float32
-# difference beside it (the rounding floor), and checks that frames with
-# their channels swapped — a channel-order fault — land far beyond it.
+# GPU vs CPU (both bf16) at a tap and the logits: relative Frobenius
+# error. The script prints the CPU's own bf16-vs-float32 difference beside
+# it (the rounding floor). Two bf16 computations of the same float32
+# function each sit about one floor away from it, so the bar is the larger
+# of ACT_RTOL and twice the floor; frames with their channels swapped — a
+# channel-order fault — must land beyond three times the bar.
 ACT_RTOL = 3e-2
-TAP = "block3_conv3"
 # Kernels scaled by GAIN / sqrt(fan_in), as in tests/test_torch_model.py,
 # so the logits are O(1) and vary from frame to frame.
 GAIN = 1.5
+# Batch-norm scale of the zoo's random weights; the BN statistics are then
+# set from a calibration batch (graph.adapt_batch_norm), as in
+# tests/test_torch_zoo.py. At 0.4, efficientnetb7's 55 random blocks
+# amplify bf16 rounding until its bf16 and float32 logits no longer agree
+# within the bars below; at 0.15 they do.
+BN_SCALE = {"efficientnetb7": 0.15}
+DEFAULT_BN_SCALE = 0.4
 WARMUP, ITERS = 3, 20
+# name -> (tap inside the backbone, B2 launches per forward)
+ZOO = {"mobilenetv2": ("block_12_add", 10), "xception": ("add_6", 34),
+       "efficientnetb7": ("block5a_project_bn", 51)}
 
 
 def phase(title):
@@ -144,30 +170,89 @@ def preprocess_bytes(b, src_hw, out_hw, mode, out_itemsize, with_mask):
     return b * px + extra + b * hd * wd * 3 * out_itemsize
 
 
+def depthwise_bound(shape, k, itemsize):
+    """``(bound_ms, bound_by, bytes, flops)`` of one K x K stride-1 SAME
+    depthwise conv on NHWC ``shape``: one read of x and the float32 weight
+    and one write of y, against the multiply-adds of the taps that fall
+    inside the image (padding taps are skipped), at the float32 CUDA-core
+    peak the kernel accumulates at."""
+    b, h, w, c = shape
+    p = k // 2
+
+    def taps(n):
+        return sum(min(n - 1, i + p) - max(0, i - p) + 1 for i in range(n))
+
+    flops = 2.0 * b * c * taps(h) * taps(w)
+    nbytes = 2 * b * h * w * c * itemsize + k * k * c * 4
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_F32_FLOPS * 1e3
+    return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms
+            else "operations", nbytes, flops)
+
+
 def serving_weights(spec, seed=0):
-    """A JAX-layout (HWIO / [in, out]) numpy tree for ``spec``: zero-mean
-    normal kernels scaled by GAIN / sqrt(fan_in), small biases."""
+    """A JAX-layout numpy tree for ``spec``, drawn leaf by leaf in the
+    module's order: zero-mean normal kernels scaled by GAIN / sqrt(fan_in)
+    (HWIO / [in, out]; a depthwise kernel's fan-in is K*K), small biases,
+    batch-norm scales N(BN_SCALE, 0.1). Statistics keep the module's own
+    values (``calibrated`` sets the batch norms')."""
+    bn_scale = BN_SCALE.get(spec.name, DEFAULT_BN_SCALE)
+    from ab_line_classifier_torch.utils.jax_params import flax_from_state_dict
+
     rng = np.random.RandomState(seed)
-    params = {}
-    for name, mod in spec.module().named_children():
-        if not hasattr(mod, "weight"):  # dropout
-            continue
-        w = tuple(mod.weight.shape)
-        shape = ((w[2], w[3], w[1], w[0]) if len(w) == 4 else (w[1], w[0]))
-        std = 0.5 * GAIN / np.sqrt(np.prod(shape[:-1]))
-        params[name] = {
-            "kernel": rng.normal(0.0, std, shape).astype(np.float32),
-            "bias": rng.normal(0.01, 0.05, w[0]).astype(np.float32)}
-    return {"params": params}
+    tree = flax_from_state_dict(spec.module().state_dict())
+
+    def draw(node):
+        for name, leaf in node.items():
+            if isinstance(leaf, dict):
+                draw(leaf)
+            elif name == "kernel":
+                std = 0.5 * GAIN / np.sqrt(np.prod(leaf.shape[:-1]))
+                node[name] = rng.normal(0.0, std, leaf.shape).astype(
+                    np.float32)
+            elif name == "scale":
+                node[name] = rng.normal(bn_scale, 0.1, leaf.shape).astype(
+                    np.float32)
+            else:
+                node[name] = rng.normal(0.01, 0.05, leaf.shape).astype(
+                    np.float32)
+
+    draw(tree["params"])
+    return tree
 
 
-def served_activations(spec, state_dict, frames, device):
-    """``Predictor.forward``'s sequence (preprocess_frames, then the model
-    in ``spec.dtype``, channels_last) on host frames, read at block3_conv3
-    and the logits; float32 on the CPU."""
+def calibrated(spec, state_dict, seed=5, n=256):
+    """``state_dict`` with every batch norm's statistics set from ``n``
+    random frames of random brightness (0.15-1.0, the range of the GPU-vs-
+    CPU check frames; ``graph.adapt_batch_norm``, float32 on the card)."""
+    from ab_line_classifier_torch import graph as G
     from ab_line_classifier_torch.ops.preprocess_cuda import preprocess_frames
 
-    mod = spec.module(capture=(TAP, "logits"))
+    if not any(k.endswith("running_var") for k in state_dict):
+        return state_dict
+    mod = spec.module()
+    mod.load_state_dict(state_dict)
+    mod = mod.eval().to(device="cuda", memory_format=torch.channels_last)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    frames = torch.randint(0, 256, (n, *spec.input_shape[:2], 3),
+                           dtype=torch.uint8, device="cuda", generator=gen)
+    gain = 0.15 + 0.85 * torch.rand((n, 1, 1, 1), device="cuda",
+                                    generator=gen)
+    frames = (frames * gain).to(torch.uint8)
+    with torch.inference_mode():
+        x = preprocess_frames(frames, out_hw=tuple(spec.input_shape[:2]),
+                              preprocess_mode=spec.preprocess_mode)
+    G.adapt_batch_norm(mod, x)
+    return {k: v.detach().cpu() for k, v in mod.state_dict().items()}
+
+
+def served_activations(spec, state_dict, frames, device, taps):
+    """``Predictor.forward``'s sequence (preprocess_frames, then the model
+    in ``spec.dtype``, channels_last) on host frames, read at ``taps``;
+    float32 on the CPU."""
+    from ab_line_classifier_torch.ops.preprocess_cuda import preprocess_frames
+
+    mod = spec.module(capture=tuple(taps))
     mod.load_state_dict(state_dict)
     mod = mod.eval().to(device=device, dtype=spec.dtype,
                         memory_format=torch.channels_last)
@@ -184,44 +269,166 @@ def rel_err(got, want):
     return float((got - want).norm() / want.norm())
 
 
-def main():
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is false; this needs an "
-              "NVIDIA GPU", file=sys.stderr)
-        return 1
-    sys.path.insert(0, REPO)
-    from ab_line_classifier_torch.ops import _build
-    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+def gpu_vs_cpu(spec, state_dict, predictor, frames, tap, smi):
+    """The served forward on the GPU against the same port on the CPU
+    (both bf16) at ``tap`` and the logits, the CPU's bf16-vs-float32 floor,
+    a channel-swap fault and the probabilities (``predictor``'s on the GPU);
+    raises past the bars."""
+    taps = (tap, "logits")
+    gpu = served_activations(spec, state_dict, frames, "cuda", taps)
+    cpu = served_activations(spec, state_dict, frames, "cpu", taps)
+    f32 = served_activations(dataclasses.replace(spec, dtype=torch.float32),
+                             state_dict, frames, "cpu", taps)
+    swapped = served_activations(spec, state_dict, frames[..., ::-1].copy(),
+                                 "cuda", taps)
+    # A fault that mixed frames up would move the logits by their spread
+    # across frames: it must stand 3x above the logits' bar, relative to
+    # their RMS, for the comparison to see one.
+    logits = cpu["logits"]
+    spread = float(logits.max() - logits.min())
+    seen = spread / float(logits.pow(2).mean().sqrt())
+    errs = {k: rel_err(gpu[k], cpu[k]) for k in taps}
+    floor = {k: rel_err(cpu[k], f32[k]) for k in taps}
+    bars = {k: max(ACT_RTOL, 2 * floor[k]) for k in taps}
+    fault = rel_err(swapped[tap], cpu[tap])
+    # Predictor.forward's softmax of the served logits, on the CPU.
+    cpu_probs, f32_probs = (torch.softmax(a["logits"], -1).numpy()
+                            for a in (cpu, f32))
+    prob_err = float(np.abs(cpu_probs - predictor.predict_probs(frames)).max())
+    prob_floor = float(np.abs(cpu_probs - f32_probs).max())
+    prob_bar = max(BF16_PROB_ATOL, 2 * prob_floor)
+    print(f"{spec.name} GPU vs CPU on {len(frames)} frames ({smi}): "
+          f"relative error {tap} {errs[tap]:.3e}, logits "
+          f"{errs['logits']:.3e} (bars {bars[tap]:.3e} / "
+          f"{bars['logits']:.3e}; CPU bf16 vs float32 {floor[tap]:.3e} / "
+          f"{floor['logits']:.3e}; channels swapped {fault:.3e}); logit "
+          f"spread {spread:.3f} ({seen:.3f} of their RMS); max |dp| "
+          f"{prob_err:.2e} (bar "
+          f"{prob_bar:.2e}; CPU bf16 vs float32 {prob_floor:.2e})",
+          flush=True)
+    if seen < 3 * bars["logits"]:
+        raise AssertionError(f"{spec.name}: logits too flat to compare "
+                             f"(spread {spread}, {seen} of their RMS)")
+    for k in taps:
+        if bars[k] > 0.3:
+            raise AssertionError(f"{spec.name}: CPU bf16 vs float32 {k} "
+                                 f"differ by {floor[k]}: too far apart for "
+                                 f"a comparison")
+        if errs[k] > bars[k]:
+            raise AssertionError(f"{spec.name}: GPU vs CPU {k} differ by "
+                                 f"{errs[k]} > {bars[k]}")
+    if fault < 3 * bars[tap]:
+        raise AssertionError(f"{spec.name}: a channel swap moves {tap} by "
+                             f"only {fault}")
+    if prob_err > prob_bar:
+        raise AssertionError(f"{spec.name}: GPU vs CPU probabilities differ "
+                             f"by {prob_err}")
+
+
+def host_frames(seed, n480, n128):
+    """uint8 host frames: ``n480`` of 480x640 (512 distinct, tiled) and
+    ``n128`` of 128x128, from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    big = np.tile(rng.integers(0, 256, (min(512, n480), 480, 640, 3),
+                               dtype=np.uint8),
+                  (max(1, n480 // 512), 1, 1, 1))[:n480]
+    return big, rng.integers(0, 256, (n128, 128, 128, 3), dtype=np.uint8)
+
+
+def serve_clips(predictor, frames480, frames128):
+    """Frames through ``predict_probs`` from both sources, grouped into
+    clips and aggregated three ways on the card; checks the outputs.
+    Returns ``(probs, n_clips, seconds)``."""
     from ab_line_classifier_torch.ops.clip_aggregation import aggregate_clips
+    from ab_line_classifier_torch.predict.predict import group_clip_probs
+
+    n = len(frames480) + len(frames128)
+    lengths = [17, 32, 45, 9, 60, 23, 3, 51]
+    names, paths = [], []
+    while len(paths) < n:
+        m = min(lengths[len(names) % len(lengths)], n - len(paths))
+        names.append(f"clip{len(names):04d}")
+        paths += [f"{names[-1]}_{i}.jpg" for i in range(m)]
+    t0 = time.perf_counter()
+    probs = np.concatenate([predictor.predict_probs(frames480),
+                            predictor.predict_probs(frames128)])
+    padded, mask = group_clip_probs(paths, probs, names)
+    clips = {algo: aggregate_clips(
+        torch.as_tensor(padded, device="cuda"),
+        torch.as_tensor(mask, device="cuda"), algorithm=algo,
+        classification_threshold=0.7, contiguity_threshold=3,
+        window=4).cpu().numpy()
+        for algo in ("average", "contiguous", "sliding_window")}
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if probs.shape != (n, 2) or not np.isfinite(probs).all():
+        raise AssertionError(f"bad frame probabilities {probs.shape}")
+    if np.abs(probs.sum(1) - 1.0).max() > 1e-5:
+        raise AssertionError("frame probability rows do not sum to 1")
+    for algo, out in clips.items():
+        if out.shape != (len(names), 2) or not np.isfinite(out).all() \
+                or np.abs(out.sum(1) - 1.0).max() > 1e-5:
+            raise AssertionError(f"bad {algo} clip probabilities")
+    return probs, len(names), seconds
+
+
+def depthwise_layer_shapes(spec):
+    """``(NHWC shape at batch 1, K)`` of every depthwise layer the kernel
+    runs in one forward of ``spec`` (stride 1, SAME), in order."""
+    from ab_line_classifier_torch import graph as G
+
+    mod = spec.module().eval()
+    seen = []
+
+    def hook(m, args):
+        if m.stride == 1 and m.padding == "SAME":
+            x = args[0]
+            seen.append(((1, x.shape[2], x.shape[3], x.shape[1]),
+                         m.weight.shape[-1]))
+
+    for m in mod.modules():
+        if isinstance(m, G.DepthwiseConv):
+            m.register_forward_pre_hook(hook)
+    with torch.no_grad():
+        mod(torch.zeros((1, *spec.input_shape)))
+    return seen
+
+
+def time_depthwise(shape, k, dtype, gen):
+    """B2 at NHWC ``shape``: exact agreement with the plain version, and
+    the kernel's, plain version's and cuDNN's times with the bound."""
+    from ab_line_classifier_torch.ops import depthwise as D
+    from ab_line_classifier_torch.ops import depthwise_cuda as DC
+
+    b, h, w, c = shape
+    x = torch.randn(shape, device="cuda", generator=gen).to(dtype).permute(
+        0, 3, 1, 2)
+    wt = (0.2 * torch.randn((c, 1, k, k), device="cuda", generator=gen)
+          ).to(dtype)
+    packed = DC.pack_weight(wt)
+    err = float((DC.cuda_depthwise(x, packed).float()
+                 - D.depthwise_plain(x, wt).float()).abs().max())
+    if err != 0.0:
+        raise AssertionError(f"depthwise {shape} K={k} {dtype}: max abs err "
+                             f"{err}")
+    bound_ms, bound_by, nbytes, flops = depthwise_bound(
+        shape, k, x.element_size())
+    out = dict(err=err, bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+               flops=flops,
+               ms=cuda_ms(lambda: DC.cuda_depthwise(x, packed)),
+               plain_ms=cuda_ms(lambda: D.depthwise_plain(x, wt)),
+               library_ms=cuda_ms(lambda: F.conv2d(x, wt, padding=k // 2,
+                                                   groups=c)))
+    del x
+    return out
+
+
+def phase_preprocess(kind):
+    """Phase 3; returns B1's main-path timing and its max abs err."""
+    from ab_line_classifier_torch.ops import preprocess_cuda as PC
     from ab_line_classifier_torch.ops.image import (
         MASK_OPTIONS, OUT_DTYPES, PREPROCESS_MODES, RESIZE_MODES,
         fused_preprocess, mask_kwargs, max_ulp_error)
-    from ab_line_classifier_torch.predict.benchmark import (
-        build_flagship, clip_inference_benchmark)
-    from ab_line_classifier_torch.predict.predict import (Predictor,
-                                                          group_clip_probs)
-    from ab_line_classifier_torch.utils.jax_params import state_dict_from_flax
-
-    t_start = time.perf_counter()
-    phase("1 device")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
-    kind = torch.cuda.get_device_name(0)
-    print(f"python {sys.version.split()[0]} torch {torch.__version__} "
-          f"cuda {torch.version.cuda} device {kind} "
-          f"count {torch.cuda.device_count()}")
-    # Comparisons of float32 paths run in full float32, not TF32.
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-
-    phase("2 build")
-    t0 = time.perf_counter()
-    libs = [_build.build(name) for name in _build.kernel_names()]
-    print(f"built {len(libs)} kernel(s) in {time.perf_counter() - t0:.2f} s:"
-          f" {[os.path.relpath(p, REPO) for p in libs]}")
 
     phase("3 preprocess kernel against its plain version")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -291,133 +498,278 @@ def main():
               f"{ops_ms:.4f} ms, whole-input bound {whole_ms:.4f} ms",
               flush=True)
         del x
+    return timing[(480, 640)], max_err
 
-    phase("4 main path: cutoffvgg16 serving + clip aggregation")
-    spec = build_flagship(OUT_HW)
-    state_dict = state_dict_from_flax(serving_weights(spec))
-    predictor = Predictor(spec, state_dict, batch_size=MAIN_BATCH,
-                          device="cuda")
-    rng = np.random.default_rng(1)
-    frames480 = np.tile(rng.integers(0, 256, (512, 480, 640, 3),
-                                     dtype=np.uint8), (8, 1, 1, 1))
-    frames128 = rng.integers(0, 256, (4096, 128, 128, 3), dtype=np.uint8)
-    lengths = [17, 32, 45, 9, 60, 23, 3, 51]
-    names, paths = [], []
-    while len(paths) < len(frames480) + len(frames128):
-        n = min(lengths[len(names) % len(lengths)],
-                len(frames480) + len(frames128) - len(paths))
-        names.append(f"clip{len(names):04d}")
-        paths += [f"{names[-1]}_{i}.jpg" for i in range(n)]
+
+def phase_depthwise(smi, mbv2_shapes, b7_shape):
+    """Phase 4; returns B2's timing summed over one mobilenetv2 forward at
+    MAIN_BATCH and its max abs err."""
+    from ab_line_classifier_torch.ops import depthwise as D
+    from ab_line_classifier_torch.ops import depthwise_cuda as DC
+
+    phase("4 depthwise kernel against its plain version")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    n_calls, count0, max_err = 0, DC.launch_count, 0.0
+    for c, k, dtype, (b, h, w) in itertools.product(
+            (32, 96, 200, 728, 3840), (3, 5, 7),
+            (torch.float32, torch.bfloat16), ((1, 9, 7), (3, 8, 8))):
+        x = torch.randn((b, h, w, c), device="cuda", generator=gen).to(
+            dtype).permute(0, 3, 1, 2)
+        wt = (0.2 * torch.randn((c, 1, k, k), device="cuda", generator=gen)
+              ).to(dtype)
+        got = DC.cuda_depthwise(x, DC.pack_weight(wt))
+        max_err = max(max_err, float(
+            (got.float() - D.depthwise_plain(x, wt).float()).abs().max()))
+        n_calls += 1
+    torch.cuda.synchronize()
+    if DC.launch_count - count0 != n_calls:
+        raise AssertionError("launch counter did not count every launch")
+    print(f"grid: {n_calls} combinations (K 3/5/7, f32/bf16, C 32..3840, "
+          f"odd/even H/W, batch 1/3) agree, max abs err {max_err}")
+
+    big = torch.randn((2048, 64, 64, 128), device="cuda",
+                      generator=gen).permute(0, 3, 1, 2)
+    wt = 0.2 * torch.randn((128, 1, 3, 3), device="cuda", generator=gen)
+    got = DC.cuda_depthwise(big, DC.pack_weight(wt))
+    err = 0.0
+    for i in range(0, 2048, 256):  # the plain version in slices
+        err = max(err, float((got[i:i + 256] - D.depthwise_plain(
+            big[i:i + 256], wt)).abs().max()))
+    torch.cuda.synchronize()
+    print(f"f32 2048x64x64x128 ({big.numel() * 4 / 2 ** 31:.2f} x 2^31 "
+          f"bytes): agree, max abs err {err}")
+    max_err = max(max_err, err)
+    del big, got
+    torch.cuda.empty_cache()
+    if max_err != 0.0:
+        raise AssertionError(f"depthwise kernel differs from its plain "
+                             f"version by {max_err}")
+
+    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                 bytes=0.0, flops=0.0)
+    counts = {}
+    for shape, k in mbv2_shapes:
+        counts[(shape, k)] = counts.get((shape, k), 0) + 1
+    for (shape, k), n in counts.items():
+        shape = (MAIN_BATCH,) + shape[1:]
+        t = time_depthwise(shape, k, torch.bfloat16, gen)
+        for key in total:
+            total[key] += n * t[key]
+        print(f"depthwise bf16 {'x'.join(map(str, shape))} K={k} "
+              f"(x{n} per mobilenetv2 forward) on {smi}: agrees (max abs "
+              f"err {t['err']}); kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, cuDNN grouped conv "
+              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}: {t['bytes'] / 1e6:.1f} MB, "
+              f"{t['flops'] / 1e9:.2f} GFLOP)", flush=True)
+    shape, k = (MAIN_BATCH,) + b7_shape[0][1:], b7_shape[1]
+    t = time_depthwise(shape, k, torch.bfloat16, gen)
+    print(f"depthwise bf16 {'x'.join(map(str, shape))} K={k} "
+          f"(efficientnetb7's largest 5x5) on {smi}: agrees; kernel "
+          f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, cuDNN grouped "
+          f"conv {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+          f"({t['bound_by']}: {t['bytes'] / 1e6:.1f} MB)", flush=True)
+    total["bound_by"] = ("bytes" if total["bytes"] / HBM_BYTES_PER_S
+                         >= total["flops"] / PEAK_F32_FLOPS else "operations")
+    print(f"depthwise, the 10 layers of one mobilenetv2 forward at batch "
+          f"{MAIN_BATCH}: kernel {total['ms']:.4f} ms, plain "
+          f"{total['plain_ms']:.4f} ms, cuDNN {total['library_ms']:.4f} ms, "
+          f"bound {total['bound_ms']:.4f} ms ({total['bound_by']})",
+          flush=True)
+    return total, max_err
+
+
+def phase_serving(spec, state_dict, batch, frames480, frames128, tap,
+                  per_forward, smi):
+    """Serve host frames of both sources through ``Predictor`` with the
+    kernel counts reset just before; check B1 launched and B2 ``per_forward``
+    times per forward; then GPU vs CPU. Returns (predictor, B1 launches,
+    B2 launches)."""
+    from ab_line_classifier_torch.ops import depthwise_cuda as DC
+    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+    from ab_line_classifier_torch.predict.predict import Predictor
+
+    predictor = Predictor(spec, state_dict, batch_size=batch, device="cuda")
+    PC.reset_launch_count()
+    DC.reset_launch_count()
+    probs, n_clips, seconds = serve_clips(predictor, frames480, frames128)
+    pre, dw = PC.launch_count, DC.launch_count
+    forwards = -(-len(frames480) // batch) - (-len(frames128) // batch)
+    if pre != forwards:
+        raise AssertionError(f"{spec.name}: {pre} preprocess launches for "
+                             f"{forwards} forwards")
+    if dw != per_forward * forwards:
+        raise AssertionError(f"{spec.name}: {dw} depthwise launches for "
+                             f"{forwards} forwards, want {per_forward} each")
+    print(f"{spec.name}: served {len(probs)} frames into {n_clips} clips in "
+          f"{seconds:.2f} s at batch {batch} (host frames, pinned copies, 3 "
+          f"aggregations); preprocess launches {pre}, depthwise launches "
+          f"{dw} ({per_forward} per forward); P(b_lines) range "
+          f"[{probs[:, 1].min():.4f}, {probs[:, 1].max():.4f}]", flush=True)
+    # GPU against the same port on the CPU, on frames of graded brightness
+    # so that their logits differ.
+    n = 4 if spec.name == "efficientnetb7" else 8
+    check = (frames480[:n] * np.linspace(0.15, 1.0, n)[:, None, None, None]
+             ).astype(np.uint8)
+    gpu_vs_cpu(spec, state_dict, predictor, check, tap, smi)
+    return predictor, pre, dw
+
+
+def throughput(spec, state_dict, bs, per_forward, smi):
+    from ab_line_classifier_torch.ops import depthwise_cuda as DC
+    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+    from ab_line_classifier_torch.predict.benchmark import (
+        clip_inference_benchmark)
 
     PC.reset_launch_count()
-    t0 = time.perf_counter()
-    probs = np.concatenate([predictor.predict_probs(frames480),
-                            predictor.predict_probs(frames128)])
-    padded, mask = group_clip_probs(paths, probs, names)
-    clips = {algo: aggregate_clips(
-        torch.as_tensor(padded, device="cuda"),
-        torch.as_tensor(mask, device="cuda"), algorithm=algo,
-        classification_threshold=0.7, contiguity_threshold=3,
-        window=4).cpu().numpy()
-        for algo in ("average", "contiguous", "sliding_window")}
-    torch.cuda.synchronize()
-    main_s = time.perf_counter() - t0
-    launches = PC.launch_count
-    if launches == 0:
-        raise AssertionError("the main path never launched the kernel")
-    if probs.shape != (8192, 2) or not np.isfinite(probs).all():
-        raise AssertionError(f"bad frame probabilities {probs.shape}")
-    if np.abs(probs.sum(1) - 1.0).max() > 1e-5:
-        raise AssertionError("frame probability rows do not sum to 1")
-    for algo, out in clips.items():
-        if out.shape != (len(names), 2) or not np.isfinite(out).all() \
-                or np.abs(out.sum(1) - 1.0).max() > 1e-5:
-            raise AssertionError(f"bad {algo} clip probabilities")
-    print(f"served 8192 frames into {len(names)} clips in {main_s:.2f} s "
-          f"(host frames, pinned copies, 3 aggregations); preprocess "
-          f"launches {launches}; P(b_lines) range "
-          f"[{probs[:, 1].min():.4f}, {probs[:, 1].max():.4f}]", flush=True)
+    DC.reset_launch_count()
+    r = clip_inference_benchmark(batch_size=bs, img_dim=OUT_HW,
+                                 n_warmup=WARMUP, n_iters=ITERS,
+                                 state_dict=state_dict, spec=spec,
+                                 device="cuda", verbose=False)
+    # Warm-up, then n and 2n timed forwards (n more if the n-vs-2n dispatch
+    # check falls back to per-iteration syncs); the FLOP count's one-frame
+    # forward of the model adds one more depthwise pass.
+    forwards = PC.launch_count
+    if forwards not in (WARMUP + 3 * ITERS, WARMUP + 4 * ITERS):
+        raise AssertionError(f"benchmark launched the preprocess kernel "
+                             f"{forwards} times")
+    if DC.launch_count != per_forward * (forwards + 1):
+        raise AssertionError(f"benchmark launched the depthwise kernel "
+                             f"{DC.launch_count} times in {forwards} "
+                             f"forwards")
+    share = r["frames_per_sec"] * r["flops_per_frame"] / PEAK_BF16_FLOPS
+    print(f"throughput on {smi}: {spec.name} 128x128 batch {bs}: "
+          f"{r['frames_per_sec']:.1f} frames/s, {r['ms_per_batch']:.3f} "
+          f"ms/batch, {r['flops_per_frame'] / 1e9:.4f} GFLOP/frame, "
+          f"{100 * share:.2f}% of 989 TFLOP/s bf16; preprocess launches "
+          f"{forwards}, depthwise launches {DC.launch_count}", flush=True)
 
-    # GPU against the same port on the CPU, on 8 frames of graded
-    # brightness so that their logits differ.
-    check = (frames480[:8] * np.linspace(0.15, 1.0, 8)[:, None, None, None]
-             ).astype(np.uint8)
-    gpu = served_activations(spec, state_dict, check, "cuda")
-    cpu = served_activations(spec, state_dict, check, "cpu")
-    f32 = served_activations(dataclasses.replace(spec, dtype=torch.float32),
-                             state_dict, check, "cpu")
-    swapped = served_activations(spec, state_dict, check[..., ::-1].copy(),
-                                 "cuda")
-    logits = cpu["logits"]
-    spread = float(logits.max() - logits.min())
-    errs = {k: rel_err(gpu[k], cpu[k]) for k in (TAP, "logits")}
-    floor = {k: rel_err(cpu[k], f32[k]) for k in (TAP, "logits")}
-    fault = rel_err(swapped[TAP], cpu[TAP])
-    prob_err = float(np.abs(Predictor(spec, state_dict, batch_size=8,
-                                      device="cpu").predict_probs(check)
-                            - predictor.predict_probs(check)).max())
-    print(f"GPU vs CPU on 8 frames: relative error {TAP} {errs[TAP]:.3e}, "
-          f"logits {errs['logits']:.3e} (tolerance {ACT_RTOL}; CPU bf16 vs "
-          f"float32 {floor[TAP]:.3e} / {floor['logits']:.3e}; channels "
-          f"swapped {fault:.3e}); logit spread {spread:.3f}; max |dp| "
-          f"{prob_err:.2e} (tolerance {BF16_PROB_ATOL})", flush=True)
-    if spread < 20 * ACT_RTOL:
-        raise AssertionError(f"logits too flat to compare ({spread})")
-    if max(errs.values()) > ACT_RTOL:
-        raise AssertionError(f"GPU vs CPU activations differ: {errs}")
-    if fault < 3 * ACT_RTOL:
-        raise AssertionError(f"a channel swap moves {TAP} by only {fault}")
-    if prob_err > BF16_PROB_ATOL:
-        raise AssertionError(f"GPU vs CPU probabilities differ by {prob_err}")
 
-    phase("5 throughput")
-    for bs in (1024, 2048):
-        PC.reset_launch_count()
-        r = clip_inference_benchmark(batch_size=bs, img_dim=OUT_HW,
-                                     n_warmup=WARMUP, n_iters=ITERS,
-                                     state_dict=state_dict, spec=spec,
-                                     device="cuda", verbose=False)
-        # Warm-up, then n and 2n timed forwards (n more if the n-vs-2n
-        # dispatch check falls back to per-iteration syncs).
-        bench_launches = PC.launch_count
-        if bench_launches not in (WARMUP + 3 * ITERS, WARMUP + 4 * ITERS):
-            raise AssertionError(f"benchmark launched the kernel "
-                                 f"{bench_launches} times")
-        share = r["frames_per_sec"] * r["flops_per_frame"] / PEAK_BF16_FLOPS
-        print(f"throughput on {smi}: cutoffvgg16 128x128 batch {bs}: "
-              f"{r['frames_per_sec']:.1f} frames/s, {r['ms_per_batch']:.3f} "
-              f"ms/batch, {r['flops_per_frame'] / 1e9:.4f} GFLOP/frame, "
-              f"{100 * share:.2f}% of 989 TFLOP/s bf16; preprocess launches "
-              f"{bench_launches}", flush=True)
-    for src in ((128, 128), (480, 640)):
+def profile_batch(name, predictor, smi, sources, gen):
+    for src in sources:
         x = torch.randint(0, 256, (MAIN_BATCH, *src, 3), dtype=torch.uint8,
                           device="cuda", generator=gen)
         prof = device_time_by_kernel(lambda: predictor.forward(x))
         wall, busy = prof["wall_ms"], prof["busy_ms"]
-        print(f"profile, batch {MAIN_BATCH} from {src[0]}x{src[1]} on {smi}: "
-              f"wall {wall:.3f} ms, device busy {busy:.3f} ms "
+        print(f"profile, {name} batch {MAIN_BATCH} from {src[0]}x{src[1]} on "
+              f"{smi}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
               f"(idle share {1 - busy / wall:.4f})")
-        for name, ms in prof["kernels"][:8]:
-            print(f"  {ms:9.3f} ms {100 * ms / wall:6.2f}%  {name[:110]}")
-        pre = sum(ms for name, ms in prof["kernels"]
-                  if "preprocess_kernel" in name)
-        print(f"  preprocess kernel: {pre:.4f} ms "
-              f"({100 * pre / wall:.3f}% of the batch)", flush=True)
+        for kname, ms in prof["kernels"][:10]:
+            print(f"  {ms:9.3f} ms {100 * ms / wall:6.2f}%  {kname[:110]}")
+        for label, key in (("preprocess", "preprocess_kernel"),
+                           ("depthwise", "depthwise_kernel")):
+            ms = sum(v for k, v in prof["kernels"] if key in k)
+            print(f"  {label} kernel: {ms:.4f} ms "
+                  f"({100 * ms / wall:.3f}% of the batch)", flush=True)
         del x
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this needs an "
+              "NVIDIA GPU", file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    from ab_line_classifier_torch.ops import _build
+    from ab_line_classifier_torch.predict.benchmark import (build_flagship,
+                                                            build_zoo)
+    from ab_line_classifier_torch.utils.jax_params import state_dict_from_flax
+
+    t_start = time.perf_counter()
+    phase("1 device")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    kind = torch.cuda.get_device_name(0)
+    print(f"python {sys.version.split()[0]} torch {torch.__version__} "
+          f"cuda {torch.version.cuda} device {kind} "
+          f"count {torch.cuda.device_count()}")
+    # Comparisons of float32 paths run in full float32, not TF32.
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    phase("2 build")
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor() as pool:
+        libs = list(pool.map(_build.build, _build.kernel_names()))
+    print(f"built {len(libs)} kernel(s) in {time.perf_counter() - t0:.2f} s:"
+          f" {[os.path.relpath(p, REPO) for p in libs]}")
+
+    b1, b1_err = phase_preprocess(kind)
+    specs = {name: build_zoo(name, OUT_HW) for name in ZOO}
+    shapes = {name: depthwise_layer_shapes(spec)
+              for name, spec in specs.items()}
+    for name, (_, per_forward) in ZOO.items():
+        if len(shapes[name]) != per_forward:
+            raise AssertionError(f"{name} has {len(shapes[name])} kernel "
+                                 f"depthwise layers")
+    b7_5x5 = max((s for s in shapes["efficientnetb7"] if s[1] == 5),
+                 key=lambda s: np.prod(s[0]))
+    b2, b2_err = phase_depthwise(smi, shapes["mobilenetv2"], b7_5x5)
+
+    phase("5 main path: cutoffvgg16 serving + clip aggregation")
+    frames480, frames128 = host_frames(1, 4096, 4096)
+    vgg = build_flagship(OUT_HW)
+    vgg_sd = state_dict_from_flax(serving_weights(vgg))
+    vgg_pred, b1_launches, _ = phase_serving(
+        vgg, vgg_sd, MAIN_BATCH, frames480, frames128, "block3_conv3", 0,
+        smi)
+
+    phase("6 main path: mobilenetv2 serving + clip aggregation")
+    mbv2 = specs["mobilenetv2"]
+    weights = {name: calibrated(spec, state_dict_from_flax(
+        serving_weights(spec))) for name, spec in specs.items()}
+    mbv2_pred, pre, b2_launches = phase_serving(
+        mbv2, weights["mobilenetv2"], MAIN_BATCH, frames480, frames128,
+        ZOO["mobilenetv2"][0], ZOO["mobilenetv2"][1], smi)
+    b1_launches += pre
+
+    phase("7 xception and efficientnetb7 serving")
+    for name in ("xception", "efficientnetb7"):
+        _, pre, dw = phase_serving(specs[name], weights[name], ZOO_BATCH,
+                                   frames480[:512], frames128[:512],
+                                   *ZOO[name], smi)
+        b1_launches += pre
+        b2_launches += dw
+    del frames480, frames128
+
+    phase("8 throughput")
+    for bs in (1024, 2048):
+        throughput(vgg, vgg_sd, bs, 0, smi)
+        throughput(mbv2, weights["mobilenetv2"], bs, 10, smi)
+    for name in ("xception", "efficientnetb7"):
+        throughput(specs[name], weights[name], 512, ZOO[name][1], smi)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    profile_batch("cutoffvgg16", vgg_pred, smi, ((128, 128), (480, 640)),
+                  gen)
+    profile_batch("mobilenetv2", mbv2_pred, smi, ((128, 128),), gen)
     torch.cuda.synchronize()
 
-    t = timing[(480, 640)]
-    kernel = {"name": "preprocess", "route": "cuda",
-              "source": "ab_line_classifier_torch/csrc/preprocess.cu",
-              "replaces": "ab_line_classifier_tpu/ops/preprocess_pallas.py:66",
-              "launches": launches, "max_abs_err": max_err,
-              "max_err": max_err, "ms": t["ms"], "kernel_ms": t["ms"],
-              "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-              "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-              "shape": f"{MAIN_BATCH}x480x640x3 uint8 -> 128x128x3 bf16"}
+    kernels = [
+        {"name": "preprocess", "route": "cuda",
+         "source": "ab_line_classifier_torch/csrc/preprocess.cu",
+         "replaces": "ab_line_classifier_tpu/ops/preprocess_pallas.py:66",
+         "launches": b1_launches, "max_abs_err": b1_err,
+         "ms": b1["ms"], "plain_ms": b1["plain_ms"],
+         "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"],
+         "library_ms": b1["library_ms"],
+         "shape": f"{MAIN_BATCH}x480x640x3 uint8 -> 128x128x3 bf16"},
+        {"name": "depthwise", "route": "cuda",
+         "source": "ab_line_classifier_torch/csrc/depthwise.cu",
+         "replaces": "ab_line_classifier_tpu/ops/depthwise_pallas.py:60",
+         "launches": b2_launches, "max_abs_err": b2_err,
+         "ms": b2["ms"], "plain_ms": b2["plain_ms"],
+         "bound_ms": b2["bound_ms"], "bound_by": b2["bound_by"],
+         "library_ms": b2["library_ms"],
+         "shape": f"the 10 stride-1 layers of a mobilenetv2 forward, bf16, "
+                  f"batch {MAIN_BATCH}"},
+    ]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

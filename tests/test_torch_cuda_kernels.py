@@ -8,7 +8,9 @@ only torch, numpy and the port, so it runs on a machine without JAX::
 Tolerance of the preprocess kernel: float32 within 1 ulp, bfloat16 within
 1 bfloat16 ulp, taken at the larger of |out| and |bias[c]|
 (``ops/image.py::max_ulp_error``). The port's kernel and plain version
-agree exactly in practice.
+agree exactly in practice. The depthwise kernel sums the plain version's
+products in the same order with the same roundings: it must agree
+exactly.
 """
 
 import itertools
@@ -16,6 +18,8 @@ import itertools
 import pytest
 import torch
 
+from ab_line_classifier_torch.ops import depthwise as torch_depthwise
+from ab_line_classifier_torch.ops import depthwise_cuda
 from ab_line_classifier_torch.ops import image as torch_image
 from ab_line_classifier_torch.ops import preprocess_cuda
 from ab_line_classifier_torch.ops.image import (MASK_OPTIONS, OUT_DTYPES,
@@ -67,3 +71,30 @@ def test_cuda_kernel_64bit_offsets():
     want = torch_image.fused_preprocess(x, **kw)
     max_ulp_error(got[-8:], want[-8:], torch.bfloat16, "caffe")
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_depthwise_kernel_matches_plain_version():
+    """K in {3, 5, 7}, float32 and bfloat16, ragged C, odd and even H/W,
+    batch 1 and more; then an input past 2^31 bytes (64-bit offsets)."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shapes = ((1, 16, 16, 32), (3, 9, 7, 96), (2, 8, 8, 200),
+              (4, 4, 4, 728), (2, 5, 6, 3840))
+    for (b, h, w, c), k, dtype in itertools.product(
+            shapes, (3, 5, 7), (torch.float32, torch.bfloat16)):
+        x = torch.randn((b, h, w, c), device="cuda", generator=gen
+                        ).to(dtype).permute(0, 3, 1, 2)
+        wt = (0.2 * torch.randn((c, 1, k, k), device="cuda",
+                                generator=gen)).to(dtype)
+        before = depthwise_cuda.launch_count
+        got = depthwise_cuda.cuda_depthwise(x, depthwise_cuda.pack_weight(wt))
+        assert depthwise_cuda.launch_count == before + 1
+        assert got.is_contiguous(memory_format=torch.channels_last)
+        assert torch.equal(got, torch_depthwise.depthwise_plain(x, wt))
+    x = torch.randn((1100, 64, 64, 128), device="cuda", generator=gen
+                    ).permute(0, 3, 1, 2)
+    assert x.numel() * 4 > 2 ** 31
+    wt = 0.2 * torch.randn((128, 1, 3, 3), device="cuda", generator=gen)
+    got = depthwise_cuda.cuda_depthwise(x, depthwise_cuda.pack_weight(wt))
+    assert torch.equal(got[-4:], torch_depthwise.depthwise_plain(x[-4:], wt))

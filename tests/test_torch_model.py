@@ -158,10 +158,13 @@ def test_graph_indices_match_jax(jax_spec):
             .graph.layer_names == full.graph.layer_names)
 
 
-@pytest.mark.parametrize("name", ["mobilenetv2", "xception", "cnn0",
+@pytest.mark.parametrize("name", ["shufflenetv2", "bitr50x1", "unet",
                                   "no_such_model"])
 def test_unported_models_raise(name):
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
+    """A name outside the zoo raises (config.yml's vestigial SHUFFLENETV2 /
+    BiTR50x1 sections, the auto-masking U-Net), where the JAX registry
+    would fall back to cnn0."""
+    with pytest.raises(NotImplementedError, match="no model"):
         build_model(name, HPARAMS, SHAPE, 2)
 
 
