@@ -4,8 +4,10 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` into ``build/kernels/lib<name>-<hash>.so`` at the root of the
 checkout on first use, then loaded with ``ctypes``. The hash covers the
 source and the flags, so an edited kernel is rebuilt and a stale library is
-never loaded. Nothing is compiled when a module is imported: this happens
-inside the first call that launches a kernel (or in :func:`build`).
+never loaded. nvcc's output, with ptxas's registers and spills of every
+kernel, is kept beside the library (:func:`build_log`). Nothing is
+compiled when a module is imported: this happens inside the first call
+that launches a kernel (or in :func:`build`).
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -62,8 +64,16 @@ def build(name: str) -> str:
     if proc.returncode != 0:
         raise RuntimeError(f"kernel build failed: {name}: nvcc exited "
                            f"{proc.returncode}\n{proc.stdout}")
+    with open(out[:-3] + ".log", "w") as f:
+        f.write(proc.stdout)
     os.replace(tmp, out)  # atomic: a reader never sees a partial .so
     return out
+
+
+def build_log(name: str) -> str:
+    """nvcc's output of the last build of kernel ``name``."""
+    with open(library_path(name)[:-3] + ".log") as f:
+        return f.read()
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -141,6 +141,29 @@ def flops_per_frame(module: nn.Module, input_shape: Tuple[int, int, int],
     return total
 
 
+def depthwise_layer_shapes(spec: ModelSpec) -> list:
+    """``(NHWC shape at batch 1, K)`` of every depthwise layer that kernel
+    B2 runs in one forward of ``spec`` (stride 1, ``SAME``), in order."""
+    mod = spec.module().eval()
+    seen = []
+
+    def hook(m, args):
+        if m.stride == 1 and m.padding == "SAME":
+            x = args[0]
+            seen.append(((1, x.shape[2], x.shape[3], x.shape[1]),
+                         m.weight.shape[-1]))
+
+    hooks = [m.register_forward_pre_hook(hook) for m in mod.modules()
+             if isinstance(m, DepthwiseConv)]
+    try:
+        with torch.no_grad():
+            mod(torch.zeros((1, *spec.input_shape)))
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
 def clip_inference_benchmark(batch_size: int = 512,
                              img_dim: Tuple[int, int] = (128, 128),
                              src_hw: Optional[Tuple[int, int]] = None,

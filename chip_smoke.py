@@ -11,7 +11,8 @@ no result):
 
 1. device — the card's name and power limit (nvidia-smi);
 2. build  — every CUDA kernel from ``ab_line_classifier_torch/csrc`` into
-   ``build/kernels``, one nvcc per source, all started together;
+   ``build/kernels``, one nvcc per source, all started together; ptxas's
+   registers and spills of each instance of the depthwise kernel;
 3. preprocess kernel (B1) — against its plain PyTorch version over modes x
    resize maps x masks x output dtypes and several source sizes, plus 2048
    frames of 1080x1440 (past 2^31 bytes: the 64-bit offsets); then, at the
@@ -19,12 +20,17 @@ no result):
    version's, a resize-only library yardstick
    (``F.interpolate(mode="nearest-exact")``, which the port never calls)
    and the bytes-moved bound;
-4. depthwise kernel (B2) — against its plain version, exactly, over K x
-   dtypes x channel counts x odd/even sizes x batch, one f32 input past
-   2^31 bytes, and the shapes of mobilenetv2's stride-1 depthwise layers
-   at batch 2048 and efficientnetb7's largest 5x5 one; at those shapes the
-   kernel's time, the plain version's, cuDNN's grouped conv
-   (``F.conv2d(groups=C)``, which the port never calls) and the bound;
+4. depthwise kernel (B2) — against its plain version, exactly
+   (``torch.equal``), over K 1/3/5/7 x dtypes x channel counts (multiples
+   of the 16-byte vector or not) x frame sizes x batch, inputs whose data
+   pointer is not 16-byte aligned, an input that is not channels_last (one
+   counted copy), one f32 input past 2^31 bytes, and every distinct
+   stride-1 shape of mobilenetv2 at batch 2048 and of xception and
+   efficientnetb7 at 512; at mobilenetv2's shapes and efficientnetb7's
+   largest 5x5 one the kernel's time, the plain version's, cuDNN's grouped
+   conv (``F.conv2d(groups=C)``, which the port never calls) and the
+   bound, and per forward of each of the three models the kernel's time
+   summed over its layers beside cuDNN's and the bound;
 5. cutoffvgg16 serving — full width (mixed precision, 128x128, random
    weights from a numpy seed through the weight bridge), 4096 frames of
    480x640 and 4096 of 128x128 through ``Predictor``, then clip grouping
@@ -33,14 +39,17 @@ no result):
    the CPU at ``block3_conv3`` and the logits;
 6. mobilenetv2 serving — the same at full width, with batch-norm
    statistics set from a calibration batch; B2 launches exactly 10 times
-   per forward; GPU against CPU at ``block_12_add`` and the logits;
+   per forward and copies no input; GPU against CPU at ``block_12_add``
+   and the logits;
 7. xception and efficientnetb7 serving — 1024 frames at batch 256 through
-   ``Predictor``, 34 and 51 B2 launches per forward, GPU against CPU at one
-   tap each;
+   ``Predictor``, 34 and 51 B2 launches per forward and no input copy, GPU
+   against CPU at one tap each;
 8. throughput — ``clip_inference_benchmark`` for cutoffvgg16 and
    mobilenetv2 at batch 1024 and 2048 and for xception and efficientnetb7
    at 512 (each run's kernel launches counted), and a ``torch.profiler``
-   breakdown by kernel of a cutoffvgg16 and a mobilenetv2 batch.
+   breakdown by kernel of a cutoffvgg16 and a mobilenetv2 batch, with the
+   copy and fill kernels attributed to the PyTorch operators that launch
+   them.
 
 The last two lines of standard output are a JSON line of per-kernel
 numbers and ``{"ok": true, "device": {...}}``.
@@ -115,9 +124,11 @@ def cuda_ms(fn, iters=ITERS, warmup=WARMUP):
 def device_time_by_kernel(fn, n_iters=3):
     """Where the device time of ``fn`` goes: ``torch.profiler`` over
     ``n_iters`` calls (after one warm call), summed by kernel name. Returns
-    ``{"wall_ms", "busy_ms", "kernels": [(name, ms), ...]}`` per call,
-    kernels sorted by time; ``busy_ms`` is 0.0 when the profiler saw no
-    device activity."""
+    ``{"wall_ms", "busy_ms", "kernels": [(name, ms), ...], "copies":
+    [(op, ms), ...]}`` per call, kernels sorted by time; ``busy_ms`` is 0.0
+    when the profiler saw no device activity. ``copies`` sums the copy and
+    fill kernels (``direct_copy_kernel``, ``FillFunctor``) by the outermost
+    PyTorch operator that launched them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -137,8 +148,19 @@ def device_time_by_kernel(fn, n_iters=3):
          for e in prof.key_averages()
          if e.device_type == DeviceType.CUDA and e.self_device_time_total),
         key=lambda kv: -kv[1])
+    copies = {}
+    for e in prof.events():
+        for k in getattr(e, "kernels", ()):
+            if "direct_copy_kernel" in k.name or "FillFunctor" in k.name:
+                op = e
+                while (op.cpu_parent is not None
+                       and op.cpu_parent.name.startswith("aten::")):
+                    op = op.cpu_parent
+                copies[op.name] = (copies.get(op.name, 0.0)
+                                   + k.duration / 1e3 / n_iters)
     return {"wall_ms": start.elapsed_time(end) / n_iters,
-            "busy_ms": sum(ms for _, ms in kernels), "kernels": kernels}
+            "busy_ms": sum(ms for _, ms in kernels), "kernels": kernels,
+            "copies": sorted(copies.items(), key=lambda kv: -kv[1])}
 
 
 def beam_mask(hs, ws):
@@ -372,51 +394,79 @@ def serve_clips(predictor, frames480, frames128):
     return probs, len(names), seconds
 
 
-def depthwise_layer_shapes(spec):
-    """``(NHWC shape at batch 1, K)`` of every depthwise layer the kernel
-    runs in one forward of ``spec`` (stride 1, SAME), in order."""
-    from ab_line_classifier_torch import graph as G
+def ptxas_report(log):
+    """``[(instance, "N registers, S bytes spill stores, L bytes spill
+    loads"), ...]`` of the depthwise kernel's instances in nvcc's
+    ``-Xptxas -v`` output."""
+    import re
 
-    mod = spec.module().eval()
-    seen = []
+    out, name, spills = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"depthwise_(tiled|scalar)I(13__nv_bfloat16|f)"
+                          r"((?:Li\d+E)+)", m.group(1))
+            if k:
+                args = re.findall(r"Li(\d+)E", k.group(3))
+                keys = (("K", "V", "rows") if k.group(1) == "tiled"
+                        else ("K", "rows"))
+                dtype = "f32" if k.group(2) == "f" else "bf16"
+                name = (f"{k.group(1)}<{dtype}, " + ", ".join(
+                    f"{key}={a}" for key, a in zip(keys, args)) + ">")
+            else:
+                name = None
+        elif name and "spill stores" in line:
+            spills = line.split(",", 1)[1].strip()
+        elif name and "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out.append((name, f"{regs} registers, {spills}"))
+            name = None
+    return out
 
-    def hook(m, args):
-        if m.stride == 1 and m.padding == "SAME":
-            x = args[0]
-            seen.append(((1, x.shape[2], x.shape[3], x.shape[1]),
-                         m.weight.shape[-1]))
 
-    for m in mod.modules():
-        if isinstance(m, G.DepthwiseConv):
-            m.register_forward_pre_hook(hook)
-    with torch.no_grad():
-        mod(torch.zeros((1, *spec.input_shape)))
-    return seen
-
-
-def time_depthwise(shape, k, dtype, gen):
-    """B2 at NHWC ``shape``: exact agreement with the plain version, and
-    the kernel's, plain version's and cuDNN's times with the bound."""
-    from ab_line_classifier_torch.ops import depthwise as D
-    from ab_line_classifier_torch.ops import depthwise_cuda as DC
-
+def make_depthwise(shape, k, dtype, gen):
+    """An NCHW view of NHWC ``shape`` memory and a ``[C, 1, K, K]`` weight."""
     b, h, w, c = shape
     x = torch.randn(shape, device="cuda", generator=gen).to(dtype).permute(
         0, 3, 1, 2)
     wt = (0.2 * torch.randn((c, 1, k, k), device="cuda", generator=gen)
           ).to(dtype)
+    return x, wt
+
+
+def check_depthwise(x, wt, label):
+    """B2 against its plain version: raises unless ``torch.equal``; returns
+    the max abs err (0.0)."""
+    from ab_line_classifier_torch.ops import depthwise as D
+    from ab_line_classifier_torch.ops import depthwise_cuda as DC
+
+    got = DC.cuda_depthwise(x, DC.pack_weight(wt))
+    want = D.depthwise_plain(x, wt)
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"depthwise {label}: differs from its plain "
+                             f"version, max abs err {err}")
+    return err
+
+
+def time_depthwise(shape, k, dtype, gen, plain=True):
+    """B2 at NHWC ``shape``: exact agreement with the plain version, and
+    the kernel's time, cuDNN's and the plain version's (unless ``plain`` is
+    false) with the bound."""
+    from ab_line_classifier_torch.ops import depthwise as D
+    from ab_line_classifier_torch.ops import depthwise_cuda as DC
+
+    c = shape[-1]
+    x, wt = make_depthwise(shape, k, dtype, gen)
     packed = DC.pack_weight(wt)
-    err = float((DC.cuda_depthwise(x, packed).float()
-                 - D.depthwise_plain(x, wt).float()).abs().max())
-    if err != 0.0:
-        raise AssertionError(f"depthwise {shape} K={k} {dtype}: max abs err "
-                             f"{err}")
+    err = check_depthwise(x, wt, f"{shape} K={k} {dtype}")
     bound_ms, bound_by, nbytes, flops = depthwise_bound(
         shape, k, x.element_size())
     out = dict(err=err, bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
                flops=flops,
                ms=cuda_ms(lambda: DC.cuda_depthwise(x, packed)),
-               plain_ms=cuda_ms(lambda: D.depthwise_plain(x, wt)),
+               plain_ms=(cuda_ms(lambda: D.depthwise_plain(x, wt)) if plain
+                         else 0.0),
                library_ms=cuda_ms(lambda: F.conv2d(x, wt, padding=k // 2,
                                                    groups=c)))
     del x
@@ -501,82 +551,129 @@ def phase_preprocess(kind):
     return timing[(480, 640)], max_err
 
 
-def phase_depthwise(smi, mbv2_shapes, b7_shape):
-    """Phase 4; returns B2's timing summed over one mobilenetv2 forward at
-    MAIN_BATCH and its max abs err."""
+def depthwise_grid(gen):
+    """B2 against its plain version over the grid and the edge cases;
+    returns (number of launches, max abs err)."""
+    from ab_line_classifier_torch.ops import depthwise_cuda as DC
+
+    n, err = 0, 0.0
+    for c, k, dtype, (b, h, w) in itertools.product(
+            (3, 13, 36, 32, 96, 200, 728, 3840), (1, 3, 5, 7),
+            (torch.float32, torch.bfloat16),
+            ((1, 9, 7), (3, 8, 8), (2, 4, 4), (1, 20, 13))):
+        x, wt = make_depthwise((b, h, w, c), k, dtype, gen)
+        err = max(err, check_depthwise(x, wt, f"{(b, h, w, c)} K={k} "
+                                              f"{dtype}"))
+        n += 1
+    # Data pointers off the 16-byte grid: a batch slice of frames of 910
+    # (bf16) or 1820 (f32) bytes with odd C, and a 40-channel tensor one
+    # element into its storage (the kernel takes one channel a thread).
+    copies = DC.copy_count
+    for k, dtype in itertools.product((1, 3, 5, 7),
+                                      (torch.float32, torch.bfloat16)):
+        x, wt = make_depthwise((3, 5, 7, 13), k, dtype, gen)
+        flat = torch.randn(1 + 2 * 6 * 6 * 40, device="cuda",
+                           generator=gen).to(dtype)
+        shifted = flat[1:].view(2, 6, 6, 40).permute(0, 3, 1, 2)
+        w40 = make_depthwise((1, 1, 1, 40), k, dtype, gen)[1]
+        for xx, ww in ((x[1:], wt), (shifted, w40)):
+            if xx.data_ptr() % 16 == 0:
+                raise AssertionError("the unaligned case is aligned")
+            err = max(err, check_depthwise(xx, ww, f"unaligned "
+                                                   f"{tuple(xx.shape)} K={k} "
+                                                   f"{dtype}"))
+            n += 1
+    if DC.copy_count != copies:
+        raise AssertionError("a channels_last input was copied")
+    # NCHW memory: copied once to channels_last, then the same result.
+    x, wt = make_depthwise((2, 6, 6, 40), 3, torch.bfloat16, gen)
+    err = max(err, check_depthwise(x.contiguous(), wt, "NCHW memory"))
+    n += 1
+    if DC.copy_count != copies + 1:
+        raise AssertionError(f"copy_count {DC.copy_count - copies} for one "
+                             f"NCHW input")
+    return n, err
+
+
+def phase_depthwise(smi, shapes, b7_shape):
+    """Phase 4; returns B2's timing summed over one forward of each zoo
+    model (mobilenetv2 at MAIN_BATCH, the others at 512), its time at
+    efficientnetb7's largest 5x5 layer, and its max abs err."""
     from ab_line_classifier_torch.ops import depthwise as D
     from ab_line_classifier_torch.ops import depthwise_cuda as DC
 
     phase("4 depthwise kernel against its plain version")
     gen = torch.Generator(device="cuda").manual_seed(1)
-    n_calls, count0, max_err = 0, DC.launch_count, 0.0
-    for c, k, dtype, (b, h, w) in itertools.product(
-            (32, 96, 200, 728, 3840), (3, 5, 7),
-            (torch.float32, torch.bfloat16), ((1, 9, 7), (3, 8, 8))):
-        x = torch.randn((b, h, w, c), device="cuda", generator=gen).to(
-            dtype).permute(0, 3, 1, 2)
-        wt = (0.2 * torch.randn((c, 1, k, k), device="cuda", generator=gen)
-              ).to(dtype)
-        got = DC.cuda_depthwise(x, DC.pack_weight(wt))
-        max_err = max(max_err, float(
-            (got.float() - D.depthwise_plain(x, wt).float()).abs().max()))
-        n_calls += 1
+    count0 = DC.launch_count
+    n_calls, max_err = depthwise_grid(gen)
     torch.cuda.synchronize()
     if DC.launch_count - count0 != n_calls:
         raise AssertionError("launch counter did not count every launch")
-    print(f"grid: {n_calls} combinations (K 3/5/7, f32/bf16, C 32..3840, "
-          f"odd/even H/W, batch 1/3) agree, max abs err {max_err}")
+    print(f"grid: {n_calls} cases (K 1/3/5/7, f32/bf16, C 3..3840 with and "
+          f"without whole 16-byte vectors, H/W 4..20, batch 1..3, unaligned "
+          f"data pointers, NCHW memory) equal to the plain version, max abs "
+          f"err {max_err}")
 
     big = torch.randn((2048, 64, 64, 128), device="cuda",
                       generator=gen).permute(0, 3, 1, 2)
     wt = 0.2 * torch.randn((128, 1, 3, 3), device="cuda", generator=gen)
     got = DC.cuda_depthwise(big, DC.pack_weight(wt))
-    err = 0.0
     for i in range(0, 2048, 256):  # the plain version in slices
-        err = max(err, float((got[i:i + 256] - D.depthwise_plain(
-            big[i:i + 256], wt)).abs().max()))
+        if not torch.equal(got[i:i + 256],
+                           D.depthwise_plain(big[i:i + 256], wt)):
+            raise AssertionError(f"f32 2048x64x64x128: frames {i}.. differ")
     torch.cuda.synchronize()
     print(f"f32 2048x64x64x128 ({big.numel() * 4 / 2 ** 31:.2f} x 2^31 "
-          f"bytes): agree, max abs err {err}")
-    max_err = max(max_err, err)
+          f"bytes): equal to the plain version")
     del big, got
     torch.cuda.empty_cache()
-    if max_err != 0.0:
-        raise AssertionError(f"depthwise kernel differs from its plain "
-                             f"version by {max_err}")
 
-    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                 bytes=0.0, flops=0.0)
-    counts = {}
-    for shape, k in mbv2_shapes:
-        counts[(shape, k)] = counts.get((shape, k), 0) + 1
-    for (shape, k), n in counts.items():
-        shape = (MAIN_BATCH,) + shape[1:]
-        t = time_depthwise(shape, k, torch.bfloat16, gen)
-        for key in total:
-            total[key] += n * t[key]
-        print(f"depthwise bf16 {'x'.join(map(str, shape))} K={k} "
-              f"(x{n} per mobilenetv2 forward) on {smi}: agrees (max abs "
-              f"err {t['err']}); kernel {t['ms']:.4f} ms, plain "
-              f"{t['plain_ms']:.4f} ms, cuDNN grouped conv "
-              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-              f"({t['bound_by']}: {t['bytes'] / 1e6:.1f} MB, "
-              f"{t['flops'] / 1e9:.2f} GFLOP)", flush=True)
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bytes", "flops")
+    totals = {}
+    for name, batch in (("mobilenetv2", MAIN_BATCH), ("xception", 512),
+                        ("efficientnetb7", 512)):
+        total = dict.fromkeys(keys, 0.0)
+        counts = {}
+        for shape, k in shapes[name]:
+            counts[(shape, k)] = counts.get((shape, k), 0) + 1
+        for (shape, k), n in counts.items():
+            shape = (batch,) + shape[1:]
+            t = time_depthwise(shape, k, torch.bfloat16, gen,
+                               plain=name == "mobilenetv2")
+            for key in keys:
+                total[key] += n * t[key]
+            plain = (f"plain {t['plain_ms']:.4f} ms, "
+                     if name == "mobilenetv2" else "")
+            print(f"depthwise bf16 {'x'.join(map(str, shape))} K={k} "
+                  f"(x{n} per {name} forward) on {smi}: equal; kernel "
+                  f"{t['ms']:.4f} ms ({t['bytes'] / t['ms'] / 1e9:.2f} TB/s, "
+                  f"{100 * t['bound_ms'] / t['ms']:.1f}% of the bound), "
+                  f"{plain}cuDNN grouped conv {t['library_ms']:.4f} ms, "
+                  f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}: "
+                  f"{t['bytes'] / 1e6:.1f} MB, {t['flops'] / 1e9:.2f} "
+                  f"GFLOP)", flush=True)
+        total["bound_by"] = ("bytes" if total["bytes"] / HBM_BYTES_PER_S
+                             >= total["flops"] / PEAK_F32_FLOPS
+                             else "operations")
+        total["batch"] = batch
+        totals[name] = total
+        plain = (f"plain {total['plain_ms']:.4f} ms, "
+                 if name == "mobilenetv2" else "")
+        print(f"depthwise, the {len(shapes[name])} layers of one {name} "
+              f"forward at batch {batch} on {smi}: kernel {total['ms']:.4f} "
+              f"ms ({100 * total['bound_ms'] / total['ms']:.1f}% of the "
+              f"bound), {plain}cuDNN {total['library_ms']:.4f} ms, bound "
+              f"{total['bound_ms']:.4f} ms ({total['bound_by']})",
+              flush=True)
     shape, k = (MAIN_BATCH,) + b7_shape[0][1:], b7_shape[1]
-    t = time_depthwise(shape, k, torch.bfloat16, gen)
+    b7 = time_depthwise(shape, k, torch.bfloat16, gen)
     print(f"depthwise bf16 {'x'.join(map(str, shape))} K={k} "
-          f"(efficientnetb7's largest 5x5) on {smi}: agrees; kernel "
-          f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, cuDNN grouped "
-          f"conv {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-          f"({t['bound_by']}: {t['bytes'] / 1e6:.1f} MB)", flush=True)
-    total["bound_by"] = ("bytes" if total["bytes"] / HBM_BYTES_PER_S
-                         >= total["flops"] / PEAK_F32_FLOPS else "operations")
-    print(f"depthwise, the 10 layers of one mobilenetv2 forward at batch "
-          f"{MAIN_BATCH}: kernel {total['ms']:.4f} ms, plain "
-          f"{total['plain_ms']:.4f} ms, cuDNN {total['library_ms']:.4f} ms, "
-          f"bound {total['bound_ms']:.4f} ms ({total['bound_by']})",
-          flush=True)
-    return total, max_err
+          f"(efficientnetb7's largest 5x5) on {smi}: equal; kernel "
+          f"{b7['ms']:.4f} ms ({100 * b7['bound_ms'] / b7['ms']:.1f}% of the "
+          f"bound), plain {b7['plain_ms']:.4f} ms, cuDNN grouped conv "
+          f"{b7['library_ms']:.4f} ms, bound {b7['bound_ms']:.4f} ms "
+          f"({b7['bound_by']}: {b7['bytes'] / 1e6:.1f} MB)", flush=True)
+    return totals, b7, max_err
 
 
 def phase_serving(spec, state_dict, batch, frames480, frames128, tap,
@@ -601,10 +698,14 @@ def phase_serving(spec, state_dict, batch, frames480, frames128, tap,
     if dw != per_forward * forwards:
         raise AssertionError(f"{spec.name}: {dw} depthwise launches for "
                              f"{forwards} forwards, want {per_forward} each")
+    if DC.copy_count:
+        raise AssertionError(f"{spec.name}: the depthwise wrapper copied "
+                             f"{DC.copy_count} inputs to channels_last")
     print(f"{spec.name}: served {len(probs)} frames into {n_clips} clips in "
           f"{seconds:.2f} s at batch {batch} (host frames, pinned copies, 3 "
           f"aggregations); preprocess launches {pre}, depthwise launches "
-          f"{dw} ({per_forward} per forward); P(b_lines) range "
+          f"{dw} ({per_forward} per forward), depthwise input copies "
+          f"{DC.copy_count}; P(b_lines) range "
           f"[{probs[:, 1].min():.4f}, {probs[:, 1].max():.4f}]", flush=True)
     # GPU against the same port on the CPU, on frames of graded brightness
     # so that their logits differ.
@@ -638,6 +739,9 @@ def throughput(spec, state_dict, bs, per_forward, smi):
         raise AssertionError(f"benchmark launched the depthwise kernel "
                              f"{DC.launch_count} times in {forwards} "
                              f"forwards")
+    if DC.copy_count:
+        raise AssertionError(f"benchmark: the depthwise wrapper copied "
+                             f"{DC.copy_count} inputs")
     share = r["frames_per_sec"] * r["flops_per_frame"] / PEAK_BF16_FLOPS
     print(f"throughput on {smi}: {spec.name} 128x128 batch {bs}: "
           f"{r['frames_per_sec']:.1f} frames/s, {r['ms_per_batch']:.3f} "
@@ -657,11 +761,16 @@ def profile_batch(name, predictor, smi, sources, gen):
               f"(idle share {1 - busy / wall:.4f})")
         for kname, ms in prof["kernels"][:10]:
             print(f"  {ms:9.3f} ms {100 * ms / wall:6.2f}%  {kname[:110]}")
-        for label, key in (("preprocess", "preprocess_kernel"),
-                           ("depthwise", "depthwise_kernel")):
-            ms = sum(v for k, v in prof["kernels"] if key in k)
+        for label, keys in (("preprocess", ("preprocess_kernel",)),
+                            ("depthwise", ("depthwise_tiled",
+                                           "depthwise_scalar"))):
+            ms = sum(v for k, v in prof["kernels"]
+                     if any(key in k for key in keys))
             print(f"  {label} kernel: {ms:.4f} ms "
                   f"({100 * ms / wall:.3f}% of the batch)", flush=True)
+        print("  copy and fill kernels by the operator that launched them: "
+              + ", ".join(f"{op} {ms:.3f} ms" for op, ms in prof["copies"]),
+              flush=True)
         del x
 
 
@@ -672,8 +781,8 @@ def main():
         return 1
     sys.path.insert(0, REPO)
     from ab_line_classifier_torch.ops import _build
-    from ab_line_classifier_torch.predict.benchmark import (build_flagship,
-                                                            build_zoo)
+    from ab_line_classifier_torch.predict.benchmark import (
+        build_flagship, build_zoo, depthwise_layer_shapes)
     from ab_line_classifier_torch.utils.jax_params import state_dict_from_flax
 
     t_start = time.perf_counter()
@@ -697,6 +806,8 @@ def main():
         libs = list(pool.map(_build.build, _build.kernel_names()))
     print(f"built {len(libs)} kernel(s) in {time.perf_counter() - t0:.2f} s:"
           f" {[os.path.relpath(p, REPO) for p in libs]}")
+    for name, line in ptxas_report(_build.build_log("depthwise")):
+        print(f"ptxas {name}: {line}")
 
     b1, b1_err = phase_preprocess(kind)
     specs = {name: build_zoo(name, OUT_HW) for name in ZOO}
@@ -708,7 +819,8 @@ def main():
                                  f"depthwise layers")
     b7_5x5 = max((s for s in shapes["efficientnetb7"] if s[1] == 5),
                  key=lambda s: np.prod(s[0]))
-    b2, b2_err = phase_depthwise(smi, shapes["mobilenetv2"], b7_5x5)
+    b2_models, b2_b7, b2_err = phase_depthwise(smi, shapes, b7_5x5)
+    b2 = b2_models["mobilenetv2"]
 
     phase("5 main path: cutoffvgg16 serving + clip aggregation")
     frames480, frames128 = host_frames(1, 4096, 4096)
@@ -765,7 +877,15 @@ def main():
          "bound_ms": b2["bound_ms"], "bound_by": b2["bound_by"],
          "library_ms": b2["library_ms"],
          "shape": f"the 10 stride-1 layers of a mobilenetv2 forward, bf16, "
-                  f"batch {MAIN_BATCH}"},
+                  f"batch {MAIN_BATCH}",
+         "per_forward": {
+             f"{name} batch {t['batch']}": {
+                 "ms": t["ms"], "library_ms": t["library_ms"],
+                 "bound_ms": t["bound_ms"]}
+             for name, t in b2_models.items()},
+         "efficientnetb7_largest_5x5": {
+             key: b2_b7[key] for key in ("ms", "plain_ms", "library_ms",
+                                         "bound_ms")}},
     ]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

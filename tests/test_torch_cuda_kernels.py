@@ -73,28 +73,82 @@ def test_cuda_kernel_64bit_offsets():
     assert torch.equal(got, want)
 
 
+def _depthwise_case(shape, k, dtype, gen):
+    x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+    wt = (0.2 * torch.randn((shape[-1], 1, k, k), device="cuda",
+                            generator=gen)).to(dtype)
+    return x.permute(0, 3, 1, 2), wt
+
+
+def _assert_depthwise_equal(x, wt):
+    before = depthwise_cuda.launch_count
+    got = depthwise_cuda.cuda_depthwise(x, depthwise_cuda.pack_weight(wt))
+    assert depthwise_cuda.launch_count == before + 1
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, torch_depthwise.depthwise_plain(x, wt))
+
+
 @pytest.mark.cuda
 def test_depthwise_kernel_matches_plain_version():
-    """K in {3, 5, 7}, float32 and bfloat16, ragged C, odd and even H/W,
-    batch 1 and more; then an input past 2^31 bytes (64-bit offsets)."""
+    """K in {1, 3, 5, 7}, float32 and bfloat16, C a whole number of 16-byte
+    vectors or not (3, 13, 36, ...), odd and even H/W, frames of at most 4
+    rows, batch 1 and more; then an input past 2^31 bytes (64-bit
+    offsets)."""
     _need_cuda()
     gen = torch.Generator(device="cuda").manual_seed(0)
     shapes = ((1, 16, 16, 32), (3, 9, 7, 96), (2, 8, 8, 200),
-              (4, 4, 4, 728), (2, 5, 6, 3840))
-    for (b, h, w, c), k, dtype in itertools.product(
-            shapes, (3, 5, 7), (torch.float32, torch.bfloat16)):
-        x = torch.randn((b, h, w, c), device="cuda", generator=gen
-                        ).to(dtype).permute(0, 3, 1, 2)
-        wt = (0.2 * torch.randn((c, 1, k, k), device="cuda",
-                                generator=gen)).to(dtype)
-        before = depthwise_cuda.launch_count
-        got = depthwise_cuda.cuda_depthwise(x, depthwise_cuda.pack_weight(wt))
-        assert depthwise_cuda.launch_count == before + 1
-        assert got.is_contiguous(memory_format=torch.channels_last)
-        assert torch.equal(got, torch_depthwise.depthwise_plain(x, wt))
+              (4, 4, 4, 728), (2, 5, 6, 3840), (2, 7, 5, 3), (1, 4, 9, 13),
+              (3, 11, 3, 36))
+    for shape, k, dtype in itertools.product(
+            shapes, (1, 3, 5, 7), (torch.float32, torch.bfloat16)):
+        _assert_depthwise_equal(*_depthwise_case(shape, k, dtype, gen))
     x = torch.randn((1100, 64, 64, 128), device="cuda", generator=gen
                     ).permute(0, 3, 1, 2)
     assert x.numel() * 4 > 2 ** 31
     wt = 0.2 * torch.randn((128, 1, 3, 3), device="cuda", generator=gen)
     got = depthwise_cuda.cuda_depthwise(x, depthwise_cuda.pack_weight(wt))
     assert torch.equal(got[-4:], torch_depthwise.depthwise_plain(x[-4:], wt))
+
+
+@pytest.mark.cuda
+def test_depthwise_kernel_unaligned_and_copied_inputs():
+    """Data pointers off the 16-byte grid (a batch slice of frames of 910 or
+    1820 bytes with odd C; a 40-channel tensor one element into its
+    storage) need no copy and give the plain version's result; an input in
+    NCHW memory is copied once to channels_last, and counted."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for k, dtype in itertools.product((1, 3, 5, 7),
+                                      (torch.float32, torch.bfloat16)):
+        x, wt = _depthwise_case((3, 5, 7, 13), k, dtype, gen)
+        flat = torch.randn(1 + 2 * 6 * 6 * 40, device="cuda",
+                           generator=gen).to(dtype)
+        shifted = flat[1:].view(2, 6, 6, 40).permute(0, 3, 1, 2)
+        w40 = _depthwise_case((1, 1, 1, 40), k, dtype, gen)[1]
+        copies = depthwise_cuda.copy_count
+        for xx, ww in ((x[1:], wt), (shifted, w40)):
+            assert xx.data_ptr() % 16 != 0
+            _assert_depthwise_equal(xx, ww)
+        assert depthwise_cuda.copy_count == copies
+    x, wt = _depthwise_case((2, 6, 6, 40), 3, torch.bfloat16, gen)
+    copies = depthwise_cuda.copy_count
+    _assert_depthwise_equal(x.contiguous(), wt)
+    assert depthwise_cuda.copy_count == copies + 1
+
+
+@pytest.mark.cuda
+def test_depthwise_kernel_at_every_zoo_shape():
+    """Every distinct stride-1 depthwise shape of mobilenetv2, xception and
+    efficientnetb7 at 128x128 (two frames each), in both dtypes."""
+    _need_cuda()
+    from ab_line_classifier_torch.predict.benchmark import (
+        build_zoo, depthwise_layer_shapes)
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    shapes = {s for name in ("mobilenetv2", "xception", "efficientnetb7")
+              for s in depthwise_layer_shapes(build_zoo(name))}
+    assert len(shapes) == 23
+    for (shape, k), dtype in itertools.product(
+            sorted(shapes), (torch.float32, torch.bfloat16)):
+        _assert_depthwise_equal(*_depthwise_case((2,) + shape[1:], k, dtype,
+                                                 gen))

@@ -1,8 +1,10 @@
 """PyTorch port, depthwise convolution (kernel B2): the kernel's plain
 version and the grouped-conv reference against the JAX package's Pallas
 kernel (interpret mode) and its XLA reference, and the autograd entry
-point's dispatch and gradients. The CUDA kernel itself is held to the plain
-version on the card (``tests/test_torch_cuda_kernels.py``).
+point's dispatch and gradients; and the CUDA kernel's launch geometry,
+which must give every output to exactly one thread. The CUDA kernel itself
+is held to the plain version on the card
+(``tests/test_torch_cuda_kernels.py``).
 
 Layouts: JAX takes NHWC ``x`` and a ``[K, K, 1, C]`` kernel, the port an
 NCHW view and ``[C, 1, K, K]``. Tolerances as
@@ -152,3 +154,83 @@ def test_packed_weight_layout_and_cache():
     torch.testing.assert_close(layer.packed_weight(),
                                depthwise_cuda.pack_weight(layer.weight),
                                rtol=0, atol=0)
+
+
+def _writes(g, b, h, w, c):
+    """How many threads write each output of a ``[b, h, w, c]`` tensor
+    under geometry ``g``, by the kernel's index math (``Geometry``'s
+    docstring, ``csrc/depthwise.cu::tile_at``); raises on a write outside
+    it."""
+    bx, by = g.block
+    t = np.arange(g.count(b))
+    ct, t = t % g.ch_tiles, t // g.ch_tiles
+    wt, t = t % g.col_tiles, t // g.col_tiles
+    rt, frame = t % g.row_tiles, t // g.row_tiles
+    cv = ct[:, None] * bx + np.arange(bx)               # [tile, tx]
+    xo = wt[:, None] * by + np.arange(by)               # [tile, ty]
+    row = rt[:, None] * g.rows + np.arange(g.rows)      # [tile, t]
+    ch = cv[:, :, None] * g.vec + np.arange(g.vec)      # [tile, tx, e]
+    # Threads past w or c compute nothing; rows past h are not stored.
+    live = ((cv * g.vec < c)[:, :, None, None, None]
+            & (xo < w)[:, None, :, None, None]
+            & (row < h)[:, None, None, :, None])
+    lin = ((((frame[:, None, None, None, None] * h
+              + row[:, None, None, :, None]) * w
+             + xo[:, None, :, None, None]) * c)
+           + ch[:, :, None, None, :])
+    lin = np.broadcast_to(lin, np.broadcast_shapes(lin.shape, live.shape))
+    live = np.broadcast_to(live, lin.shape)
+    assert ch[(cv * g.vec < c)].max() < c
+    return np.bincount(lin[live], minlength=b * h * w * c)
+
+
+@pytest.mark.parametrize("k,itemsize,aligned,threads", [
+    (3, 2, True, 0), (1, 2, True, 256), (3, 2, False, 256),
+    (5, 4, True, 128), (7, 2, True, 32)])
+def test_launch_geometry_covers_every_output_once(k, itemsize, aligned,
+                                                  threads):
+    """H, W in 1..20, C in 1..70, 2 frames: each output has exactly one
+    writer; the tiled kernel (16-byte vectors) only where C is a whole
+    number of them and the tensors are aligned, else the scalar kernel; 4
+    rows a thread for frames of at most 4 rows or K >= 5, else 8; at most
+    ``threads`` threads a block (0: the default, 256 or 128 by rows) and
+    the shared memory within its cap. Fewer threads a block split channels
+    and columns into more tiles."""
+    b = 2
+    for h in range(1, 21):
+        for w in range(1, 21):
+            for c in range(1, 71):
+                g = depthwise_cuda.launch_geometry(b, h, w, c, k, itemsize,
+                                                   aligned, threads=threads)
+                want_vec = 16 // itemsize
+                assert g.vec == (want_vec if aligned and c % want_vec == 0
+                                 else 1)
+                assert g.rows == (4 if h <= 4 or k >= 5 else 8)
+                most = threads or (256 if g.rows == 8 else 128)
+                assert g.block[0] * g.block[1] <= most
+                assert g.smem <= depthwise_cuda.SMEM_MAX
+                counts = _writes(g, b, h, w, c)
+                assert counts.min() == 1 and counts.max() == 1, (h, w, c)
+
+
+@pytest.mark.parametrize("shape,k", [((2048, 64, 64, 32), 3),
+                                     ((512, 4, 4, 2304), 5),
+                                     ((512, 8, 8, 728), 3),
+                                     ((512, 61, 61, 64), 7),
+                                     ((1100, 61, 61, 3), 3)])
+def test_launch_geometry_at_serving_shapes(shape, k):
+    """The zoo's shapes at serving batch (and a ragged C): within the
+    grid's limit and the shared-memory cap, and every output written once
+    (checked on two frames: the frames only repeat the tiling of one)."""
+    b, h, w, c = shape
+    g = depthwise_cuda.launch_geometry(b, h, w, c, k, 2, True)
+    assert g.count(b) < 2 ** 31 and g.smem <= depthwise_cuda.SMEM_MAX
+    counts = _writes(g, 2, h, w, c)
+    assert counts.min() == 1 and counts.max() == 1
+
+
+def test_launch_geometry_rejects_what_the_kernel_lacks():
+    for kw in (dict(rows=16), dict(threads=512), dict(k=4)):
+        with pytest.raises(ValueError):
+            depthwise_cuda.launch_geometry(
+                1, 8, 8, 8, kw.pop("k", 3), 2, True, **kw)
