@@ -8,9 +8,10 @@ numbering), so the reference's index-based operations keep their meaning:
 * :meth:`LayerGraph.trainable_mask` — per-layer trainability (FREEZE_IDX).
 * :meth:`LayerGraph.last_layer_of_kind` — e.g. the Grad-CAM conv tap.
 * :class:`GraphModule` — an ``nn.Module`` executing the DAG, with
-  ``capture`` (return named intermediate activations from the same pass)
-  and ``overrides`` (inject an activation by layer name), which Grad-CAM
-  and attribution build on.
+  ``capture`` (return named intermediate activations from the same pass),
+  ``overrides`` (inject an activation by layer name) and ``leaf`` (make
+  one activation the start of autograd's record: Grad-CAM's tap), which
+  Grad-CAM and attribution build on.
 
 Parameterized layers are submodules named by their Keras layer name, so the
 state-dict keys read ``block1_conv1.weight`` (a separable conv's nested
@@ -236,11 +237,18 @@ class GraphModule(nn.Module):
                 self.add_module(spec.name, spec.module_fn(generator))
 
     def forward(self, x: torch.Tensor,
-                overrides: Optional[Dict[str, torch.Tensor]] = None):
+                overrides: Optional[Dict[str, torch.Tensor]] = None,
+                leaf: Optional[str] = None):
         """``overrides`` injects activations (NHWC) by layer name: the node's
-        computation is skipped and the given tensor used instead."""
+        computation is skipped and the given tensor used instead.
+
+        ``leaf`` names a node whose output (NHWC) is detached into a new
+        autograd leaf that requires grad, returned as a capture: autograd
+        records what follows it and nothing before it, in the same single
+        pass (Grad-CAM's tap)."""
         acts: Dict[str, torch.Tensor] = {INPUT: _to_internal(x)}
         overrides = overrides or {}
+        captured = {}
         for spec in self.graph.layers[1:]:
             if spec.name in overrides:
                 acts[spec.name] = _to_internal(overrides[spec.name])
@@ -252,11 +260,16 @@ class GraphModule(nn.Module):
                     y = spec.post_fn(y)
             else:
                 y = spec.fn(*ins)
+            if spec.name == leaf:
+                captured[leaf] = _to_public(y).detach().requires_grad_()
+                y = _to_internal(captured[leaf])
             acts[spec.name] = y
         out = _to_public(acts[self.graph.output])
-        if self.capture:
-            return out, {n: _to_public(acts[n]) for n in self.capture}
-        return out
+        if leaf is not None and leaf not in captured:
+            raise GraphError(f"no computed layer named {leaf!r}")
+        captured.update((n, _to_public(acts[n])) for n in self.capture
+                        if n not in captured)
+        return (out, captured) if captured else out
 
 
 # ---------------------------------------------------------------------------

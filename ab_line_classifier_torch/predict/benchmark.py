@@ -1,11 +1,18 @@
-"""Serving benchmark (port of ``clip_inference_benchmark`` in
-the JAX package's ``predict/benchmark.py``).
+"""Benchmarks of the port (counterparts of the JAX package's
+``predict/benchmark.py``), each on the device it is given (default cuda):
 
-:func:`clip_inference_benchmark` measures frames/sec for end-to-end batched
-clip inference through the production serving forward — device-resident
-uint8 frames -> preprocess (the CUDA kernel) -> bf16 forward -> float32
-softmax — steady state, timed with CUDA events. The batch-1 latency
-benchmark waits for a later slice.
+* :func:`clip_inference_benchmark` — frames/sec of batched clip inference
+  through the production serving forward: device-resident uint8 frames ->
+  preprocess (kernel B1) -> bf16 forward -> float32 softmax, steady state,
+  timed with CUDA events and the n-vs-2n check
+  (:func:`dispatch_guarded_seconds`).
+* :func:`gradcam_benchmark` — frames/sec of the batched Grad-CAM pass
+  (preprocess -> forward -> tap gradient -> heatmaps), timed the same way.
+* :func:`single_frame_latency_benchmark` — serial batch-1 latency through
+  the serving forward, as a dependency-chained loop: captured once as a
+  CUDA graph and replayed, beside the same loop run eagerly.
+* :func:`clock_avg_runtime` — the reference's mechanism: single-image
+  forwards timed one by one on the host clock, mean and std ms.
 """
 
 from __future__ import annotations
@@ -55,6 +62,20 @@ def build_zoo(name: str, img_dim: Tuple[int, int] = (128, 128)
 def build_flagship(img_dim: Tuple[int, int] = (128, 128)) -> ModelSpec:
     """Mixed-precision cutoffvgg16, the production model."""
     return build_zoo("cutoffvgg16", img_dim)
+
+
+def seeded_state(spec: ModelSpec, seed: int = 0) -> Dict[str, torch.Tensor]:
+    """A Keras-style initialization of ``spec``'s module from ``seed``."""
+    return spec.module(generator=torch.Generator().manual_seed(seed)
+                       ).state_dict()
+
+
+def random_frames(n: int, src_hw: Tuple[int, int], seed: int,
+                  device: torch.device) -> torch.Tensor:
+    """``n`` uint8 ``[n, H, W, 3]`` frames from a numpy seed, on
+    ``device``."""
+    return torch.as_tensor(np.random.default_rng(seed).integers(
+        0, 256, (n, *src_hw, 3), dtype=np.uint8)).to(device)
 
 
 def dispatch_guarded_seconds(run_many: Callable[[int], float],
@@ -180,14 +201,10 @@ def clip_inference_benchmark(batch_size: int = 512,
 
     device = resolve_device(device)
     spec = spec or build_flagship(img_dim)
-    if state_dict is None:
-        gen = torch.Generator().manual_seed(seed)
-        state_dict = spec.module(generator=gen).state_dict()
-    predictor = Predictor(spec, state_dict, batch_size=batch_size,
-                          device=device)
+    predictor = Predictor(spec, state_dict or seeded_state(spec, seed),
+                          batch_size=batch_size, device=device)
     src = tuple(src_hw or img_dim)
-    frames = torch.as_tensor(np.random.default_rng(seed).integers(
-        0, 256, (batch_size, *src, 3), dtype=np.uint8)).to(device)
+    frames = random_frames(batch_size, src, seed, device)
 
     for _ in range(n_warmup):
         predictor.forward(frames)
@@ -202,11 +219,197 @@ def clip_inference_benchmark(batch_size: int = 512,
         "src_hw": list(src),
         "flops_per_frame": flops_per_frame(
             predictor.module, spec.input_shape, spec.dtype, device),
-        "device": (torch.cuda.get_device_name(device)
-                   if device.type == "cuda" else "cpu"),
+        "device": _device_name(device),
     }
     if verbose:
         print(f"{spec.name} clip inference on {result['device']}: "
               f"{fps:,.0f} frames/sec (batch {batch_size}, "
               f"{result['ms_per_batch']:.2f} ms/batch)")
     return result
+
+
+def gradcam_benchmark(batch_size: int = 256,
+                      img_dim: Tuple[int, int] = (128, 128),
+                      mode: str = "normal",
+                      src_hw: Optional[Tuple[int, int]] = None,
+                      n_warmup: int = 3, n_iters: int = 10,
+                      state_dict: Optional[Dict] = None,
+                      spec: Optional[ModelSpec] = None,
+                      device=None, seed: int = 0,
+                      verbose: bool = True) -> Dict:
+    """Frames/sec of the batched Grad-CAM pass of ``spec`` (default:
+    mixed-precision cutoffvgg16) in ``mode``: device-resident uint8 frames
+    -> preprocess -> forward -> tap gradient -> heatmaps, one pass per
+    batch (the JAX package's ``gradcam_benchmark``)."""
+    from ab_line_classifier_torch.explain.gradcam import build_fused_gradcam
+    from ab_line_classifier_torch.predict.predict import load_module
+
+    device = resolve_device(device)
+    spec = spec or build_flagship(img_dim)
+    module = load_module(spec, state_dict or seeded_state(spec, seed),
+                         device)
+    fused = build_fused_gradcam(spec, module, mode)
+    src = tuple(src_hw or img_dim)
+    frames = random_frames(batch_size, src, seed, device)
+    for _ in range(n_warmup):
+        fused(frames)
+    run_many, fallback = timers(lambda: fused(frames), device)
+    dt = dispatch_guarded_seconds(run_many, fallback, n_iters)
+    fps = batch_size * n_iters / dt
+    result = {"gradcam_frames_per_sec": float(fps),
+              "batch_size": batch_size, "mode": mode,
+              "ms_per_batch": float(dt / n_iters * 1000),
+              "model": spec.name, "src_hw": list(src),
+              "device": _device_name(device)}
+    if verbose:
+        print(f"{spec.name} Grad-CAM [{mode}] on {result['device']}: "
+              f"{fps:,.0f} frames/sec (batch {batch_size})")
+    return result
+
+
+def single_frame_latency_benchmark(img_dim: Tuple[int, int] = (128, 128),
+                                   chain_len: int = 64,
+                                   n_warmup: int = 3, n_iters: int = 5,
+                                   state_dict: Optional[Dict] = None,
+                                   spec: Optional[ModelSpec] = None,
+                                   device=None, seed: int = 0,
+                                   verbose: bool = True) -> Dict:
+    """Serial serving latency at batch 1, ms/frame, of ``spec`` (default:
+    mixed-precision cutoffvgg16): one uint8 frame on the device through
+    ``Predictor.forward`` (B1 -> forward in ``spec.dtype`` -> float32
+    softmax), ``chain_len`` times in a dependency chain: each step's input
+    is the previous one offset by a value computed from the previous
+    output that is always zero (``uint8(probs * 1e-30)``, probabilities
+    being at most 1), so no step can start before the one before it ends.
+
+    On CUDA the chain is captured once as a CUDA graph and replayed (the
+    JAX package compiles it into one ``lax.scan`` program); the kernel
+    wrappers' launch counters tick once, at capture, so the result gives
+    the launches captured per step (``graph_launches_per_step``), the
+    number of steps replayed and the graph itself (``graph``; each
+    ``graph.replay()`` runs the chain once more). Capture needs the
+    wrappers' caches warm (B1's index vectors, B2's packed weights and
+    launch geometry): the chain runs ``n_warmup`` times on a side stream
+    first. A failed capture raises. The same chain run eagerly
+    (``eager_ms_per_frame``) shows what the graph saves; on the CPU only
+    the eager chain runs. Both are timed with :func:`timers` and the
+    n-vs-2n check.
+
+    ``check_frames`` (the timed frame and a second one, uint8 ``[2, H, W,
+    3]``) and ``check_probs`` (float32 ``[2, C]``) are the chain's output
+    on each, eager; the replayed graph, given each frame as its input,
+    must reproduce them exactly, or the benchmark raises."""
+    from ab_line_classifier_torch.ops import depthwise_cuda, preprocess_cuda
+    from ab_line_classifier_torch.predict.predict import Predictor
+
+    device = resolve_device(device)
+    spec = spec or build_flagship(img_dim)
+    predictor = Predictor(spec, state_dict or seeded_state(spec, seed),
+                          batch_size=1, device=device)
+    frame = random_frames(1, tuple(img_dim), seed, device)
+
+    @torch.inference_mode()
+    def chain(x: torch.Tensor) -> torch.Tensor:
+        probs = None
+        for _ in range(chain_len):
+            probs = predictor.forward(x)
+            x = x + (probs[0, 0] * 1e-30).to(torch.uint8)
+        return probs
+
+    def ms_per_frame(fn) -> float:
+        run_many, fallback = timers(fn, device)
+        return dispatch_guarded_seconds(run_many, fallback,
+                                        n_iters) / n_iters / chain_len * 1e3
+
+    for _ in range(n_warmup):
+        chain(frame)
+    checks = [frame.clone(), random_frames(1, tuple(img_dim), seed + 1,
+                                           device)]
+    eager = [chain(x) for x in checks]
+    result = {"model": spec.name, "chain_len": chain_len,
+              "eager_ms_per_frame": ms_per_frame(lambda: chain(frame)),
+              "graph_ms_per_frame": None, "device": _device_name(device),
+              "check_frames": torch.cat(checks).cpu().numpy(),
+              "check_probs": torch.cat(eager).cpu().numpy()}
+    if device.type == "cuda":
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            for _ in range(n_warmup):
+                chain(frame)
+        torch.cuda.current_stream(device).wait_stream(side)
+        counts = (preprocess_cuda.launch_count, depthwise_cuda.launch_count)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = chain(frame)
+        replays = 0
+
+        def replay():
+            nonlocal replays
+            graph.replay()
+            replays += 1
+
+        for _ in range(n_warmup):
+            replay()
+        result["graph_ms_per_frame"] = ms_per_frame(replay)
+        # The graph reads its input frame anew on every replay, and runs the
+        # same kernels on it as the eager chain.
+        for x, want in zip(checks, eager):
+            frame.copy_(x)
+            replay()
+            if not torch.equal(out, want):
+                raise RuntimeError(
+                    f"the replayed chain differs from the eager one by "
+                    f"{float((out - want).abs().max())}")
+        result["graph_launches_per_step"] = {
+            "preprocess": (preprocess_cuda.launch_count - counts[0])
+            / chain_len,
+            "depthwise": (depthwise_cuda.launch_count - counts[1])
+            / chain_len}
+        result["replayed_steps"] = replays * chain_len
+        result["graph"] = graph
+    if verbose:
+        graph_ms = result["graph_ms_per_frame"]
+        print(f"{spec.name} batch-1 latency on {result['device']}: "
+              f"eager {result['eager_ms_per_frame']:.4f} ms/frame"
+              + (f", CUDA graph {graph_ms:.4f} ms/frame"
+                 if graph_ms is not None else ""))
+    return result
+
+
+def clock_avg_runtime(n_warmup_runs: int = 10, n_experiment_runs: int = 50,
+                      img_dim: Tuple[int, int] = (128, 128),
+                      state_dict: Optional[Dict] = None,
+                      spec: Optional[ModelSpec] = None, device=None,
+                      seed: int = 0, verbose: bool = True
+                      ) -> Tuple[float, float]:
+    """Single-image latency by the reference's mechanism: a ``(1, H, W,
+    3)`` standard-normal image (already on the device, in ``spec.dtype``)
+    through the model's forward, each call timed on the host clock up to
+    its probabilities on the host. Returns ``(mean_ms, std_ms)``."""
+    from ab_line_classifier_torch.predict.predict import load_module
+    from ab_line_classifier_torch.utils.profiling import StepTimer
+
+    device = resolve_device(device)
+    spec = spec or build_flagship(img_dim)
+    module = load_module(spec, state_dict or seeded_state(spec, seed),
+                         device)
+    rng = np.random.RandomState(seed)
+    timer = StepTimer(warmup=n_warmup_runs)
+    with torch.inference_mode():
+        for _ in range(n_warmup_runs + n_experiment_runs):
+            x = torch.from_numpy(rng.randn(1, *img_dim, 3)).to(
+                device=device, dtype=spec.dtype)
+            with timer:
+                module(x).cpu()
+    stats = timer.summary()
+    mean_ms, std_ms = stats["mean_ms"], stats["std_ms"]
+    if verbose:
+        print(f"Average runtime = {mean_ms:.3f} ms, "
+              f"standard deviation = {std_ms:.3f} ms")
+    return mean_ms, std_ms
+
+
+def _device_name(device: torch.device) -> str:
+    return (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")

@@ -1,7 +1,8 @@
 """Inference: frame predictions, clip predictions, metrics/CSV contracts
 (port of the JAX package's ``predict/predict.py``).
 
-* :class:`Predictor` restores a port checkpoint and serves uint8 frames:
+* :class:`Predictor` restores a port checkpoint, or a Keras ``.h5`` or
+  ``.onnx`` file, and serves uint8 frames:
   every forward preprocesses through ``ops.preprocess_cuda.
   preprocess_frames`` (the CUDA kernel on the GPU), then runs the model in
   its compute dtype with an f32 softmax. Frames go host -> device from
@@ -32,9 +33,12 @@ from ab_line_classifier_torch.data.pipeline import (FRAME_PATH, FrameDataset,
                                                     drain_behind)
 from ab_line_classifier_torch.models import build_model
 from ab_line_classifier_torch.models.common import ModelSpec
+from ab_line_classifier_torch.models.onnx_weights import import_onnx_state
+from ab_line_classifier_torch.models.weights import import_h5_state
 from ab_line_classifier_torch.ops import clip_aggregation as agg
 from ab_line_classifier_torch.ops.preprocess_cuda import preprocess_frames
 from ab_line_classifier_torch.utils import checkpoint as ckpt
+from ab_line_classifier_torch.utils.profiling import annotate
 
 
 def _timestamp() -> str:
@@ -73,6 +77,17 @@ def load_class_idx_map(cfg: Config) -> Dict[str, int]:
     return {c: i for i, c in enumerate(cfg.classes)}
 
 
+def load_module(spec: ModelSpec, state_dict: Dict[str, torch.Tensor],
+                device: torch.device) -> torch.nn.Module:
+    """``spec``'s module with ``state_dict`` loaded, in eval mode, on
+    ``device`` in ``spec.dtype`` and channels_last memory: the form every
+    serving and explaining path runs."""
+    module = spec.module()
+    module.load_state_dict(state_dict)
+    return module.eval().to(device=device, dtype=spec.dtype,
+                            memory_format=torch.channels_last)
+
+
 class Predictor:
     """A restored model on one device, serving uint8 NHWC frames.
 
@@ -89,22 +104,37 @@ class Predictor:
         self.spec = spec
         self.batch_size = batch_size
         self.compute_dtype = compute_dtype
-        module = spec.module()
-        module.load_state_dict(state_dict)
-        self.module = module.eval().to(device=self.device, dtype=spec.dtype,
-                                       memory_format=torch.channels_last)
+        self.module = load_module(spec, state_dict, self.device)
         self._staging: List[Optional[torch.Tensor]] = [None, None]
         self._slot = 0
 
     @classmethod
     def restore(cls, model_path: str, *, batch_size: int = 64,
                 compute_dtype: torch.dtype = torch.bfloat16,
-                device=None) -> "Predictor":
-        """Restore a port checkpoint directory (``utils/checkpoint.py``)."""
+                device=None, cfg: Optional[Config] = None) -> "Predictor":
+        """Restore a port checkpoint directory (``utils/checkpoint.py``),
+        or a Keras ``.h5`` or an ``.onnx`` file (the reference's serving
+        formats). A file needs ``cfg`` for the architecture
+        (``TRAIN.MODEL_DEF`` + ``HPARAMS``, ``DATA.IMG_DIM``): the model is
+        rebuilt in float32, as the JAX package does, and the weights are
+        imported by layer name (``models/weights.py``,
+        ``models/onnx_weights.py``); a file that matches no layer raises."""
         if model_path.endswith((".h5", ".onnx")):
-            raise NotImplementedError(
-                f"restoring {model_path!r}: .h5/.onnx import is not ported "
-                f"yet (ROADMAP Queue A item 9)")
+            if cfg is None:
+                raise ValueError(
+                    f"restoring {model_path!r} needs cfg to rebuild the "
+                    f"architecture (TRAIN.MODEL_DEF + HPARAMS)")
+            spec = build_model(cfg.model_name, cfg.model_hparams(),
+                               cfg.img_dim + (3,), cfg.n_classes)
+            importer = (import_onnx_state if model_path.endswith(".onnx")
+                        else import_h5_state)
+            state, copied = importer(model_path, spec.module().state_dict(),
+                                     graph=spec.graph, verbose=False)
+            if copied == 0:
+                raise ValueError(
+                    f"no layers matched while importing {model_path!r}")
+            return cls(spec, state, batch_size=batch_size,
+                       compute_dtype=compute_dtype, device=device)
         state, meta = ckpt.load_model(model_path)
         spec = build_model(meta["model_name"], meta["hparams"],
                            tuple(meta["input_shape"]), int(meta["n_classes"]),
@@ -118,11 +148,13 @@ class Predictor:
     def forward(self, frames_u8: torch.Tensor) -> torch.Tensor:
         """float32 probabilities for uint8 ``[B, H, W, 3]`` frames already on
         ``self.device``."""
-        x = preprocess_frames(frames_u8,
-                              out_hw=tuple(self.spec.input_shape[:2]),
-                              preprocess_mode=self.spec.preprocess_mode,
-                              out_dtype=self.compute_dtype)
-        return self.module(x.to(self.spec.dtype)).to(torch.float32)
+        with annotate("predict.preprocess"):
+            x = preprocess_frames(frames_u8,
+                                  out_hw=tuple(self.spec.input_shape[:2]),
+                                  preprocess_mode=self.spec.preprocess_mode,
+                                  out_dtype=self.compute_dtype)
+        with annotate("predict.model"):
+            return self.module(x.to(self.spec.dtype)).to(torch.float32)
 
     def _to_device(self, host: np.ndarray) -> torch.Tensor:
         """Copy a uint8 host chunk to the device. On CUDA it goes through
@@ -179,10 +211,12 @@ class Predictor:
 
 
 def default_predictor(cfg: Config, device=None) -> Predictor:
-    """The restore every predict surface shares (``PATHS.MODEL_TO_LOAD``,
-    config batch size)."""
+    """The restore every predict surface shares (``PATHS.MODEL_TO_LOAD``, a
+    checkpoint directory or a ``.h5`` / ``.onnx`` file; config batch
+    size)."""
     return Predictor.restore(cfg["PATHS"]["MODEL_TO_LOAD"],
-                             batch_size=cfg.batch_size, device=device)
+                             batch_size=cfg.batch_size, device=device,
+                             cfg=cfg)
 
 
 def classify_probs(probs: np.ndarray, cfg: Config,

@@ -15,8 +15,10 @@ no result):
    registers and spills of each instance of the depthwise kernel;
 3. preprocess kernel (B1) — against its plain PyTorch version over modes x
    resize maps x masks x output dtypes and several source sizes, plus 2048
-   frames of 1080x1440 (past 2^31 bytes: the 64-bit offsets); then, at the
-   main path's shapes, the same comparison and the kernel's time, the plain
+   frames of 1080x1440 (past 2^31 bytes: the 64-bit offsets), and the
+   shapes of the Grad-CAM batches and a batch-1 latency step in every mode
+   and output dtype; then, at the serving path's shapes, the same
+   comparison and the kernel's time, the plain
    version's, a resize-only library yardstick
    (``F.interpolate(mode="nearest-exact")``, which the port never calls)
    and the bytes-moved bound;
@@ -24,9 +26,11 @@ no result):
    (``torch.equal``), over K 1/3/5/7 x dtypes x channel counts (multiples
    of the 16-byte vector or not) x frame sizes x batch, inputs whose data
    pointer is not 16-byte aligned, an input that is not channels_last (one
-   counted copy), one f32 input past 2^31 bytes, and every distinct
-   stride-1 shape of mobilenetv2 at batch 2048 and of xception and
-   efficientnetb7 at 512; at mobilenetv2's shapes and efficientnetb7's
+   counted copy), one f32 input past 2^31 bytes, every distinct stride-1
+   shape of the three depthwise models at batch 256 (Grad-CAM) and of
+   mobilenetv2 at batch 1 (latency) in bf16 and f32, and of mobilenetv2
+   at batch 2048 and of xception and efficientnetb7 at 512 (serving) in
+   bf16; at mobilenetv2's shapes and efficientnetb7's
    largest 5x5 one the kernel's time, the plain version's, cuDNN's grouped
    conv (``F.conv2d(groups=C)``, which the port never calls) and the
    bound, and per forward of each of the three models the kernel's time
@@ -49,10 +53,28 @@ no result):
    at 512 (each run's kernel launches counted), and a ``torch.profiler``
    breakdown by kernel of a cutoffvgg16 and a mobilenetv2 batch, with the
    copy and fill kernels attributed to the PyTorch operators that launch
-   them.
+   them;
+9. Grad-CAM — cutoffvgg16, mobilenetv2, xception and efficientnetb7 (the
+   weights of phases 5-7), 512 frames of 480x640 and 512 of 128x128 in
+   batches of 256 through ``GradCAMExplainer.explain_frames``, both modes:
+   B1 launches once and B2 0 / 10 / 34 / 51 times per batch, no input
+   copied; GPU (in batches of 256) against the port on the CPU, in bf16
+   and float32, on 16 lit frames whose top-2 margin clears the probability
+   bar (drawn from up to 64), with channel-swap and frame-order faults;
+   ``gradcam_benchmark`` beside ``clip_inference_benchmark`` at batch 256;
+   a profile of a cutoffvgg16 and a mobilenetv2 Grad-CAM batch;
+10. batch-1 latency — ``single_frame_latency_benchmark`` of cutoffvgg16 and
+   mobilenetv2 (a dependency chain captured once as a CUDA graph and
+   replayed, and run eagerly; the replayed chain's probabilities equal to
+   the eager chain's, and against ``Predictor`` on the CPU), the launches
+   captured per step, the kernels one replay runs (the profiler's count),
+   and ``clock_avg_runtime``.
 
 The last two lines of standard output are a JSON line of per-kernel
-numbers and ``{"ok": true, "device": {...}}``.
+numbers (launches per path: the wrappers' counts, which tick once at a
+CUDA graph's capture; the kernel's runs in one replay of each latency
+graph, counted by the profiler, and the replays) and
+``{"ok": true, "device": {...}}``.
 """
 
 import concurrent.futures
@@ -87,6 +109,15 @@ BF16_PROB_ATOL = 2e-2
 # of ACT_RTOL and twice the floor; frames with their channels swapped — a
 # channel-order fault — must land beyond three times the bar.
 ACT_RTOL = 3e-2
+# A bar above this is too loose to hold anything to: the serving phases
+# fail there; Grad-CAM's bf16 heatmaps are then held in float32 only.
+BAR_CEILING = 0.3
+# Grad-CAM GPU vs CPU: lit check frames are drawn, CHECK_KEEP at a time,
+# until CHECK_KEEP of them clear the top-2 margin, at most CHECK_DRAW.
+CHECK_DRAW, CHECK_KEEP = 64, 16
+# GPU vs CPU in float32 (TF32 off): relative Frobenius error. The two sum in
+# other orders, float32 rounding (2^-24) amplified by cancellation.
+F32_RTOL = 1e-3
 # Kernels scaled by GAIN / sqrt(fan_in), as in tests/test_torch_model.py,
 # so the logits are O(1) and vary from frame to frame.
 GAIN = 1.5
@@ -101,6 +132,9 @@ WARMUP, ITERS = 3, 20
 # name -> (tap inside the backbone, B2 launches per forward)
 ZOO = {"mobilenetv2": ("block_12_add", 10), "xception": ("add_6", 34),
        "efficientnetb7": ("block5a_project_bn", 51)}
+# Parts of the kernels' names as the profiler reports them.
+KERNEL_KEYS = {"preprocess": ("preprocess_kernel",),
+               "depthwise": ("depthwise_tiled", "depthwise_scalar")}
 
 
 def phase(title):
@@ -124,11 +158,14 @@ def cuda_ms(fn, iters=ITERS, warmup=WARMUP):
 def device_time_by_kernel(fn, n_iters=3):
     """Where the device time of ``fn`` goes: ``torch.profiler`` over
     ``n_iters`` calls (after one warm call), summed by kernel name. Returns
-    ``{"wall_ms", "busy_ms", "kernels": [(name, ms), ...], "copies":
-    [(op, ms), ...]}`` per call, kernels sorted by time; ``busy_ms`` is 0.0
-    when the profiler saw no device activity. ``copies`` sums the copy and
-    fill kernels (``direct_copy_kernel``, ``FillFunctor``) by the outermost
-    PyTorch operator that launched them."""
+    ``{"wall_ms", "busy_ms", "kernels": [(name, ms), ...], "calls": {name:
+    runs}, "copies": [(op, ms), ...]}`` per call, kernels sorted by time;
+    ``busy_ms`` is 0.0 when the profiler saw no device activity. ``calls``
+    counts each kernel's runs on the card that the profiler recorded
+    (those a CUDA graph replays too; it has been seen to miss one of 64).
+    ``copies`` sums the copy and fill kernels (``direct_copy_kernel``,
+    ``FillFunctor``) by the outermost PyTorch operator that launched
+    them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -143,11 +180,16 @@ def device_time_by_kernel(fn, n_iters=3):
             fn()
         end.record()
         end.synchronize()
+    # Kernels only: a named region (``annotate``) also has a span on the
+    # device's timeline.
+    device = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
     kernels = sorted(
         ((e.key, e.self_device_time_total / 1e3 / n_iters)
-         for e in prof.key_averages()
-         if e.device_type == DeviceType.CUDA and e.self_device_time_total),
+         for e in device if e.self_device_time_total),
         key=lambda kv: -kv[1])
+    calls = {e.key: e.count / n_iters for e in device}
     copies = {}
     for e in prof.events():
         for k in getattr(e, "kernels", ()):
@@ -160,6 +202,7 @@ def device_time_by_kernel(fn, n_iters=3):
                                    + k.duration / 1e3 / n_iters)
     return {"wall_ms": start.elapsed_time(end) / n_iters,
             "busy_ms": sum(ms for _, ms in kernels), "kernels": kernels,
+            "calls": calls,
             "copies": sorted(copies.items(), key=lambda kv: -kv[1])}
 
 
@@ -332,7 +375,7 @@ def gpu_vs_cpu(spec, state_dict, predictor, frames, tap, smi):
         raise AssertionError(f"{spec.name}: logits too flat to compare "
                              f"(spread {spread}, {seen} of their RMS)")
     for k in taps:
-        if bars[k] > 0.3:
+        if bars[k] > BAR_CEILING:
             raise AssertionError(f"{spec.name}: CPU bf16 vs float32 {k} "
                                  f"differ by {floor[k]}: too far apart for "
                                  f"a comparison")
@@ -496,11 +539,25 @@ def phase_preprocess(kind):
             want = fused_preprocess(x, **kw)
             max_err = max(max_err, max_ulp_error(got, want, dtype, mode))
             n_calls += 1
+    n_grid = n_calls
+    # The shapes of a batch-1 latency step and of the Grad-CAM batches.
+    for b, hs, ws in ((1, 128, 128), (ZOO_BATCH, 128, 128),
+                      (ZOO_BATCH, 480, 640)):
+        x = torch.randint(0, 256, (b, hs, ws, 3), dtype=torch.uint8,
+                          device="cuda", generator=gen)
+        for mode, dtype in itertools.product(PREPROCESS_MODES, OUT_DTYPES):
+            kw = dict(out_hw=OUT_HW, preprocess_mode=mode, out_dtype=dtype)
+            got = PC.cuda_preprocess(x, **kw)
+            want = fused_preprocess(x, **kw)
+            max_err = max(max_err, max_ulp_error(got, want, dtype, mode))
+            n_calls += 1
     torch.cuda.synchronize()
     if PC.launch_count - count0 != n_calls:
         raise AssertionError("launch counter did not count every launch")
-    print(f"grid: {n_calls} combinations over 3 source sizes agree, max abs "
-          f"err {max_err}")
+    print(f"grid: {n_grid} combinations over 3 source sizes, and "
+          f"{n_calls - n_grid} at the Grad-CAM and batch-1 shapes (1 x "
+          f"128x128, {ZOO_BATCH} x 128x128 and 480x640; every mode and "
+          f"output dtype) agree, max abs err {max_err}")
 
     big = torch.randint(0, 256, (2048, 1080, 1440, 3), dtype=torch.uint8,
                         device="cuda", generator=gen)
@@ -595,6 +652,24 @@ def depthwise_grid(gen):
     return n, err
 
 
+def depthwise_path_shapes(gen, shapes):
+    """B2 against its plain version at every distinct stride-1 shape of
+    the three depthwise models at the Grad-CAM batch (ZOO_BATCH) and of
+    mobilenetv2 at batch 1 (a latency step), in bf16 and float32; returns
+    (number of launches, max abs err)."""
+    n, err = 0, 0.0
+    cases = {(ZOO_BATCH,) + shape[1:] + (k,) for name in ZOO
+             for shape, k in shapes[name]}
+    cases |= {shape + (k,) for shape, k in shapes["mobilenetv2"]}
+    for *shape, k in sorted(cases):
+        for dtype in (torch.bfloat16, torch.float32):
+            x, wt = make_depthwise(tuple(shape), k, dtype, gen)
+            err = max(err, check_depthwise(x, wt, f"{tuple(shape)} K={k} "
+                                                  f"{dtype}"))
+            n += 1
+    return n, err
+
+
 def phase_depthwise(smi, shapes, b7_shape):
     """Phase 4; returns B2's timing summed over one forward of each zoo
     model (mobilenetv2 at MAIN_BATCH, the others at 512), its time at
@@ -606,13 +681,18 @@ def phase_depthwise(smi, shapes, b7_shape):
     gen = torch.Generator(device="cuda").manual_seed(1)
     count0 = DC.launch_count
     n_calls, max_err = depthwise_grid(gen)
+    n_path, path_err = depthwise_path_shapes(gen, shapes)
     torch.cuda.synchronize()
-    if DC.launch_count - count0 != n_calls:
+    if DC.launch_count - count0 != n_calls + n_path:
         raise AssertionError("launch counter did not count every launch")
     print(f"grid: {n_calls} cases (K 1/3/5/7, f32/bf16, C 3..3840 with and "
           f"without whole 16-byte vectors, H/W 4..20, batch 1..3, unaligned "
           f"data pointers, NCHW memory) equal to the plain version, max abs "
-          f"err {max_err}")
+          f"err {max_err}; {n_path} cases at the Grad-CAM and batch-1 "
+          f"shapes (every distinct stride-1 layer of the three models at "
+          f"batch {ZOO_BATCH} and of mobilenetv2 at batch 1, bf16 and f32) "
+          f"equal, max abs err {path_err}")
+    max_err = max(max_err, path_err)
 
     big = torch.randn((2048, 64, 64, 128), device="cuda",
                       generator=gen).permute(0, 3, 1, 2)
@@ -761,9 +841,7 @@ def profile_batch(name, predictor, smi, sources, gen):
               f"(idle share {1 - busy / wall:.4f})")
         for kname, ms in prof["kernels"][:10]:
             print(f"  {ms:9.3f} ms {100 * ms / wall:6.2f}%  {kname[:110]}")
-        for label, keys in (("preprocess", ("preprocess_kernel",)),
-                            ("depthwise", ("depthwise_tiled",
-                                           "depthwise_scalar"))):
+        for label, keys in KERNEL_KEYS.items():
             ms = sum(v for k, v in prof["kernels"]
                      if any(key in k for key in keys))
             print(f"  {label} kernel: {ms:.4f} ms "
@@ -772,6 +850,308 @@ def profile_batch(name, predictor, smi, sources, gen):
               + ", ".join(f"{op} {ms:.3f} ms" for op, ms in prof["copies"]),
               flush=True)
         del x
+
+
+def explain_config(mode):
+    """The config keys ``GradCAMExplainer`` reads (the card has no PyYAML
+    to load config.yml); no PNG is written, so no paths."""
+    from ab_line_classifier_torch.config import Config
+
+    return Config({"DATA": {"IMG_DIM": list(OUT_HW),
+                            "CLASSES": ["a_lines", "b_lines"]},
+                   "PATHS": {"HEATMAPS": "", "FRAMES": ""},
+                   "EXPLAINABILITY": {"GRAD_CAM": {"MODE": mode}}})
+
+
+def margins(probs):
+    """Top-2 probability margin of each frame."""
+    top = np.sort(probs, axis=1)
+    return top[:, -1] - top[:, -2]
+
+
+def lit_frames(frames, n):
+    """The first ``n`` frames, of graded brightness (0.15 to 1), each lit
+    through a half-plane turned 135 degrees from the previous frame's and
+    dimmed to 0.2 outside it, so that the logits and the heatmaps differ
+    from frame to frame."""
+    h, w = frames.shape[1:3]
+    yy, xx = np.mgrid[0:h, 0:w]
+    out = []
+    for i, gain in enumerate(np.linspace(0.15, 1.0, n)):
+        ang = 0.75 * np.pi * i
+        lit = (xx - w / 2) * np.cos(ang) + (yy - h / 2) * np.sin(ang) > 0
+        out.append(frames[i] * (gain * np.where(lit, 1.0, 0.2))[..., None])
+    return np.stack(out).astype(np.uint8)
+
+
+def gradcam_gpu_vs_cpu(spec, state_dict, explainer, frames, filler, smi):
+    """Grad-CAM on the GPU against the same port on the CPU, over the
+    check ``frames`` whose top-2 margin clears the probability bar on the
+    CPU in bf16 and in float32 (a borderline frame may pick the other
+    class, and then its heatmap differs completely), by relative Frobenius
+    error:
+
+    * in bf16 (the served dtype), probabilities and heatmaps within bars
+      set as ``gpu_vs_cpu`` sets them: the larger of ACT_RTOL and twice the
+      CPU's own bf16-vs-float32 floor; the heatmaps only where that bar is
+      at most BAR_CEILING;
+    * in float32 (the same weights, the same kernels), within F32_RTOL.
+
+    The frames are taken CHECK_KEEP at a time (every fourth, so that each
+    draw spans the brightness range) until CHECK_KEEP clear the margin.
+    The GPU explains each draw as the first frames of a batch of ZOO_BATCH
+    (the timed batch; ``filler`` frames make up the rest), the CPU the
+    draw alone.
+
+    Faults are held against the float32 bar: frames with their channels
+    swapped, and each frame's heatmap taken for the next frame's, must
+    move the heatmaps beyond three times it. The bf16 bar cannot serve
+    there: the heatmap is a sum over the tap's channels that largely
+    cancels, so bf16 rounding of the tap moves the random-weight models'
+    heatmaps far from float32 (mobilenetv2's by 17-29%) while the GPU and
+    the CPU, rounding alike, agree within a few percent. Raises past the
+    bars."""
+    from ab_line_classifier_torch.explain.gradcam import GradCAMExplainer
+
+    cfg, mode = explain_config(explainer.mode), explainer.mode
+    spec32 = dataclasses.replace(spec, dtype=torch.float32)
+    gpu32 = GradCAMExplainer(cfg, spec32, state_dict, mode, "cuda")
+    cpu = GradCAMExplainer(cfg, spec, state_dict, mode, "cpu")
+    cpu32 = GradCAMExplainer(cfg, spec32, state_dict, mode, "cpu")
+
+    def in_batch(ex, draw):
+        batch = np.concatenate([draw, filler[:ZOO_BATCH - len(draw)]])
+        return tuple(out[:len(draw)] for out in ex.explain_frames(batch))
+
+    step = len(frames) // CHECK_KEEP
+    parts = []
+    for j in range(step):
+        draw = frames[j::step]
+        parts.append({"gpu": in_batch(explainer, draw),
+                      "cpu": cpu.explain_frames(draw),
+                      "gpu32": in_batch(gpu32, draw),
+                      "cpu32": cpu32.explain_frames(draw),
+                      "swapped": in_batch(gpu32, draw[..., ::-1].copy())})
+        runs = {name: tuple(np.concatenate([p[name][i] for p in parts])
+                            for i in range(2)) for name in parts[0]}
+        cpu_p, cpu32_p = runs["cpu"][0], runs["cpu32"][0]
+        prob_bar = max(BF16_PROB_ATOL,
+                       2 * float(np.abs(cpu_p - cpu32_p).max()))
+        keep = (margins(cpu_p) >= prob_bar) & (margins(cpu32_p) >= prob_bar)
+        if keep.sum() >= CHECK_KEEP:
+            break
+    n_drawn = len(keep)
+    if keep.sum() < CHECK_KEEP:
+        raise AssertionError(f"{spec.name} Grad-CAM [{mode}]: only "
+                             f"{keep.sum()} of {n_drawn} frames clear the "
+                             f"margin {prob_bar}")
+    t = {(name, k): torch.from_numpy(out[i][keep])
+         for name, out in runs.items() for i, k in enumerate("pc")}
+    for name in ("gpu", "gpu32"):
+        if (t[name, "p"].argmax(1) != t["cpu", "p"].argmax(1)).any():
+            raise AssertionError(f"{spec.name} Grad-CAM [{mode}]: a kept "
+                                 f"frame changed class ({name})")
+    if float(t["cpu32", "c"].norm()) == 0.0:
+        raise AssertionError(f"{spec.name} Grad-CAM [{mode}]: every kept "
+                             f"heatmap is empty")
+    errs = {k: rel_err(t["gpu", k], t["cpu", k]) for k in "pc"}
+    floors = {k: rel_err(t["cpu", k], t["cpu32", k]) for k in "pc"}
+    bars = {k: max(ACT_RTOL, 2 * floors[k]) for k in "pc"}
+    errs32 = {k: rel_err(t["gpu32", k], t["cpu32", k]) for k in "pc"}
+    faults = {"channels swapped": rel_err(t["swapped", "c"],
+                                          t["cpu32", "c"]),
+              "next frame's": rel_err(t["gpu32", "c"].roll(1, 0),
+                                      t["cpu32", "c"])}
+    held = bars["c"] <= BAR_CEILING
+    print(f"{spec.name} Grad-CAM [{mode}] GPU vs CPU ({smi}): "
+          f"{int(keep.sum())} of {n_drawn} frames kept (top-2 margin at "
+          f"least {prob_bar:.2e}), GPU in batches of {ZOO_BATCH}; bf16 "
+          f"relative error probabilities {errs['p']:.3e}, heatmaps "
+          f"{errs['c']:.3e} (bars {bars['p']:.3e} / {bars['c']:.3e}"
+          + ("" if held else f" > {BAR_CEILING}: heatmaps held in float32 "
+             f"only") + f"; CPU bf16 vs float32 {floors['p']:.3e} / "
+          f"{floors['c']:.3e}); float32 {errs32['p']:.3e} / "
+          f"{errs32['c']:.3e} (bar {F32_RTOL:.0e}); float32 heatmap "
+          f"faults: " + ", ".join(f"{k} {v:.3e}" for k, v in faults.items()),
+          flush=True)
+    if bars["p"] > BAR_CEILING:
+        raise AssertionError(f"{spec.name} Grad-CAM [{mode}]: CPU bf16 vs "
+                             f"float32 probabilities differ by "
+                             f"{floors['p']}: too far apart to compare")
+    for k, label in (("p", "probabilities"), ("c", "heatmaps")):
+        bar = bars[k] if k == "p" or held else float("inf")
+        if not (errs[k] <= bar and errs32[k] <= F32_RTOL):
+            raise AssertionError(f"{spec.name} Grad-CAM [{mode}]: GPU vs CPU "
+                                 f"{label} differ by {errs[k]} (bf16) / "
+                                 f"{errs32[k]} (float32)")
+    for k, v in faults.items():
+        if not v >= 3 * F32_RTOL:
+            raise AssertionError(f"{spec.name} Grad-CAM [{mode}]: the fault "
+                                 f"'{k}' moves the heatmaps by only {v}")
+
+
+def phase_gradcam(spec, state_dict, per_forward, frames480, frames128, smi):
+    """Grad-CAM of ``spec`` on the card, both modes, batches of ZOO_BATCH
+    host frames of both sources through ``GradCAMExplainer.explain_frames``
+    with the kernel counts reset just before; checks the outputs, B1's
+    launch per batch and B2's ``per_forward`` launches per batch with no
+    input copied; then GPU vs CPU, the serving and Grad-CAM rates at
+    ZOO_BATCH. Returns (B1 launches, B2 launches)."""
+    from ab_line_classifier_torch.explain.gradcam import (GradCAMExplainer,
+                                                          heatmap_overlay)
+    from ab_line_classifier_torch.ops import depthwise_cuda as DC
+    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+    from ab_line_classifier_torch.predict.benchmark import (
+        clip_inference_benchmark, gradcam_benchmark)
+
+    explainers = {mode: GradCAMExplainer(explain_config(mode), spec,
+                                         state_dict, mode, "cuda")
+                  for mode in ("normal", "plusplus")}
+    PC.reset_launch_count()
+    DC.reset_launch_count()
+    t0 = time.perf_counter()
+    n_batches = 0
+    for mode, ex in explainers.items():
+        for frames in (frames480, frames128):
+            for i in range(0, len(frames), ZOO_BATCH):
+                probs, cams = ex.explain_frames(frames[i:i + ZOO_BATCH])
+                n = len(frames[i:i + ZOO_BATCH])
+                n_batches += 1
+                if probs.shape != (n, 2) or cams.shape != (n, *OUT_HW) \
+                        or not (np.isfinite(probs).all()
+                                and np.isfinite(cams).all()):
+                    raise AssertionError(f"{spec.name} Grad-CAM [{mode}]: "
+                                         f"bad outputs")
+                if np.abs(probs.sum(1) - 1).max() > 1e-5 \
+                        or cams.min() < 0 or cams.max() > 1 + 1e-6 \
+                        or cams.max() < 0.5:
+                    raise AssertionError(f"{spec.name} Grad-CAM [{mode}]: "
+                                         f"probabilities or heatmaps out "
+                                         f"of range")
+    seconds = time.perf_counter() - t0
+    pre, dw = PC.launch_count, DC.launch_count
+    if pre != n_batches or dw != per_forward * n_batches or DC.copy_count:
+        raise AssertionError(f"{spec.name} Grad-CAM: {pre} preprocess and "
+                             f"{dw} depthwise launches, {DC.copy_count} "
+                             f"input copies in {n_batches} batches")
+    overlay = heatmap_overlay(frames128[0], cams[-1])
+    if overlay.shape != frames128[0].shape or overlay.dtype != np.uint8:
+        raise AssertionError("bad heatmap overlay")
+    print(f"{spec.name} Grad-CAM: {n_batches} batches of {ZOO_BATCH} host "
+          f"frames (480x640 and 128x128, normal and plusplus) in "
+          f"{seconds:.2f} s; preprocess launches {pre}, depthwise launches "
+          f"{dw} ({dw // n_batches} per forward), depthwise input copies "
+          f"{DC.copy_count}", flush=True)
+    check = lit_frames(frames480, CHECK_DRAW)
+    for ex in explainers.values():
+        gradcam_gpu_vs_cpu(spec, state_dict, ex, check,
+                           frames480[CHECK_DRAW:], smi)
+    serve = clip_inference_benchmark(batch_size=ZOO_BATCH, img_dim=OUT_HW,
+                                     n_warmup=WARMUP, n_iters=ITERS,
+                                     state_dict=state_dict, spec=spec,
+                                     device="cuda", verbose=False)
+    for mode in explainers:
+        r = gradcam_benchmark(batch_size=ZOO_BATCH, img_dim=OUT_HW,
+                              mode=mode, n_warmup=WARMUP, n_iters=ITERS,
+                              state_dict=state_dict, spec=spec,
+                              device="cuda", verbose=False)
+        print(f"throughput on {smi}: {spec.name} 128x128 batch {ZOO_BATCH}: "
+              f"Grad-CAM [{mode}] {r['gradcam_frames_per_sec']:.1f} "
+              f"frames/s ({r['ms_per_batch']:.3f} ms/batch), serving "
+              f"{serve['frames_per_sec']:.1f} frames/s "
+              f"({serve['ms_per_batch']:.3f} ms/batch); Grad-CAM / serving "
+              f"{r['gradcam_frames_per_sec'] / serve['frames_per_sec']:.4f}",
+              flush=True)
+    return pre, dw
+
+
+def profile_gradcam(spec, state_dict, smi, gen):
+    """Where the device time of one Grad-CAM batch (ZOO_BATCH frames of
+    128x128, normal) goes."""
+    from ab_line_classifier_torch.explain.gradcam import build_fused_gradcam
+    from ab_line_classifier_torch.predict.predict import load_module
+
+    fused = build_fused_gradcam(spec, load_module(spec, state_dict,
+                                                  torch.device("cuda")))
+    x = torch.randint(0, 256, (ZOO_BATCH, *OUT_HW, 3), dtype=torch.uint8,
+                      device="cuda", generator=gen)
+    prof = device_time_by_kernel(lambda: fused(x))
+    wall, busy = prof["wall_ms"], prof["busy_ms"]
+    print(f"profile, {spec.name} Grad-CAM batch {ZOO_BATCH} from 128x128 on "
+          f"{smi}: wall {wall:.3f} ms, device busy {busy:.3f} ms (idle "
+          f"share {1 - busy / wall:.4f})")
+    for kname, ms in prof["kernels"][:12]:
+        print(f"  {ms:9.3f} ms {100 * ms / wall:6.2f}%  {kname[:110]}")
+    print("  copy and fill kernels by the operator that launched them: "
+          + ", ".join(f"{op} {ms:.3f} ms" for op, ms in prof["copies"]),
+          flush=True)
+
+
+def phase_latency(spec, state_dict, per_forward, smi):
+    """Batch-1 latency of ``spec`` (CUDA graph and eager, and the
+    reference's host-clock mechanism), with the kernel counts reset just
+    before. Checks the kernels captured per step, that one replay runs
+    them on the card (the profiler's count), and the chain's probabilities
+    on its two check frames (the replayed graph's, which the benchmark
+    holds equal to the eager chain's) against ``Predictor`` on the CPU in
+    bf16, within the larger of BF16_PROB_ATOL and twice the CPU's
+    bf16-vs-float32 floor. Returns (B1 launches, B2 launches, {kernel:
+    runs per replay}, replays)."""
+    from ab_line_classifier_torch.ops import depthwise_cuda as DC
+    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+    from ab_line_classifier_torch.predict.benchmark import (
+        clock_avg_runtime, single_frame_latency_benchmark)
+    from ab_line_classifier_torch.predict.predict import Predictor
+
+    PC.reset_launch_count()
+    DC.reset_launch_count()
+    r = single_frame_latency_benchmark(img_dim=OUT_HW, state_dict=state_dict,
+                                       spec=spec, device="cuda",
+                                       verbose=False)
+    pre, dw = PC.launch_count, DC.launch_count
+    per_step = r["graph_launches_per_step"]
+    if per_step != {"preprocess": 1, "depthwise": per_forward}:
+        raise AssertionError(f"{spec.name}: captured per step {per_step}")
+    calls = device_time_by_kernel(r["graph"].replay, n_iters=1)["calls"]
+    per_replay = {label: sum(n for k, n in calls.items()
+                             if any(key in k for key in keys))
+                  for label, keys in KERNEL_KEYS.items()}
+    # The wrappers count at capture only: the profiler shows that the
+    # replays run the kernels on the card.
+    for label, n in per_step.items():
+        if (per_replay[label] > 0) != (n > 0):
+            raise AssertionError(f"{spec.name}: one replay ran "
+                                 f"{per_replay[label]} {label} kernels, "
+                                 f"{n} captured per step")
+    frames = torch.as_tensor(r["check_frames"])
+    cpu, cpu32 = (Predictor(s, state_dict, batch_size=1,
+                            compute_dtype=s.dtype, device="cpu"
+                            ).forward(frames).numpy()
+                  for s in (spec, dataclasses.replace(spec,
+                                                      dtype=torch.float32)))
+    err = float(np.abs(r["check_probs"] - cpu).max())
+    floor = float(np.abs(cpu - cpu32).max())
+    bar = max(BF16_PROB_ATOL, 2 * floor)
+    mean_ms, std_ms = clock_avg_runtime(img_dim=OUT_HW,
+                                        state_dict=state_dict, spec=spec,
+                                        device="cuda", verbose=False)
+    print(f"latency on {smi}: {spec.name} batch 1, chain of "
+          f"{r['chain_len']}: CUDA graph {r['graph_ms_per_frame']:.4f} "
+          f"ms/frame, eager {r['eager_ms_per_frame']:.4f} ms/frame; "
+          f"clock_avg_runtime {mean_ms:.4f} +- {std_ms:.4f} ms; captured "
+          f"per step preprocess {per_step['preprocess']:g}, depthwise "
+          f"{per_step['depthwise']:g} launches; one replay ran preprocess "
+          f"{per_replay['preprocess']:g}, depthwise "
+          f"{per_replay['depthwise']:g} kernels (profiler; "
+          f"{r['chain_len']} steps captured); "
+          f"{r['replayed_steps'] // r['chain_len']} replays; wrapper counts "
+          f"{pre} / {dw}; replayed graph equal to the eager chain on 2 "
+          f"frames, against the CPU max |dp| {err:.2e} (bar {bar:.2e}; CPU "
+          f"bf16 vs float32 {floor:.2e})", flush=True)
+    if not err <= bar:
+        raise AssertionError(f"{spec.name}: batch-1 GPU vs CPU probabilities "
+                             f"differ by {err}")
+    return pre, dw, per_replay, r["replayed_steps"] // r["chain_len"]
 
 
 def main():
@@ -846,7 +1226,8 @@ def main():
                                    *ZOO[name], smi)
         b1_launches += pre
         b2_launches += dw
-    del frames480, frames128
+    frames480, frames128 = frames480[:512].copy(), frames128[:512].copy()
+    launches = {"serving": (b1_launches, b2_launches)}
 
     phase("8 throughput")
     for bs in (1024, 2048):
@@ -860,11 +1241,43 @@ def main():
     profile_batch("mobilenetv2", mbv2_pred, smi, ((128, 128),), gen)
     torch.cuda.synchronize()
 
+    phase("9 Grad-CAM")
+    weights["cutoffvgg16"] = vgg_sd
+    grad_specs = {"cutoffvgg16": vgg, **specs}
+    per_forward = {"cutoffvgg16": 0, **{k: v[1] for k, v in ZOO.items()}}
+    launches["gradcam"] = tuple(map(sum, zip(*(
+        phase_gradcam(grad_specs[name], weights[name], per_forward[name],
+                      frames480, frames128, smi) for name in grad_specs))))
+    del frames480, frames128
+    for name in ("cutoffvgg16", "mobilenetv2"):
+        profile_gradcam(grad_specs[name], weights[name], smi, gen)
+
+    phase("10 batch-1 latency")
+    per_replay, replays = {}, {}
+    counts = []
+    for name in ("cutoffvgg16", "mobilenetv2"):
+        pre, dw, per_replay[name], replays[name] = phase_latency(
+            grad_specs[name], weights[name], per_forward[name], smi)
+        counts.append((pre, dw))
+    launches["latency"] = tuple(map(sum, zip(*counts)))
+    torch.cuda.synchronize()
+
+    def graph_runs(kernel):
+        """Runs on the card of ``kernel`` in one replay of each model's
+        latency graph (the profiler's count), and the benchmark's
+        replays."""
+        return {"profiled_runs_per_graph_replay": {
+                    name: n[kernel] for name, n in per_replay.items()},
+                "graph_replays": replays}
+
     kernels = [
         {"name": "preprocess", "route": "cuda",
          "source": "ab_line_classifier_torch/csrc/preprocess.cu",
          "replaces": "ab_line_classifier_tpu/ops/preprocess_pallas.py:66",
-         "launches": b1_launches, "max_abs_err": b1_err,
+         "launches": sum(b1 for b1, _ in launches.values()),
+         "launches_by_path": {k: b1 for k, (b1, _) in launches.items()},
+         **graph_runs("preprocess"),
+         "max_abs_err": b1_err,
          "ms": b1["ms"], "plain_ms": b1["plain_ms"],
          "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"],
          "library_ms": b1["library_ms"],
@@ -872,7 +1285,10 @@ def main():
         {"name": "depthwise", "route": "cuda",
          "source": "ab_line_classifier_torch/csrc/depthwise.cu",
          "replaces": "ab_line_classifier_tpu/ops/depthwise_pallas.py:60",
-         "launches": b2_launches, "max_abs_err": b2_err,
+         "launches": sum(b2 for _, b2 in launches.values()),
+         "launches_by_path": {k: b2 for k, (_, b2) in launches.items()},
+         **graph_runs("depthwise"),
+         "max_abs_err": b2_err,
          "ms": b2["ms"], "plain_ms": b2["plain_ms"],
          "bound_ms": b2["bound_ms"], "bound_by": b2["bound_by"],
          "library_ms": b2["library_ms"],

@@ -152,3 +152,36 @@ def test_depthwise_kernel_at_every_zoo_shape():
             sorted(shapes), (torch.float32, torch.bfloat16)):
         _assert_depthwise_equal(*_depthwise_case((2,) + shape[1:], k, dtype,
                                                  gen))
+
+
+@pytest.mark.cuda
+def test_gradcam_through_the_depthwise_kernel():
+    """Grad-CAM of mobilenetv2 on the card: its forward launches the
+    depthwise kernel 10 times, the tap gradient is taken after them, and
+    the probabilities are those of ``Predictor.forward`` on the same batch
+    (same module, same preprocess, same kernels)."""
+    _need_cuda()
+    from ab_line_classifier_torch import graph as G
+    from ab_line_classifier_torch.explain.gradcam import build_fused_gradcam
+    from ab_line_classifier_torch.predict.benchmark import (build_zoo,
+                                                            seeded_state)
+    from ab_line_classifier_torch.predict.predict import Predictor
+
+    spec = build_zoo("mobilenetv2")
+    predictor = Predictor(spec, seeded_state(spec, 3), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    frames = torch.randint(0, 256, (16, 128, 128, 3), dtype=torch.uint8,
+                           device="cuda", generator=gen)
+    G.adapt_batch_norm(predictor.module, preprocess_cuda.preprocess_frames(
+        frames, out_hw=(128, 128), preprocess_mode=spec.preprocess_mode,
+        out_dtype=spec.dtype))
+    fused = build_fused_gradcam(spec, predictor.module, "plusplus")
+    before = depthwise_cuda.launch_count
+    probs, cams = fused(frames)
+    assert depthwise_cuda.launch_count == before + 10
+    torch.testing.assert_close(probs, predictor.forward(frames), rtol=0,
+                               atol=0)
+    assert cams.shape == (16, 128, 128) and cams.dtype == torch.float32
+    assert torch.isfinite(cams).all()
+    assert 0.0 <= float(cams.min()) and float(cams.max()) <= 1.0
+    assert float(cams.amax(dim=(1, 2)).max()) > 0.5

@@ -1,7 +1,8 @@
 """PyTorch port, isolation: the port imports no JAX and nothing of the JAX
 package, and its modules import only torch and numpy (plus the standard
 library) when they are imported, so it runs where JAX, pandas, PIL,
-sklearn and PyYAML are not installed.
+sklearn, PyYAML, h5py, protobuf (``google.protobuf``) and matplotlib
+are not installed.
 """
 
 import os
@@ -20,6 +21,8 @@ names = [m.name for m in pkgutil.walk_packages({pkg}.__path__, "{pkg}.")]
 for name in names:
     importlib.import_module(name)
 roots = {{m.split(".")[0] for m in sys.modules}}
+# protobuf by its package: a namespace .pth may load "google" at startup.
+roots |= {{m for m in sys.modules if m.startswith("google.protobuf")}}
 print(len(names))
 print(" ".join(sorted(roots)))
 """
@@ -35,7 +38,7 @@ def test_port_imports_no_jax_and_only_torch_numpy():
     loaded = set(roots.split())
     forbidden = {"jax", "jaxlib", "flax", "optax", "orbax",
                  "ab_line_classifier_tpu", "pandas", "PIL", "sklearn",
-                 "yaml"}
+                 "yaml", "h5py", "google.protobuf", "matplotlib"}
     assert not loaded & forbidden, sorted(loaded & forbidden)
 
 

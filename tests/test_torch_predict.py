@@ -139,6 +139,41 @@ def test_benchmark_runs_on_cpu_when_asked():
     assert r["device"] == "cpu" and r["frames_per_sec"] > 0
 
 
+def test_gradcam_and_latency_benchmarks_run_on_cpu():
+    """``gradcam_benchmark``, the batch-1 latency chain (eager only: CUDA
+    graphs exist on the card) and ``clock_avg_runtime`` on the CPU; the
+    profiling module's step timer discards its warm-up steps."""
+    from ab_line_classifier_torch.predict.benchmark import (
+        build_flagship, clock_avg_runtime, gradcam_benchmark, seeded_state,
+        single_frame_latency_benchmark)
+    from ab_line_classifier_torch.utils.profiling import StepTimer
+
+    for mode in ("normal", "plusplus"):
+        r = gradcam_benchmark(batch_size=2, img_dim=(32, 32), mode=mode,
+                              n_warmup=1, n_iters=1, device="cpu",
+                              verbose=False)
+        assert r["mode"] == mode and r["gradcam_frames_per_sec"] > 0
+    r = single_frame_latency_benchmark(img_dim=(32, 32), chain_len=2,
+                                       n_warmup=1, n_iters=1, device="cpu",
+                                       verbose=False)
+    assert r["eager_ms_per_frame"] > 0 and r["graph_ms_per_frame"] is None
+    # The chain's output on its check frames is the serving forward's: the
+    # offset it adds between steps is always zero.
+    spec = build_flagship((32, 32))
+    want = Predictor(spec, seeded_state(spec), device="cpu").forward(
+        torch.as_tensor(r["check_frames"]))
+    assert r["check_frames"].shape == (2, 32, 32, 3)
+    np.testing.assert_array_equal(r["check_probs"], want.numpy())
+    mean_ms, std_ms = clock_avg_runtime(1, 3, img_dim=(32, 32),
+                                        device="cpu", verbose=False)
+    assert mean_ms > 0 and std_ms >= 0
+    timer = StepTimer(warmup=2)
+    for _ in range(5):
+        with timer:
+            pass
+    assert timer.summary()["steps"] == 3
+
+
 def test_checkpoint_contract(tmp_path):
     """state.pt + meta.json (meta last) round trip; a directory of
     checkpoints and ``.../latest`` resolve to the newest complete one."""
@@ -158,3 +193,110 @@ def test_checkpoint_contract(tmp_path):
         torch.testing.assert_close(state[k], v, rtol=0, atol=0)
     with pytest.raises(FileNotFoundError):
         torch_ckpt.resolve_model_dir(str(tmp_path / "nothing"))
+
+
+def _file_checkpoint(ws, cfgs, ext):
+    """The workspace's weights as a ``.h5`` (JAX ``export_h5_weights``) or
+    ``.onnx`` (JAX ``export_onnx``) file, and the port's and the JAX
+    package's configs serving it."""
+    from ab_line_classifier_tpu.models.onnx_export import export_onnx
+    from ab_line_classifier_tpu.models.weights import export_h5_weights
+    from ab_line_classifier_torch.utils.jax_params import flax_from_state_dict
+
+    state, _ = torch_ckpt.load_model(os.path.join(ws, "torch_models",
+                                                  "latest"))
+    variables = flax_from_state_dict(state)
+    cfg = load_config(cfgs["torch"])
+    path = os.path.join(ws, f"weights.{ext}")
+    if not os.path.exists(path):
+        if ext == "h5":
+            export_h5_weights(path, variables)
+        else:
+            spec = jax_build_model(cfg.model_name, cfg.model_hparams(),
+                                   cfg.img_dim + (3,), cfg.n_classes)
+            export_onnx(spec, variables, path, batch_size=2)
+    d = cfg.to_dict()
+    d["PATHS"]["MODEL_TO_LOAD"] = path
+    return path, d, state
+
+
+@pytest.mark.parametrize("ext", ["h5", "onnx"])
+def test_restore_file_matches_jax(workspace, ext):
+    """``Predictor.restore(cfg=)`` of a JAX-written ``.h5`` / ``.onnx``:
+    float32, the weights of the port checkpoint bit for bit, and the JAX
+    package's restore of the same file within 1e-4."""
+    from ab_line_classifier_tpu.config import Config as JaxConfig
+    from ab_line_classifier_tpu.predict.predict import (
+        Predictor as JaxPredictor)
+    from ab_line_classifier_torch.config import Config
+
+    ws, cfgs = workspace
+    path, d, state = _file_checkpoint(ws, cfgs, ext)
+    got = Predictor.restore(path, cfg=Config(d), batch_size=4,
+                            compute_dtype=torch.float32, device="cpu")
+    assert got.spec.dtype == torch.float32
+    for k, v in got.module.state_dict().items():
+        torch.testing.assert_close(v, state[k], rtol=0, atol=0)
+    import jax.numpy as jnp
+
+    want = JaxPredictor.restore(path, cfg=JaxConfig(d), batch_size=4,
+                                compute_dtype=jnp.float32)
+    frames = np.random.RandomState(5).randint(
+        0, 256, (6, 40, 48, 3)).astype(np.uint8)
+    np.testing.assert_allclose(got.predict_probs(frames),
+                               want.predict_probs(frames), atol=PROB_ATOL)
+
+
+def test_restore_file_needs_cfg_and_a_match(workspace, tmp_path):
+    from ab_line_classifier_torch.config import Config
+    import h5py
+
+    ws, cfgs = workspace
+    path, d, _ = _file_checkpoint(ws, cfgs, "h5")
+    with pytest.raises(ValueError, match="needs cfg"):
+        Predictor.restore(path, device="cpu")
+    other = str(tmp_path / "other.h5")
+    with h5py.File(other, "w") as f:
+        g = f.create_group("model_weights").create_group("unrelated")
+        g.create_group("unrelated").create_dataset(
+            "kernel:0", data=np.zeros((3, 3), np.float32))
+    with pytest.raises(ValueError, match="no layers matched"):
+        Predictor.restore(other, cfg=Config(d), device="cpu")
+
+
+def test_cli_serves_h5_with_profile(workspace):
+    """The predict CLI on ``PATHS.MODEL_TO_LOAD`` = a ``.h5``: the frames
+    CSV holds what the port checkpoint's weights give (the CLI's bf16
+    preprocess, float32 model), and ``--profile`` writes a trace."""
+    from ab_line_classifier_torch.config import Config
+    from ab_line_classifier_torch.data.pipeline import FrameDataset
+
+    ws, cfgs = workspace
+    _, d, state = _file_checkpoint(ws, cfgs, "h5")
+    d["PATHS"].update({
+        "BATCH_PREDS": os.path.join(ws, "h5_predictions") + os.sep,
+        "METRICS": os.path.join(ws, "h5_metrics") + os.sep,
+        "LOGS": os.path.join(ws, "h5_logs") + os.sep})
+    cfg_path = _write_cfg(os.path.join(ws, "h5_config.yml"), d)
+    r = subprocess.run(
+        [sys.executable, "-m", "ab_line_classifier_torch.predict",
+         "--config", cfg_path, "--device", "cpu", "--profile"],
+        capture_output=True, text=True, timeout=300, cwd=REPO_ROOT,
+        env=cli_env(cfg_path))
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "profiler trace written to" in r.stdout
+    trace, = glob.glob(os.path.join(ws, "h5_logs", "profiles", "*.json"))
+    with open(trace) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"predict.preprocess", "predict.model"} <= names
+    csvs, _ = _outputs(ws, "h5")
+    cfg = Config(d)
+    spec = build_model(cfg.model_name, cfg.model_hparams(),
+                       cfg.img_dim + (3,), cfg.n_classes)
+    frames_df = pd.read_csv(d["PATHS"]["FRAME_TABLE"])
+    want = Predictor(spec, state, batch_size=cfg.batch_size,
+                     device="cpu").predict_dataset(
+        FrameDataset(frames_df, d["PATHS"]["FRAMES"], img_dim=cfg.img_dim))
+    got = csvs["frames_frames"]
+    np.testing.assert_allclose(got[["a_lines", "b_lines"]].to_numpy(), want,
+                               rtol=0, atol=1e-6)

@@ -82,11 +82,11 @@ def jax_graph(name, mixed_precision=False):
     return graph
 
 
-def port_spec(name, mixed_precision=False):
+def port_spec(name, mixed_precision=False, shape=SHAPE):
     if name == "efficientnetb0":
-        return build_efficientnet("b0", HPARAMS[name], SHAPE, 2,
+        return build_efficientnet("b0", HPARAMS[name], shape, 2,
                                   mixed_precision=mixed_precision)
-    return build_model(name, HPARAMS[name], SHAPE, 2,
+    return build_model(name, HPARAMS[name], shape, 2,
                        mixed_precision=mixed_precision)
 
 
@@ -104,7 +104,8 @@ def random_variables(name, seed):
 
 def serving_variables(name, inputs, seed=0):
     """Scaled random leaves with batch-norm statistics set from ``inputs``
-    (module docstring)."""
+    (module docstring; ``inputs`` may be of another size than SHAPE where
+    the parameters' shapes do not depend on it)."""
     def scale(path, a):
         leaf = path[-1].key
         if leaf == "kernel":
@@ -118,7 +119,7 @@ def serving_variables(name, inputs, seed=0):
 
     v = jax.tree_util.tree_map_with_path(scale,
                                          random_variables(name, seed))
-    module = port_spec(name).module()
+    module = port_spec(name, shape=inputs.shape[1:]).module()
     module.load_state_dict(state_dict_from_flax(v))
     G.adapt_batch_norm(module.eval(), torch.from_numpy(inputs))
     return flax_from_state_dict(module.state_dict())
