@@ -20,16 +20,27 @@ public tensors are NHWC, as in the JAX package; inside, 4-D activations are
 NCHW views of NHWC memory (``channels_last``), the layout cuDNN and the
 depthwise kernel want.
 
-Precision. A mixed-precision model is cast to bfloat16 as a whole
+Precision. A mixed-precision model serves cast to bfloat16 as a whole
 (``module.to(dtype=torch.bfloat16)``), which casts every conv and dense
-weight, as flax's ``dtype=bfloat16`` layers do. :class:`BatchNorm` and
-:class:`Normalization` keep their parameters and statistics in float32
-through such a cast (their ``_apply`` restores the float32 tensors, moved to
-the new device), because flax keeps them in float32: its ``BatchNorm``
-normalizes a bfloat16 input in float32 against float32 statistics and casts
-to bfloat16 at the end, which is what ``F.batch_norm`` does with a bfloat16
-input and float32 statistics. ``Normalization`` computes in the input's
-dtype, as the JAX layer does.
+weight, as flax's ``dtype=bfloat16`` layers do. It trains in the other form
+flax has (:func:`set_compute_dtype`): float32 parameters, each conv, dense
+and depthwise layer casting its weight, bias and input to bfloat16 inside
+its forward (flax's ``promote_dtype``), so that an optimizer step updates
+the float32 master copy. :class:`BatchNorm` and :class:`Normalization` keep
+their parameters and statistics in float32 through a cast (their
+``_apply`` restores the float32 tensors, moved to the new device), because
+flax keeps them in float32: its ``BatchNorm`` normalizes a bfloat16 input
+in float32 against float32 statistics and casts to bfloat16 at the end,
+which is what ``F.batch_norm`` does with a bfloat16 input and float32
+statistics. ``Normalization`` computes in the input's dtype, as the JAX
+layer does.
+
+Training. Dropout draws from the ``torch.Generator`` handed to
+``GraphModule.forward`` (the trainer's per-step generator). A batch norm
+in training mode normalizes with the batch's statistics and moves its
+running ones by flax's rule (biased variance); one listed in
+``inference_bn`` (a layer frozen in the phase) runs in inference mode in
+training too and never moves them.
 
 TF ``SAME`` padding: at stride 1 with an odd kernel it is symmetric; at
 stride 2 it depends on the input size and puts the odd pixel bottom/right
@@ -222,11 +233,14 @@ class GraphModule(nn.Module):
     """``nn.Module`` executing a :class:`LayerGraph` on NHWC input.
 
     ``capture`` names intermediate activations returned (NHWC) beside the
-    output from the same forward pass. Dropout follows ``self.training``.
+    output from the same forward pass. Dropout and batch norm follow
+    ``self.training``; the batch norms named in ``inference_bn`` run in
+    inference mode in training too (:meth:`set_inference_bn`).
     """
 
     def __init__(self, graph: LayerGraph, capture: Tuple[str, ...] = (),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 inference_bn: Tuple[str, ...] = ()):
         super().__init__()
         if generator is None:
             generator = torch.Generator().manual_seed(0)
@@ -235,17 +249,31 @@ class GraphModule(nn.Module):
         for spec in graph.layers[1:]:
             if spec.module_fn is not None:
                 self.add_module(spec.name, spec.module_fn(generator))
+        self.set_inference_bn(inference_bn)
+
+    def set_inference_bn(self, names: Sequence[str]) -> None:
+        """Run exactly the batch norms in ``names`` in inference mode during
+        training (Keras ``trainable=False`` BN: the running statistics
+        normalize and never move)."""
+        names = set(names)
+        for spec in self.graph.layers[1:]:
+            if spec.kind == KIND_BN:
+                self._modules[spec.name].frozen = spec.name in names
 
     def forward(self, x: torch.Tensor,
                 overrides: Optional[Dict[str, torch.Tensor]] = None,
-                leaf: Optional[str] = None):
+                leaf: Optional[str] = None,
+                generator: Optional[torch.Generator] = None):
         """``overrides`` injects activations (NHWC) by layer name: the node's
         computation is skipped and the given tensor used instead.
 
         ``leaf`` names a node whose output (NHWC) is detached into a new
         autograd leaf that requires grad, returned as a capture: autograd
         records what follows it and nothing before it, in the same single
-        pass (Grad-CAM's tap)."""
+        pass (Grad-CAM's tap).
+
+        ``generator`` is what dropout draws from in training mode (on the
+        activations' device)."""
         acts: Dict[str, torch.Tensor] = {INPUT: _to_internal(x)}
         overrides = overrides or {}
         captured = {}
@@ -254,7 +282,9 @@ class GraphModule(nn.Module):
                 acts[spec.name] = _to_internal(overrides[spec.name])
                 continue
             ins = [acts[n] for n in spec.inputs]
-            if spec.module_fn is not None:
+            if spec.kind == KIND_DROPOUT:
+                y = self._modules[spec.name](ins[0], generator)
+            elif spec.module_fn is not None:
                 y = self._modules[spec.name](*ins)
                 if spec.post_fn is not None:
                     y = spec.post_fn(y)
@@ -298,12 +328,56 @@ def _keras_init(module: nn.Module, generator: torch.Generator,
     return module
 
 
-class SameConv2d(nn.Conv2d):
-    """``nn.Conv2d`` with TF ``SAME`` padding computed from the input size
+def _cast(dtype: Optional[torch.dtype], *ts: Optional[torch.Tensor]):
+    """``ts`` cast to ``dtype`` (``None`` stays ``None``); unchanged when
+    ``dtype`` is ``None``: flax's ``promote_dtype`` of a layer's input and
+    parameters."""
+    if dtype is None:
+        return ts
+    return tuple(None if t is None else t.to(dtype) for t in ts)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` that computes in ``compute_dtype`` when it is set
+    (:func:`set_compute_dtype`)."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, w, b = _cast(self.compute_dtype, x, self.weight, self.bias)
+        return self._conv_forward(x, w, b)
+
+
+def with_init(spec: LayerSpec,
+              init: Callable[[nn.Module, torch.Generator], None]
+              ) -> LayerSpec:
+    """``spec`` with ``init(module, generator)`` applied after its factory:
+    a kernel initializer other than Keras's default glorot-uniform."""
+    base = spec.module_fn
+
+    def factory(generator):
+        m = base(generator)
+        init(m, generator)
+        return m
+    return dataclasses.replace(spec, module_fn=factory)
+
+
+class SameConv2d(Conv2d):
+    """:class:`Conv2d` with TF ``SAME`` padding computed from the input size
     (the stride-2 case, where it can be asymmetric)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return super().forward(pad_same(x, self.kernel_size, self.stride))
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` that computes in ``compute_dtype`` when it is set."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, w, b = _cast(self.compute_dtype, x, self.weight, self.bias)
+        return F.linear(x, w, b)
 
 
 def conv2d(name: str, inp: str, in_features: int, features: int,
@@ -316,7 +390,7 @@ def conv2d(name: str, inp: str, in_features: int, features: int,
     if padding not in ("SAME", "VALID"):
         raise ValueError(f"conv {name!r}: unknown padding {padding!r}")
     symmetric = strides == (1, 1) and all(k % 2 for k in kernel)
-    cls = SameConv2d if padding == "SAME" and not symmetric else nn.Conv2d
+    cls = SameConv2d if padding == "SAME" and not symmetric else Conv2d
     pad = ((kernel[0] // 2, kernel[1] // 2) if padding == "SAME" and symmetric
            else (0, 0))
 
@@ -333,9 +407,13 @@ class DepthwiseConv(nn.Module):
     layer with an odd kernel up to 7 launches the hand-written kernel, any
     other configuration runs the grouped conv. ``weight`` is
     ``[C, 1, K, K]``, PyTorch's grouped-conv layout. The kernel reads the
-    weight repacked to float32 ``[K, K, C]``; the repacked copy is cached
-    here and rebuilt only when the weight changes (another tensor, device
-    or dtype, or an in-place update)."""
+    weight as the forward casts it (to ``compute_dtype`` when that is set),
+    repacked to float32 ``[K, K, C]``; the repacked copy is cached here and
+    rebuilt only when the weight changes (another tensor, device or dtype,
+    an in-place update such as an optimizer step, or another compute
+    dtype)."""
+
+    compute_dtype: Optional[torch.dtype] = None
 
     def __init__(self, channels: int, kernel: Tuple[int, int],
                  strides: Tuple[int, int] = (1, 1), padding: str = "SAME",
@@ -351,18 +429,19 @@ class DepthwiseConv(nn.Module):
         self._packed: Tuple[Any, Optional[torch.Tensor]] = (None, None)
 
     def packed_weight(self) -> torch.Tensor:
-        w = self.weight
-        key = (w.data_ptr(), w._version, w.dtype, w.device)
+        w, cd = self.weight, self.compute_dtype
+        key = (w.data_ptr(), w._version, w.dtype, w.device, cd)
         if self._packed[0] != key:
-            self._packed = (key, pack_weight(w))
+            self._packed = (key, pack_weight(w if cd is None else w.to(cd)))
         return self._packed[1]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = DW.depthwise_conv(x, self.weight, self.stride, self.padding,
+        x, w, b = _cast(self.compute_dtype, x, self.weight, self.bias)
+        y = DW.depthwise_conv(x, w, self.stride, self.padding,
                               packed=self.packed_weight() if x.is_cuda
                               else None)
-        if self.bias is not None:
-            y = y + self.bias.view(1, -1, 1, 1)
+        if b is not None:
+            y = y + b.view(1, -1, 1, 1)
         return y
 
 
@@ -387,7 +466,7 @@ class SeparableConv(nn.Module):
                  padding: str = "SAME", use_bias: bool = True):
         super().__init__()
         self.depthwise = DepthwiseConv(in_features, kernel, strides, padding)
-        self.pointwise = nn.Conv2d(in_features, features, 1, bias=use_bias)
+        self.pointwise = Conv2d(in_features, features, 1, bias=use_bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.pointwise(self.depthwise(x))
@@ -434,12 +513,16 @@ class _Float32State(nn.Module):
 class BatchNorm(_Float32State):
     """Keras BatchNormalization (flax ``BatchNorm``): ``weight``/``bias``
     (flax ``scale``/``bias``) and the ``running_mean``/``running_var``
-    buffers (flax ``batch_stats`` ``mean``/``var``), all float32. Serving
-    normalizes with the running statistics. In training mode it normalizes
-    with the batch's and updates the running ones with Keras's momentum,
-    but through ``F.batch_norm``, whose running variance is the unbiased
-    estimate where flax keeps the biased one (training parity is ROADMAP
-    Queue A item 12)."""
+    buffers (flax ``batch_stats`` ``mean``/``var``), all float32. Serving,
+    and training while ``frozen``, normalize with the running statistics.
+    Otherwise training normalizes with the batch's statistics and moves the
+    running ones by flax's rule: the batch mean and the biased batch
+    variance, both in float32, and ``ra = momentum * ra + (1 - momentum) *
+    batch``. ``F.batch_norm`` moves the running statistics by that rule
+    from the statistics of its own pass, but with the unbiased variance
+    ``n / (n - 1) * var``; one ``lerp`` takes the excess back."""
+
+    frozen = False
 
     def __init__(self, features: int, momentum: float = 0.99,
                  epsilon: float = 1e-3, scale: bool = True):
@@ -451,9 +534,21 @@ class BatchNorm(_Float32State):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, self.training,
-                            1.0 - self.momentum, self.epsilon)
+        if not self.training or self.frozen:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0,
+                                self.epsilon)
+        m, n = self.momentum, x.numel() // x.shape[1]
+        with torch.no_grad():
+            kept = self.running_var * m
+        y = F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                         self.bias, True, 1.0 - m, self.epsilon)
+        with torch.no_grad():
+            # (1 - 1/n) (m ra + (1 - m) n/(n-1) var) + m ra / n
+            #   = m ra + (1 - m) var. A new tensor: autograd holds the one
+            # batch_norm was given.
+            self.running_var = torch.lerp(self.running_var, kept, 1.0 / n)
+        return y
 
 
 def adapt_batch_norm(module: nn.Module, x: torch.Tensor) -> None:
@@ -523,41 +618,44 @@ def dense(name: str, inp: str, in_features: int, features: int,
           bias_init: Optional[Callable[[torch.Tensor], None]] = None,
           act: Optional[Callable] = None) -> LayerSpec:
     def factory(generator):
-        return _keras_init(nn.Linear(in_features, features, bias=use_bias),
+        return _keras_init(Linear(in_features, features, bias=use_bias),
                            generator, bias_init)
     return LayerSpec(name=name, kind=KIND_DENSE, inputs=(inp,),
                      module_fn=factory, post_fn=act, features=features)
 
 
-class BroadcastDropout(nn.Module):
-    """flax ``Dropout`` with ``broadcast_dims``: one keep/drop draw shared
-    along those (public NHWC) axes, e.g. ``(1, 2, 3)`` drops whole samples
-    (stochastic depth), ``(1, 2)`` whole channels (SpatialDropout2D).
-    Identity when not training."""
+class Dropout(nn.Module):
+    """flax ``Dropout``: in training, each element kept with probability
+    ``1 - rate`` and scaled by ``1 / (1 - rate)``, drawn from the generator
+    the forward is given; one keep/drop draw is shared along
+    ``broadcast_dims`` (public NHWC axes), e.g. ``(1, 2, 3)`` drops whole
+    samples (stochastic depth), ``(1, 2)`` whole channels
+    (SpatialDropout2D). Identity when not training or at rate 0."""
 
-    def __init__(self, rate: float, broadcast_dims: Tuple[int, ...]):
+    def __init__(self, rate: float, broadcast_dims: Tuple[int, ...] = ()):
         super().__init__()
         self.rate, self.broadcast_dims = rate, tuple(broadcast_dims)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
+        if generator is None:
+            raise ValueError("dropout in training mode draws from an "
+                             "explicit generator: pass one to the forward")
         keep = 1.0 - self.rate
         shape = list(x.shape)
         for d in self.broadcast_dims:
             shape[_INTERNAL_AXIS[d] if x.ndim == 4 else d] = 1
-        mask = torch.rand(shape, device=x.device) < keep
+        mask = torch.rand(shape, device=x.device, generator=generator) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 def dropout(name: str, inp: str, rate: float,
             broadcast_dims: Tuple[int, ...] = ()) -> LayerSpec:
-    if broadcast_dims:
-        return LayerSpec(name=name, kind=KIND_DROPOUT, inputs=(inp,),
-                         module_fn=lambda generator: BroadcastDropout(
-                             rate, broadcast_dims))
     return LayerSpec(name=name, kind=KIND_DROPOUT, inputs=(inp,),
-                     module_fn=lambda generator: nn.Dropout(rate))
+                     module_fn=lambda generator: Dropout(rate,
+                                                         broadcast_dims))
 
 
 def activation(name: str, inp: str, fn: Callable) -> LayerSpec:
@@ -632,6 +730,18 @@ def multiply(name: str, a: str, b: str) -> LayerSpec:
 
 def input_node() -> LayerSpec:
     return LayerSpec(name=INPUT, kind=KIND_FN, inputs=(), fn=lambda: None)
+
+
+def set_compute_dtype(module: nn.Module,
+                      dtype: Optional[torch.dtype]) -> None:
+    """The training form of mixed precision: every conv, dense and depthwise
+    layer of ``module`` casts its weight, bias and input to ``dtype`` inside
+    its forward (``None``: no cast), so the parameters stay in their own
+    (float32) dtype and an optimizer updates them there. Batch norms are
+    untouched: they normalize in float32 and return the input's dtype."""
+    for m in module.modules():
+        if isinstance(m, (Conv2d, Linear, DepthwiseConv)):
+            m.compute_dtype = dtype
 
 
 def graph_of(*specs: LayerSpec, output: Optional[str] = None) -> LayerGraph:

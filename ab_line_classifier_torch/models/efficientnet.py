@@ -16,6 +16,7 @@ residual add. Width and depth scale by ``round_filters`` /
 ``round_repeats``: B7 (width 2.0, depth 3.1) has 55 blocks; at 128x128, 51
 of its depthwise layers are stride-1 ``SAME`` (3x3 and 5x5, up to C=3840:
 the CUDA depthwise kernel) and 4 stride-2 behind a zero pad (grouped conv).
+Fresh convs start from Keras's variance-scaling initializer.
 """
 
 from __future__ import annotations
@@ -73,6 +74,22 @@ def round_repeats(repeats: int, depth: float) -> int:
     return int(math.ceil(depth * repeats))
 
 
+def _conv_init(module: torch.nn.Module, generator: torch.Generator) -> None:
+    """Keras EfficientNet's CONV_KERNEL_INITIALIZER: variance scaling 2.0,
+    fan_out, truncated normal. On a depthwise ``[C, 1, K, K]`` weight the
+    Keras layout's fan_out (K*K) is this layout's fan_in."""
+    mode = "fan_in" if isinstance(module, G.DepthwiseConv) else "fan_out"
+    C.variance_scaling_(module.weight, generator, mode, "truncated_normal")
+
+
+def _conv(*args, **kwargs) -> G.LayerSpec:
+    return G.with_init(G.conv2d(*args, **kwargs), _conv_init)
+
+
+def _dwconv(*args, **kwargs) -> G.LayerSpec:
+    return G.with_init(G.depthwise_conv2d(*args, **kwargs), _conv_init)
+
+
 def _rescale(scale: np.ndarray):
     """``x * scale[c]`` per channel, the constant cast to ``x``'s dtype
     (kept per device and dtype, so a forward copies nothing to the card)."""
@@ -115,7 +132,7 @@ def efficientnet_backbone(variant: str = "b7",
 
     stem_filters = round_filters(32, width)
     specs.append(G.zero_pad("stem_conv_pad", stem_in, C.correct_pad(size, 3)))
-    specs.append(G.conv2d("stem_conv", "stem_conv_pad", 3, stem_filters,
+    specs.append(_conv("stem_conv", "stem_conv_pad", 3, stem_filters,
                           (3, 3), strides=(2, 2), padding="VALID",
                           use_bias=False))
     size = C.stride2_out(size)
@@ -137,7 +154,7 @@ def efficientnet_backbone(variant: str = "b7",
 
             x = prev
             if expand != 1:
-                specs.append(G.conv2d(f"{b}_expand_conv", x, in_ch, filters,
+                specs.append(_conv(f"{b}_expand_conv", x, in_ch, filters,
                                       (1, 1), use_bias=False))
                 specs.append(G.batch_norm(f"{b}_expand_bn",
                                           f"{b}_expand_conv", filters, **_BN))
@@ -148,12 +165,12 @@ def efficientnet_backbone(variant: str = "b7",
             if s == 2:
                 specs.append(G.zero_pad(f"{b}_dwconv_pad", x,
                                         C.correct_pad(size, kernel)))
-                specs.append(G.depthwise_conv2d(
+                specs.append(_dwconv(
                     f"{b}_dwconv", f"{b}_dwconv_pad", filters,
                     (kernel, kernel), strides=(2, 2), padding="VALID"))
                 size = C.stride2_out(size)
             else:
-                specs.append(G.depthwise_conv2d(
+                specs.append(_dwconv(
                     f"{b}_dwconv", x, filters, (kernel, kernel),
                     padding="SAME"))
             specs.append(G.batch_norm(f"{b}_bn", f"{b}_dwconv", filters,
@@ -168,14 +185,14 @@ def efficientnet_backbone(variant: str = "b7",
             specs.append(G.global_avg_pool(f"{b}_se_squeeze", x))
             specs.append(G.activation(f"{b}_se_reshape", f"{b}_se_squeeze",
                                       lambda t: t[:, :, None, None]))
-            specs.append(G.conv2d(f"{b}_se_reduce", f"{b}_se_reshape",
+            specs.append(_conv(f"{b}_se_reduce", f"{b}_se_reshape",
                                   filters, se_filters, (1, 1), act=swish))
-            specs.append(G.conv2d(f"{b}_se_expand", f"{b}_se_reduce",
+            specs.append(_conv(f"{b}_se_expand", f"{b}_se_reduce",
                                   se_filters, filters, (1, 1),
                                   act=torch.sigmoid))
             specs.append(G.multiply(f"{b}_se_excite", x, f"{b}_se_expand"))
 
-            specs.append(G.conv2d(f"{b}_project_conv", f"{b}_se_excite",
+            specs.append(_conv(f"{b}_project_conv", f"{b}_se_excite",
                                   filters, filters_out, (1, 1),
                                   use_bias=False))
             specs.append(G.batch_norm(f"{b}_project_bn", f"{b}_project_conv",
@@ -194,7 +211,7 @@ def efficientnet_backbone(variant: str = "b7",
             block_num += 1
 
     top_filters = round_filters(1280, width)
-    specs.append(G.conv2d("top_conv", prev, in_ch, top_filters, (1, 1),
+    specs.append(_conv("top_conv", prev, in_ch, top_filters, (1, 1),
                           use_bias=False))
     specs.append(G.batch_norm("top_bn", "top_conv", top_filters, **_BN))
     specs.append(G.activation("top_activation", "top_bn", swish))
@@ -208,13 +225,17 @@ def build_efficientnet(variant: str, hparams: Dict[str, Any],
                        ) -> C.ModelSpec:
     """An EfficientNet variant (``EFFNET_PARAMS``) with the zoo's head."""
     backbone = efficientnet_backbone(variant, tuple(input_shape[:2]))
-    graph = C.classifier_head(backbone, n_classes=n_classes,
-                              dropout=float(hparams["DROPOUT"]),
-                              output_bias=output_bias)
+    graph, regs = C.classifier_head(backbone, n_classes=n_classes,
+                                    dropout=float(hparams["DROPOUT"]),
+                                    output_bias=output_bias)
+    phases = C.single_phase(graph, int(hparams.get("FREEZE_IDX", -1)),
+                            float(hparams["LR"]),
+                            backbone_len=len(backbone.layers))
     return C.ModelSpec(name=f"efficientnet{variant}", graph=graph,
                        preprocess_mode="identity",
                        input_shape=tuple(input_shape), n_classes=n_classes,
-                       dtype=C.compute_dtype(mixed_precision))
+                       dtype=C.compute_dtype(mixed_precision), phases=phases,
+                       activity_regularizers=regs)
 
 
 def build_efficientnetb7(hparams: Dict[str, Any],

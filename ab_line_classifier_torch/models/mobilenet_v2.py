@@ -9,7 +9,10 @@ depthwise kernel, from ``[B, 64, 64, 32]`` down to ``[B, 8, 8, 576]``) and 3
 stride-2 ones behind a ``correct_pad`` zero pad (grouped conv).
 
 Head: GAP -> Dropout -> Dense(NODES_DENSE0, relu) -> Dropout ->
-Dense(n_classes) -> softmax.
+Dense(n_classes) -> softmax, with an L2 activity regularizer (L2_LAMBDA) on
+``fc0``. One Adam phase at LR; layers up to FREEZE_IDX and every batch norm
+of the backbone are frozen (Keras ``freeze_layers``), so those batch norms
+run in inference mode in training.
 """
 
 from __future__ import annotations
@@ -108,10 +111,14 @@ def build_mobilenetv2(hparams: Dict[str, Any],
                       ) -> C.ModelSpec:
     full = mobilenetv2_backbone(tuple(input_shape[:2]), input_shape[-1])
     backbone = full.cut(int(hparams.get("CUTOFF_IDX", len(full.layers) - 1)))
-    graph = C.classifier_head(
+    graph, regs = C.classifier_head(
         backbone, n_classes=n_classes, dropout=float(hparams["DROPOUT"]),
         output_bias=output_bias, fc0_nodes=int(hparams["NODES_DENSE0"]),
-        double_dropout=True)
+        fc0_l2=float(hparams.get("L2_LAMBDA", 0.0)), double_dropout=True)
+    phases = C.single_phase(graph, int(hparams.get("FREEZE_IDX", -1)),
+                            float(hparams["LR"]),
+                            backbone_len=len(backbone.layers))
     return C.ModelSpec(name="mobilenetv2", graph=graph, preprocess_mode="tf",
                        input_shape=tuple(input_shape), n_classes=n_classes,
-                       dtype=C.compute_dtype(mixed_precision))
+                       dtype=C.compute_dtype(mixed_precision), phases=phases,
+                       activity_regularizers=regs)

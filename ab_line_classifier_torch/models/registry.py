@@ -58,7 +58,13 @@ def get_preprocess_mode(model_name: str) -> str:
 def build_model(model_name: str, hparams: Dict[str, Any],
                 input_shape: Tuple[int, int, int], n_classes: int,
                 mixed_precision: bool = False,
-                output_bias: Optional[np.ndarray] = None) -> ModelSpec:
+                output_bias: Optional[np.ndarray] = None,
+                total_epochs: Optional[int] = None) -> ModelSpec:
+    """``total_epochs`` (TRAIN.EPOCHS) sizes cutoffvgg16's finetune phase;
+    the one-phase models run until the fit's epoch budget is spent."""
     builder, _ = _entry(model_name)
+    kwargs = ({"total_epochs": total_epochs}
+              if builder is build_cutoffvgg16 else {})
     return builder(hparams, tuple(input_shape), n_classes,
-                   mixed_precision=mixed_precision, output_bias=output_bias)
+                   mixed_precision=mixed_precision, output_bias=output_bias,
+                   **kwargs)

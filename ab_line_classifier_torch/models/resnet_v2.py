@@ -103,8 +103,11 @@ def build_custom_resnetv2(hparams: Dict[str, Any],
     specs.append(G.dense("logits", "global_avgpool", x_ch, n_classes,
                          bias_init=C.output_bias_init(output_bias)))
     specs.append(G.softmax("output", "logits"))
-    return C.ModelSpec(name="custom_resnetv2",
-                       graph=G.graph_of(*specs, output="output"),
+    graph = G.graph_of(*specs, output="output")
+    # The reference model function never freezes: its batch norms train.
+    phases = C.single_phase(graph, -1, float(hparams["LR"]),
+                            freeze_bn=False)
+    return C.ModelSpec(name="custom_resnetv2", graph=graph,
                        preprocess_mode="tf", input_shape=tuple(input_shape),
                        n_classes=n_classes,
-                       dtype=C.compute_dtype(mixed_precision))
+                       dtype=C.compute_dtype(mixed_precision), phases=phases)

@@ -90,9 +90,14 @@ def build_xception(hparams: Dict[str, Any],
                    input_shape: Tuple[int, int, int], n_classes: int,
                    mixed_precision: bool = False,
                    output_bias: Optional[np.ndarray] = None) -> C.ModelSpec:
-    graph = C.classifier_head(
+    graph, regs = C.classifier_head(
         xception_backbone(input_shape[-1]), n_classes=n_classes,
         dropout=float(hparams["DROPOUT"]), output_bias=output_bias)
+    # The reference model function never freezes Xception's layers: its
+    # batch norms train.
+    phases = C.single_phase(graph, -1, float(hparams["LR"]),
+                            freeze_bn=False)
     return C.ModelSpec(name="xception", graph=graph, preprocess_mode="tf",
                        input_shape=tuple(input_shape), n_classes=n_classes,
-                       dtype=C.compute_dtype(mixed_precision))
+                       dtype=C.compute_dtype(mixed_precision), phases=phases,
+                       activity_regularizers=regs)

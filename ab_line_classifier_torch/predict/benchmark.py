@@ -13,6 +13,9 @@
   CUDA graph and replayed, beside the same loop run eagerly.
 * :func:`clock_avg_runtime` — the reference's mechanism: single-image
   forwards timed one by one on the host clock, mean and std ms.
+* :func:`training_throughput_benchmark` — frames/sec of the full training
+  step (augmentation, forward, backward, optimizer update) per phase of
+  the model's plan, each result labelled with its phase.
 """
 
 from __future__ import annotations
@@ -125,24 +128,37 @@ def timers(fn: Callable[[], object], device: torch.device):
 
 
 def flops_per_frame(module: nn.Module, input_shape: Tuple[int, int, int],
-                    dtype: torch.dtype, device: torch.device) -> float:
+                    dtype: torch.dtype, device: torch.device,
+                    training: bool = False) -> float:
     """Multiply-add FLOPs (2 per MAC) of one frame through the convs,
     depthwise convs and dense layers, counted from the layer shapes of a
-    one-frame forward."""
+    one-frame forward (in eval mode: nothing it runs changes the module).
+
+    ``training``: a training step's FLOPs instead, as the module's
+    ``requires_grad`` flags make autograd record them: each layer's
+    forward, plus its input gradient (the same MACs again) where its input
+    requires grad, plus its weight gradient (again) where its weight
+    does. Elementwise work (batch norm, activations, the optimizer) is not
+    counted."""
     total = 0.0
 
-    def conv_hook(mod, inputs, out):
+    def count(mod, inputs, macs: float) -> None:
         nonlocal total
+        total += 2.0 * macs
+        if training:
+            total += 2.0 * macs * (bool(inputs[0].requires_grad)
+                                   + bool(mod.weight.requires_grad))
+
+    def conv_hook(mod, inputs, out):
         kh, kw = mod.kernel_size
-        total += 2.0 * out.numel() * (mod.in_channels // mod.groups) * kh * kw
+        count(mod, inputs,
+              out.numel() * (mod.in_channels // mod.groups) * kh * kw)
 
     def depthwise_hook(mod, inputs, out):
-        nonlocal total
-        total += 2.0 * out.numel() * mod.weight[0, 0].numel()
+        count(mod, inputs, out.numel() * mod.weight[0, 0].numel())
 
     def dense_hook(mod, inputs, out):
-        nonlocal total
-        total += 2.0 * out.numel() * mod.in_features
+        count(mod, inputs, out.numel() * mod.in_features)
 
     hooks = []
     for m in module.modules():
@@ -152,13 +168,16 @@ def flops_per_frame(module: nn.Module, input_shape: Tuple[int, int, int],
             hooks.append(m.register_forward_hook(depthwise_hook))
         elif isinstance(m, nn.Linear):
             hooks.append(m.register_forward_hook(dense_hook))
+    was_training = module.training
+    module.eval()
     try:
-        with torch.inference_mode():
+        with (torch.enable_grad() if training else torch.inference_mode()):
             module(torch.zeros((1,) + tuple(input_shape), dtype=dtype,
                                device=device))
     finally:
         for h in hooks:
             h.remove()
+        module.train(was_training)
     return total
 
 
@@ -408,6 +427,78 @@ def clock_avg_runtime(n_warmup_runs: int = 10, n_experiment_runs: int = 50,
         print(f"Average runtime = {mean_ms:.3f} ms, "
               f"standard deviation = {std_ms:.3f} ms")
     return mean_ms, std_ms
+
+
+# The config's augmentation (config.yml TRAIN.DATA_AUG).
+TRAIN_AUG = {"ZOOM_RANGE": 0.1, "WIDTH_SHIFT_RANGE": 0.2,
+             "HEIGHT_SHIFT_RANGE": 0.2, "ROTATION_RANGE": 45,
+             "HORIZONTAL_FLIP": True, "BRIGHTNESS_RANGE": 0.3}
+
+
+def training_throughput_benchmark(model_name: str = "cutoffvgg16",
+                                  batch_size: int = 256,
+                                  img_dim: Tuple[int, int] = (128, 128),
+                                  n_warmup: int = 3, n_iters: int = 10,
+                                  phase: Optional[str] = None,
+                                  state_dict: Optional[Dict] = None,
+                                  spec: Optional[ModelSpec] = None,
+                                  device=None, seed: int = 0,
+                                  verbose: bool = True) -> Dict:
+    """Frames/sec of the full training step (augmentation -> forward ->
+    backward -> optimizer update, ``Trainer.train_step``) of ``spec``
+    (default: mixed-precision ``model_name``, float32 parameters) on one
+    device-resident uint8 batch, per phase of its plan (``phase``: only
+    that one), steady state, timed with :func:`timers` and the n-vs-2n
+    check. The phases run in order on one trainer, so a later phase starts
+    from the weights the earlier one's steps left.
+
+    Each phase's result carries ``flops_per_frame``, counted from layer
+    shapes with the phase's trainability (:func:`flops_per_frame`,
+    ``training=True``). Returns ``{"phases": [...], **last phase}``."""
+    from ab_line_classifier_torch.ops import metrics as M
+    from ab_line_classifier_torch.train.loop import Trainer
+
+    device = resolve_device(device)
+    spec = spec or build_zoo(model_name, img_dim)
+    trainer = Trainer(spec, seed=seed, compute_dtype=spec.dtype,
+                      aug_config=TRAIN_AUG, device=device)
+    if state_dict is not None:
+        trainer.module.load_state_dict(state_dict)
+    images = random_frames(batch_size, tuple(img_dim), seed, device)
+    labels = torch.as_tensor(np.random.RandomState(seed).randint(
+        0, spec.n_classes, batch_size)).to(device)
+    mask = torch.ones((batch_size,), device=device)
+    results = []
+    for phase_idx, ph in enumerate(spec.phases):
+        if phase is not None and ph.name != phase:
+            continue
+        trainer.begin_phase(phase_idx, ph)
+        metrics = M.init_metrics(spec.n_classes, device=device)
+
+        def step():
+            trainer.train_step(images, labels, mask, metrics)
+
+        for _ in range(n_warmup):
+            step()
+        run_many, fallback = timers(step, device)
+        dt = dispatch_guarded_seconds(run_many, fallback, n_iters)
+        r = {"phase": ph.name, "model": spec.name,
+             "train_frames_per_sec": float(batch_size * n_iters / dt),
+             "batch_size": batch_size,
+             "ms_per_step": float(dt / n_iters * 1000),
+             "flops_per_frame": flops_per_frame(
+                 trainer.module, spec.input_shape, spec.dtype, device,
+                 training=True),
+             "device": _device_name(device)}
+        results.append(r)
+        if verbose:
+            print(f"{spec.name} train step [{ph.name}] on {r['device']}: "
+                  f"{r['train_frames_per_sec']:,.0f} frames/sec (batch "
+                  f"{batch_size}, {r['flops_per_frame'] / 1e9:.3f} "
+                  f"GFLOP/frame)")
+    if not results:
+        raise ValueError(f"no phase named {phase!r} in {spec.name}")
+    return {**results[-1], "phases": results}
 
 
 def _device_name(device: torch.device) -> str:

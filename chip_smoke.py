@@ -16,8 +16,9 @@ no result):
 3. preprocess kernel (B1) — against its plain PyTorch version over modes x
    resize maps x masks x output dtypes and several source sizes, plus 2048
    frames of 1080x1440 (past 2^31 bytes: the 64-bit offsets), and the
-   shapes of the Grad-CAM batches and a batch-1 latency step in every mode
-   and output dtype; then, at the serving path's shapes, the same
+   shapes of the Grad-CAM batches, a batch-1 latency step and a training
+   validation batch (64 x 128x128) in every mode and output dtype; then,
+   at the serving path's shapes, the same
    comparison and the kernel's time, the plain
    version's, a resize-only library yardstick
    (``F.interpolate(mode="nearest-exact")``, which the port never calls)
@@ -28,7 +29,8 @@ no result):
    pointer is not 16-byte aligned, an input that is not channels_last (one
    counted copy), one f32 input past 2^31 bytes, every distinct stride-1
    shape of the three depthwise models at batch 256 (Grad-CAM) and of
-   mobilenetv2 at batch 1 (latency) in bf16 and f32, and of mobilenetv2
+   mobilenetv2 at batch 1 (latency) and 64 (training) in bf16 and f32,
+   and of mobilenetv2
    at batch 2048 and of xception and efficientnetb7 at 512 (serving) in
    bf16; at mobilenetv2's shapes and efficientnetb7's
    largest 5x5 one the kernel's time, the plain version's, cuDNN's grouped
@@ -68,13 +70,34 @@ no result):
    replayed, and run eagerly; the replayed chain's probabilities equal to
    the eager chain's, and against ``Predictor`` on the CPU), the launches
    captured per step, the kernels one replay runs (the profiler's count),
-   and ``clock_avg_runtime``.
+   and ``clock_avg_runtime``;
+11. training — cutoffvgg16 at full width (128x128, batch 64, bf16 compute
+   on float32 master weights, the config's augmentation) through both
+   phases of its plan with ``Trainer.fit`` on a device-cached array
+   dataset (344 training frames: the last batch padded by wraparound; 96
+   validation frames), B1 launched once per validation batch; the
+   backbone bit-unchanged through ``extract``, only block3_conv2/3 moved
+   by ``finetune``; mobilenetv2 (its one phase, the backbone and every
+   batch norm frozen) for one epoch, B2 launched 10 times in every
+   training forward and validation batch, no input copied; on each, the
+   loss of 30 steps on one fixed batch must fall (bars from a CPU
+   rehearsal). Then, outside the counted run: one step of each
+   cutoffvgg16 phase on the GPU against the CPU in float32 (the updates
+   held tight where a float64 CPU gradient is large enough for the first
+   step to be flat in it); gradients through B2 against the grouped conv's
+   at every stride-1 depthwise shape of mobilenetv2; a cnn0 training step
+   in bf16 whose batch norms train: running statistics by flax's rule
+   against float64 statistics of each layer's input, and the cost of a
+   training batch norm beside ``F.batch_norm`` alone;
+   ``training_throughput_benchmark`` of every phase at
+   batch 256 and 1024 (cutoffvgg16) and 256 (mobilenetv2), with share of
+   bf16 peak and a profiled step (idle share, top kernels).
 
 The last two lines of standard output are a JSON line of per-kernel
-numbers (launches per path: the wrappers' counts, which tick once at a
-CUDA graph's capture; the kernel's runs in one replay of each latency
-graph, counted by the profiler, and the replays) and
-``{"ok": true, "device": {...}}``.
+numbers (launches per path, ``training`` included: the wrappers' counts,
+which tick once at a CUDA graph's capture; the kernel's runs in one
+replay of each latency graph, counted by the profiler, and the replays)
+and ``{"ok": true, "device": {...}}``.
 """
 
 import concurrent.futures
@@ -135,6 +158,39 @@ ZOO = {"mobilenetv2": ("block_12_add", 10), "xception": ("add_6", 34),
 # Parts of the kernels' names as the profiler reports them.
 KERNEL_KEYS = {"preprocess": ("preprocess_kernel",),
                "depthwise": ("depthwise_tiled", "depthwise_scalar")}
+# Phase 11 (training): batch 64 (config.yml), 344 training frames (5 full
+# batches and one of 24 real rows padded by wraparound) and 96 validation
+# frames; cutoffvgg16 extracts for 2 epochs and finetunes for 2
+# (TRAIN.EPOCHS 3); mobilenetv2 trains one epoch on 128 frames.
+TRAIN_BATCH = 64
+TRAIN_FRAMES, VAL_FRAMES, MBV2_FRAMES = 344, 96, 128
+VGG_EXTRACT_EPOCHS, VGG_EPOCHS = 2, 3
+# Loss on one fixed batch (the first 64 training frames, no augmentation,
+# dropout 0, the first phase's optimizer and rate): the mean of the last 5
+# of LOSS_STEPS steps must fall to LOSS_FALL[model] of the first step's
+# loss or below. The bars were set from a CPU rehearsal of these steps; on
+# an H100 80GB HBM3 at 700 W they give 0.855 for cutoffvgg16 (Adam 3e-4 on
+# the head) and 0.983 for mobilenetv2 (Adam 1e-4 on fc0 and the logits).
+LOSS_STEPS = 30
+LOSS_FALL = {"cutoffvgg16": 0.92, "mobilenetv2": 0.995}
+# Gradients of one depthwise layer on B2 against on the grouped conv,
+# float32: relative Frobenius error of the output and the input and weight
+# gradients.
+DW_LAYER_RTOL = 1e-5
+# GPU vs CPU one-step updates: an element's update is held within 1e-2 of
+# lr where its float64 gradient is above G_FLAT. There the first step of
+# Keras Adam (eps 1e-7 on sqrt(v), ~3.2e-6 on |g|) and of RMSprop (rho
+# 0.9, eps 1e-7) is flat in g: a relative gradient error r moves it by at
+# most 0.086 r lr (Adam; RMSprop 0.033 r lr). At 1e-6 the slope is up to
+# 0.58, so float32 rounding of a gradient 1e-4 of its tensor's RMS moves
+# the update past 1e-2 of lr.
+G_FLAT = 3e-5
+# A training batch norm's running statistics after one step against flax's
+# rule on float64 statistics of its input: the mean's error over the
+# input's RMS, the variance's over its mean square (the scale of float32
+# rounding in E[x^2] - E[x]^2).
+BN_STAT_RTOL = 1e-4
+TRAIN_ITERS = 10
 
 
 def phase(title):
@@ -540,9 +596,10 @@ def phase_preprocess(kind):
             max_err = max(max_err, max_ulp_error(got, want, dtype, mode))
             n_calls += 1
     n_grid = n_calls
-    # The shapes of a batch-1 latency step and of the Grad-CAM batches.
+    # The shapes of a batch-1 latency step, of the Grad-CAM batches and of
+    # a training validation batch.
     for b, hs, ws in ((1, 128, 128), (ZOO_BATCH, 128, 128),
-                      (ZOO_BATCH, 480, 640)):
+                      (ZOO_BATCH, 480, 640), (TRAIN_BATCH, 128, 128)):
         x = torch.randint(0, 256, (b, hs, ws, 3), dtype=torch.uint8,
                           device="cuda", generator=gen)
         for mode, dtype in itertools.product(PREPROCESS_MODES, OUT_DTYPES):
@@ -555,9 +612,10 @@ def phase_preprocess(kind):
     if PC.launch_count - count0 != n_calls:
         raise AssertionError("launch counter did not count every launch")
     print(f"grid: {n_grid} combinations over 3 source sizes, and "
-          f"{n_calls - n_grid} at the Grad-CAM and batch-1 shapes (1 x "
-          f"128x128, {ZOO_BATCH} x 128x128 and 480x640; every mode and "
-          f"output dtype) agree, max abs err {max_err}")
+          f"{n_calls - n_grid} at the Grad-CAM, batch-1 and training "
+          f"validation shapes (1 x 128x128, {ZOO_BATCH} x 128x128 and "
+          f"480x640, {TRAIN_BATCH} x 128x128; every mode and output dtype) "
+          f"agree, max abs err {max_err}")
 
     big = torch.randint(0, 256, (2048, 1080, 1440, 3), dtype=torch.uint8,
                         device="cuda", generator=gen)
@@ -655,12 +713,14 @@ def depthwise_grid(gen):
 def depthwise_path_shapes(gen, shapes):
     """B2 against its plain version at every distinct stride-1 shape of
     the three depthwise models at the Grad-CAM batch (ZOO_BATCH) and of
-    mobilenetv2 at batch 1 (a latency step), in bf16 and float32; returns
-    (number of launches, max abs err)."""
+    mobilenetv2 at batch 1 (a latency step) and TRAIN_BATCH (its training
+    steps and validation batches), in bf16 and float32; returns (number of
+    launches, max abs err)."""
     n, err = 0, 0.0
     cases = {(ZOO_BATCH,) + shape[1:] + (k,) for name in ZOO
              for shape, k in shapes[name]}
-    cases |= {shape + (k,) for shape, k in shapes["mobilenetv2"]}
+    cases |= {(b,) + shape[1:] + (k,) for shape, k in shapes["mobilenetv2"]
+              for b in (1, TRAIN_BATCH)}
     for *shape, k in sorted(cases):
         for dtype in (torch.bfloat16, torch.float32):
             x, wt = make_depthwise(tuple(shape), k, dtype, gen)
@@ -688,10 +748,10 @@ def phase_depthwise(smi, shapes, b7_shape):
     print(f"grid: {n_calls} cases (K 1/3/5/7, f32/bf16, C 3..3840 with and "
           f"without whole 16-byte vectors, H/W 4..20, batch 1..3, unaligned "
           f"data pointers, NCHW memory) equal to the plain version, max abs "
-          f"err {max_err}; {n_path} cases at the Grad-CAM and batch-1 "
-          f"shapes (every distinct stride-1 layer of the three models at "
-          f"batch {ZOO_BATCH} and of mobilenetv2 at batch 1, bf16 and f32) "
-          f"equal, max abs err {path_err}")
+          f"err {max_err}; {n_path} cases at the Grad-CAM, batch-1 and "
+          f"training shapes (every distinct stride-1 layer of the three "
+          f"models at batch {ZOO_BATCH} and of mobilenetv2 at batch 1 and "
+          f"{TRAIN_BATCH}, bf16 and f32) equal, max abs err {path_err}")
     max_err = max(max_err, path_err)
 
     big = torch.randn((2048, 64, 64, 128), device="cuda",
@@ -1154,6 +1214,493 @@ def phase_latency(spec, state_dict, per_forward, smi):
     return pre, dw, per_replay, r["replayed_steps"] // r["chain_len"]
 
 
+def labelled_frames(n, seed):
+    """uint8 ``[n, 128, 128, 3]`` frames and int64 labels from a numpy seed:
+    speckle with 1-2 faint horizontal bands (class 0, A-line-like) or 3-5
+    bright vertical streaks 8 pixels wide (class 1, B-line-like): class 1
+    frames are brighter by ~30 gray levels on the mean, which survives the
+    config's augmentation (rotations of any angle), so a model can learn
+    the classes."""
+    rng = np.random.RandomState(seed)
+    labels = rng.randint(0, 2, n).astype(np.int64)
+    frames = rng.randint(20, 80, (n, *OUT_HW, 3)).astype(np.int32)
+    for i, y in enumerate(labels):
+        if y:
+            for c in rng.randint(8, 116, rng.randint(3, 6)):
+                frames[i, 16:, c:c + 8] += 150
+        else:
+            for r in rng.randint(16, 120, rng.randint(1, 3)):
+                frames[i, r:r + 3, 8:120] += 60
+    return np.clip(frames, 0, 255).astype(np.uint8), labels
+
+
+class EpochSnapshots:
+    """A fit callback that keeps a copy of the weights after each epoch."""
+
+    def __init__(self):
+        self.states = {}
+
+    def on_epoch_end(self, epoch, state):
+        self.states[epoch] = {k: v.detach().cpu().clone()
+                              for k, v in state.items()}
+
+
+def fixed_batch_losses(name, sd, images, labels, steps=LOSS_STEPS):
+    """Losses of ``steps`` bf16 training steps of ``name``'s first phase
+    (dropout 0, no augmentation) from weights ``sd`` on one batch."""
+    from ab_line_classifier_torch.models import build_model
+    from ab_line_classifier_torch.ops import metrics as M
+    from ab_line_classifier_torch.predict.benchmark import ZOO_HPARAMS
+    from ab_line_classifier_torch.train.loop import Trainer
+
+    spec = build_model(name, dict(ZOO_HPARAMS[name], DROPOUT=0.0),
+                       OUT_HW + (3,), 2, mixed_precision=True)
+    trainer = Trainer(spec, seed=1, compute_dtype=torch.bfloat16,
+                      device=images.device)
+    trainer.begin_phase(0, spec.phases[0], sd)
+    mask = torch.ones(len(labels), device=trainer.device)
+    metrics = M.init_metrics(trainer.spec.n_classes, device=trainer.device)
+    losses = [trainer.train_step(images, labels, mask, metrics)
+              for _ in range(steps)]
+    return torch.stack(losses).float().cpu().numpy()
+
+
+def check_loss_falls(name, losses):
+    first, last = float(losses[0]), float(losses[-5:].mean())
+    print(f"{name}: loss over {len(losses)} steps on one batch of "
+          f"{TRAIN_BATCH} (dropout 0): first {first:.4f}, mean of the last "
+          f"5 {last:.4f} ({last / first:.4f} of the first; bar "
+          f"{LOSS_FALL[name]})", flush=True)
+    if not (np.isfinite(losses).all() and last <= LOSS_FALL[name] * first):
+        raise AssertionError(f"{name}: the loss on a fixed batch did not "
+                             f"fall: {losses.round(4).tolist()}")
+
+
+def train_cutoffvgg16(sd, tr, va, images, labels):
+    """cutoffvgg16 at full width through both phases of its plan
+    (``Trainer.fit``, bf16 compute, float32 master weights, the config's
+    augmentation), then 30 steps on one fixed batch. Checks what each
+    phase may move. Returns (B1, B2 launches)."""
+    from ab_line_classifier_torch.models import build_model
+    from ab_line_classifier_torch.ops import depthwise_cuda as DC
+    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+    from ab_line_classifier_torch.predict.benchmark import (TRAIN_AUG,
+                                                            ZOO_HPARAMS)
+    from ab_line_classifier_torch.train.loop import Trainer
+
+    hp = dict(ZOO_HPARAMS["cutoffvgg16"], EXTRACT_EPOCHS=VGG_EXTRACT_EPOCHS)
+    spec = build_model("cutoffvgg16", hp, OUT_HW + (3,), 2,
+                       mixed_precision=True, total_epochs=VGG_EPOCHS)
+    trainer = Trainer(spec, aug_config=TRAIN_AUG, seed=10001,
+                      compute_dtype=torch.bfloat16, device="cuda")
+    snaps = EpochSnapshots()
+    PC.reset_launch_count()
+    DC.reset_launch_count()
+    t0 = time.perf_counter()
+    final, hist = trainer.fit(tr, va, batch_size=TRAIN_BATCH,
+                              epochs=VGG_EPOCHS, patience=15, variables=sd,
+                              callbacks=[snaps], verbose=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    b1, b2 = PC.launch_count, DC.launch_count
+    val_batches = len(hist) * va.n_batches(TRAIN_BATCH)
+    phases = [h.phase for h in hist]
+    want = ["extract"] * VGG_EXTRACT_EPOCHS + ["finetune"] * (
+        VGG_EPOCHS - VGG_EXTRACT_EPOCHS + 1)
+    if phases != want or b1 != val_batches or b2:
+        raise AssertionError(f"cutoffvgg16 fit: phases {phases}, preprocess "
+                             f"launches {b1} for {val_batches} validation "
+                             f"batches, depthwise launches {b2}")
+    if any(p.dtype != torch.float32 for p in trainer.module.parameters()):
+        raise AssertionError("the master weights are not float32")
+    for h in hist:
+        print(f"  [{h.phase}] epoch {h.epoch}: loss {h.train['loss']:.4f} "
+              f"acc {h.train['accuracy']:.4f}, val loss "
+              f"{h.val['loss']:.4f} acc {h.val['accuracy']:.4f} auc "
+              f"{h.val['auc']:.4f}, lr {h.lr:.2e}", flush=True)
+        if not all(np.isfinite(v) for v in (*h.train.values(),
+                                            *h.val.values())):
+            raise AssertionError(f"non-finite metrics in epoch {h.epoch}")
+    extract_end = snaps.states[VGG_EXTRACT_EPOCHS - 1]
+    moved = {"extract": [], "finetune": []}
+    for k, v in sd.items():
+        layer = k.split(".")[0]
+        if not layer.startswith("block"):
+            continue
+        if not torch.equal(extract_end[k], v):
+            moved["extract"].append(k)
+        if not torch.equal(final[k], extract_end[k]):
+            moved["finetune"].append(layer)
+    if moved["extract"] or set(moved["finetune"]) != {"block3_conv2",
+                                                      "block3_conv3"}:
+        raise AssertionError(f"moved: {moved}")
+    print(f"cutoffvgg16 fit: {len(hist)} epochs ({TRAIN_FRAMES} frames, "
+          f"{VAL_FRAMES} validation) in {seconds:.2f} s; the backbone "
+          f"bit-unchanged through extract, finetune moved only "
+          f"block3_conv2/3; preprocess launches {b1} ({val_batches} "
+          f"validation batches), depthwise {b2}", flush=True)
+    losses = fixed_batch_losses("cutoffvgg16", sd, images[:TRAIN_BATCH],
+                                labels[:TRAIN_BATCH])
+    check_loss_falls("cutoffvgg16", losses)
+    return PC.launch_count, DC.launch_count
+
+
+def train_mobilenetv2(spec, sd, tr, va, images, labels):
+    """mobilenetv2 through one phase of its plan (``Trainer.fit``, one
+    epoch, bf16) with B2 launched 10 times per training forward and per
+    validation batch and no input copied, then 30 steps on one fixed batch.
+    Returns (B1, B2 launches)."""
+    from ab_line_classifier_torch.ops import depthwise_cuda as DC
+    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+    from ab_line_classifier_torch.predict.benchmark import TRAIN_AUG
+    from ab_line_classifier_torch.train.loop import Trainer
+
+    per_forward = ZOO["mobilenetv2"][1]
+    trainer = Trainer(spec, aug_config=TRAIN_AUG, seed=10001,
+                      compute_dtype=torch.bfloat16, device="cuda")
+    PC.reset_launch_count()
+    DC.reset_launch_count()
+    _, hist = trainer.fit(tr, va, batch_size=TRAIN_BATCH, epochs=1,
+                          variables=sd, verbose=False)
+    steps, evals = tr.n_batches(TRAIN_BATCH), va.n_batches(TRAIN_BATCH)
+    fit_counts = (PC.launch_count, DC.launch_count)
+    if fit_counts != (evals, per_forward * (steps + evals)) \
+            or DC.copy_count:
+        raise AssertionError(f"mobilenetv2 fit: launches {fit_counts} for "
+                             f"{steps} steps and {evals} validation "
+                             f"batches, {DC.copy_count} input copies")
+    h = hist[0]
+    print(f"mobilenetv2 fit, 1 epoch: loss {h.train['loss']:.4f}, val loss "
+          f"{h.val['loss']:.4f}; preprocess launches {fit_counts[0]}, "
+          f"depthwise launches {fit_counts[1]} ({per_forward} in each of "
+          f"{steps} training forwards and {evals} validation batches), "
+          f"input copies {DC.copy_count}", flush=True)
+    before = DC.launch_count
+    losses = fixed_batch_losses("mobilenetv2", sd, images[:TRAIN_BATCH],
+                                labels[:TRAIN_BATCH])
+    if DC.launch_count - before != per_forward * len(losses) \
+            or DC.copy_count:
+        raise AssertionError(f"mobilenetv2: {DC.launch_count - before} "
+                             f"depthwise launches in {len(losses)} steps")
+    check_loss_falls("mobilenetv2", losses)
+    return PC.launch_count, DC.launch_count
+
+
+def step_gpu_vs_cpu(spec, sd, images, labels, smi):
+    """One training step of each phase of ``spec`` (built with dropout 0) in
+    float32 (TF32 off) from weights ``sd`` on the same un-augmented batch,
+    on the GPU and on the CPU: loss and gradients by relative (Frobenius)
+    error within F32_RTOL; frozen parameters bit-unchanged; the updated
+    parameters by the magnitude-aware rule of the JAX package's Keras
+    parity test. Adam's and RMSprop's first steps are about ``lr *
+    sign(g)``, and steep in ``g`` where ``|g|`` nears eps, so an element
+    whose gradient is within float32 noise of zero may move the other way.
+    Which elements are held tight is decided from neither device's
+    float32 result: a third step on the CPU computes in float64
+    (``compute_dtype``), and an element counts where that gradient
+    ``g64`` is above G_FLAT, where the first step is flat in ``g``. There
+    the updates are held within 1e-2 of the learning rate (and these
+    elements must be more than half); elsewhere within twice the first
+    step's size. The float32 gradients' largest errors against ``g64``,
+    over their tensor's RMS, are printed."""
+    from ab_line_classifier_torch.ops import metrics as M
+    from ab_line_classifier_torch.train.loop import Trainer
+
+    spec32 = dataclasses.replace(spec, dtype=torch.float32)
+    mask = torch.ones(len(labels))
+    for phase_idx, phase in enumerate(spec.phases):
+        out = {}
+        for key, dev, dtype in (("cuda", "cuda", torch.float32),
+                                ("cpu", "cpu", torch.float32),
+                                ("cpu64", "cpu", torch.float64)):
+            t = Trainer(spec32, seed=0, compute_dtype=dtype, device=dev)
+            t.begin_phase(phase_idx, phase, sd)
+            loss = t.train_step(images.to(dev), labels.to(dev),
+                                mask.to(dev), M.init_metrics(2, device=dev))
+            grads = {n: p.grad.detach().cpu()
+                     for n, p in t.module.named_parameters()
+                     if p.grad is not None}
+            out[key] = (float(loss), grads, t.state())
+        (lg, gg, sg), (lc, gc, sc) = out["cuda"], out["cpu"]
+        g64 = out["cpu64"][1]
+        loss_err = abs(lg - lc) / abs(lc)
+        grad_err = max(rel_err(gg[n], gc[n]) for n in gc)
+        step = 1.0 if phase.optimizer == "adam" else 1.0 / np.sqrt(0.1)
+        upd_err, n_flip, n_res, n_all, n_apart = 0.0, 0, 0, 0, 0
+        noise = {"GPU": 0.0, "CPU": 0.0}
+        for k, w0 in sd.items():
+            if k not in gc:
+                if not (torch.equal(sg[k], w0) and torch.equal(sc[k], w0)):
+                    raise AssertionError(f"{spec.name} [{phase.name}]: "
+                                         f"frozen {k} moved")
+                continue
+            d = (sg[k] - sc[k]).abs()
+            g = g64[k].abs()
+            rms = float(g.square().mean().sqrt())
+            for dev, got in (("GPU", gg[k]), ("CPU", gc[k])):
+                noise[dev] = max(noise[dev], float(
+                    (got - g64[k]).abs().max()) / max(rms, 1e-30))
+            flat = g > G_FLAT
+            n_res += int(flat.sum())
+            n_all += flat.numel()
+            n_apart += int(((gg[k] - gc[k]).abs()[flat]
+                            > 1e-3 * g[flat]).sum())
+            if flat.any():
+                upd_err = max(upd_err, float(d[flat].max()) / phase.lr)
+            n_flip += int((d[~flat] > 1e-2 * phase.lr).sum())
+            if float(d.max()) > 2 * step * phase.lr + 1e-7:
+                raise AssertionError(f"{spec.name} [{phase.name}]: {k} "
+                                     f"moved apart by {float(d.max())}")
+        print(f"{spec.name} [{phase.name}] one step GPU vs CPU float32 "
+              f"({smi}): loss {lg:.6f} / {lc:.6f} (relative "
+              f"{loss_err:.2e}), gradients max relative {grad_err:.2e} "
+              f"(bar {F32_RTOL:.0e}, {len(gc)} trained tensors); updates of "
+              f"the {n_res} of {n_all} elements whose float64 gradient "
+              f"is over {G_FLAT:.0e} within {upd_err:.2e} of lr (bar 1e-2; "
+              f"{n_apart} of them with GPU and CPU gradients over 1e-3 "
+              f"apart; float32 gradients off float64 by at most "
+              f"{noise['GPU']:.2e} / {noise['CPU']:.2e} of their tensor's "
+              f"RMS, GPU / CPU); "
+              f"{n_flip} other elements moved apart by more, none beyond "
+              f"twice the first step", flush=True)
+        if not (loss_err <= F32_RTOL and grad_err <= F32_RTOL
+                and upd_err <= 1e-2 and n_res > n_all / 2):
+            raise AssertionError(f"{spec.name} [{phase.name}]: GPU vs CPU "
+                                 f"step out of the bars")
+
+
+def depthwise_gradients(spec, smi):
+    """Gradients through B2, float32, TF32 off: at every distinct stride-1
+    depthwise shape of ``spec`` (mobilenetv2) at batch TRAIN_BATCH, the
+    output and the input and weight gradients (for one random upstream
+    gradient) of ``depthwise_conv`` on B2 against the grouped conv's, on
+    the same ``x`` and ``w``: relative Frobenius error within
+    DW_LAYER_RTOL (B2's backward is the grouped conv's gradient; its
+    forward agrees with cuDNN's to float32 rounding)."""
+    from ab_line_classifier_torch.ops import depthwise as DW
+    from ab_line_classifier_torch.ops import depthwise_cuda as DC
+    from ab_line_classifier_torch.predict.benchmark import (
+        depthwise_layer_shapes)
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    shapes = sorted(set(depthwise_layer_shapes(spec)))
+    layer_err = 0.0
+    count0 = DC.launch_count
+    for (_, h, w, c), k in shapes:
+        x = torch.randn((TRAIN_BATCH, h, w, c), device="cuda",
+                        generator=gen).permute(0, 3, 1, 2)
+        wt = torch.randn((c, 1, k, k), device="cuda", generator=gen) / k
+        g = torch.randn(x.shape, device="cuda", generator=gen).contiguous(
+            memory_format=torch.channels_last)
+        outs = []
+        for fn in (DW.depthwise_conv, DW.depthwise_reference):
+            xi, wi = x.clone().requires_grad_(), wt.clone().requires_grad_()
+            y = fn(xi, wi)
+            outs.append((y.detach(),)
+                        + torch.autograd.grad(y, (xi, wi), g))
+        layer_err = max(layer_err,
+                        *(rel_err(a, b) for a, b in zip(*outs)))
+    launches = DC.launch_count - count0
+    print(f"depthwise gradients through B2 vs the grouped conv, float32 "
+          f"({smi}): {len(shapes)} layer shapes of {spec.name} at batch "
+          f"{TRAIN_BATCH}, output and gradients max relative "
+          f"{layer_err:.2e} (bar {DW_LAYER_RTOL:.0e}); B2 launched "
+          f"{launches} times", flush=True)
+    if layer_err > DW_LAYER_RTOL or launches != len(shapes):
+        raise AssertionError("gradients through B2 differ from the grouped "
+                             "conv's")
+
+
+def bn_stat_errors(bn, stats):
+    """Errors of ``bn``'s running statistics, moved by one training
+    forward from zero, against flax's rule on float64 ``stats`` (mean,
+    biased variance, mean square) of its input: the mean's error over the
+    input's RMS and the variance's over its mean square."""
+    mean, var, ms = stats
+    m = 1.0 - bn.momentum
+    mean_hat = bn.running_mean.double() / m
+    var_hat = bn.running_var.double() / m
+    return (float(((mean_hat - mean).abs() / ms.sqrt().clamp_min(1e-30))
+                  .max()),
+            float(((var_hat - var).abs() / ms.clamp_min(1e-30)).max()))
+
+
+def bn_training_step(smi):
+    """Batch norms that train, on the card: one bf16 training step of a
+    full-width cnn0 (128x128, batch TRAIN_BATCH; its four batch norms
+    train), its running statistics started at zero and held within
+    BN_STAT_RTOL of flax's rule on float64 statistics of each layer's
+    input (captured by a hook); a lone batch norm over 16 values per
+    channel, where the unbiased variance would miss by 1/15; and the time
+    of each of cnn0's batch norms in a training forward beside
+    ``F.batch_norm`` alone (which keeps no statistics)."""
+    from ab_line_classifier_torch import graph as G
+    from ab_line_classifier_torch.models import build_model
+    from ab_line_classifier_torch.ops import metrics as M
+    from ab_line_classifier_torch.predict.benchmark import ZOO_HPARAMS
+    from ab_line_classifier_torch.train.loop import Trainer
+
+    def f64_stats(a):
+        a = a.detach().double()
+        dims = [d for d in range(a.ndim) if d != 1]
+        return (a.mean(dims), a.var(dims, unbiased=False),
+                (a * a).mean(dims))
+
+    spec = build_model("cnn0", ZOO_HPARAMS["cnn0"], OUT_HW + (3,), 2,
+                       mixed_precision=True)
+    trainer = Trainer(spec, seed=0, compute_dtype=torch.bfloat16,
+                      device="cuda")
+    sd = {k: (torch.zeros_like(v) if k.endswith(("running_mean",
+                                                  "running_var")) else v)
+          for k, v in trainer.module.state_dict().items()}
+    trainer.begin_phase(0, spec.phases[0], sd)
+    bns = {n: m for n, m in trainer.module.named_modules()
+           if isinstance(m, G.BatchNorm)}
+    stats, inputs = {}, {}
+
+    def capture(name):
+        def hook(bn, args):
+            stats[name] = f64_stats(args[0])
+            inputs[name] = (tuple(args[0].shape), args[0].dtype)
+        return hook
+
+    hooks = [m.register_forward_pre_hook(capture(n)) for n, m in bns.items()]
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    images = torch.randint(0, 256, (TRAIN_BATCH, *OUT_HW, 3),
+                           dtype=torch.uint8, device="cuda", generator=gen)
+    labels = torch.randint(0, 2, (TRAIN_BATCH,), device="cuda",
+                           generator=gen)
+    try:
+        trainer.train_step(images, labels,
+                           torch.ones(TRAIN_BATCH, device="cuda"),
+                           M.init_metrics(2, device="cuda"))
+    finally:
+        for h in hooks:
+            h.remove()
+    errs = {n: bn_stat_errors(bns[n], stats[n]) for n in bns}
+    mean_err = max(e[0] for e in errs.values())
+    var_err = max(e[1] for e in errs.values())
+
+    lone = G.BatchNorm(8).to("cuda").train()
+    lone.running_var.zero_()
+    x = (torch.randn((4, 8, 2, 2), device="cuda", generator=gen) * 2
+         + 1).to(torch.bfloat16)
+    lone(x)
+    mean64, var64, ms64 = f64_stats(x)
+    lone_err = bn_stat_errors(lone, (mean64, var64, ms64))
+    unbiased_err = float(((var64 * 16 / 15 - var64) / ms64).max())
+
+    times = []
+    with torch.no_grad():
+        for n, (shape, dtype) in inputs.items():
+            a = torch.randn(shape, device="cuda", generator=gen).to(
+                dtype).contiguous(memory_format=torch.channels_last)
+            bn = G.BatchNorm(shape[1]).to("cuda").train()
+            times.append((cuda_ms(lambda: bn(a)), cuda_ms(
+                lambda: F.batch_norm(a, None, None, bn.weight, bn.bias,
+                                     True, 0.0, bn.epsilon))))
+    layers = ", ".join(f"{'x'.join(map(str, s))} {t:.4f} / {p:.4f}"
+                       for ((s, _), (t, p)) in zip(inputs.values(), times))
+    print(f"batch norms training on {smi}: cnn0 128x128 batch "
+          f"{TRAIN_BATCH}, {len(bns)} layers, inputs "
+          f"{sorted({str(d) for _, d in inputs.values()})}; running "
+          f"statistics against flax's rule on float64 statistics: mean "
+          f"{mean_err:.2e} of the RMS, variance {var_err:.2e} of the mean "
+          f"square (bar {BN_STAT_RTOL:.0e}); a lone layer over 16 values a "
+          f"channel {lone_err[0]:.2e} / {lone_err[1]:.2e} (the unbiased "
+          f"variance would be {unbiased_err:.2e} off); ms per training "
+          f"forward, layer / F.batch_norm alone: {layers}", flush=True)
+    if max(mean_err, var_err, *lone_err) > BN_STAT_RTOL \
+            or unbiased_err <= BN_STAT_RTOL:
+        raise AssertionError(f"batch-norm statistics: {errs}, lone "
+                             f"{lone_err}")
+
+
+def training_throughput(spec, sd, bs, smi):
+    """``training_throughput_benchmark`` of every phase of ``spec`` at
+    batch ``bs`` (frames/s, share of bf16 peak from the shape-counted
+    FLOPs), and a profiled step of each phase (device idle share, top
+    kernels)."""
+    from ab_line_classifier_torch.predict.benchmark import (
+        TRAIN_AUG, training_throughput_benchmark)
+    from ab_line_classifier_torch.ops import metrics as M
+    from ab_line_classifier_torch.train.loop import Trainer
+
+    r = training_throughput_benchmark(batch_size=bs, img_dim=OUT_HW,
+                                      n_warmup=WARMUP, n_iters=TRAIN_ITERS,
+                                      state_dict=sd, spec=spec,
+                                      device="cuda", verbose=False)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    images = torch.randint(0, 256, (bs, *OUT_HW, 3), dtype=torch.uint8,
+                           device="cuda", generator=gen)
+    labels = torch.randint(0, 2, (bs,), device="cuda", generator=gen)
+    mask = torch.ones(bs, device="cuda")
+    trainer = Trainer(spec, aug_config=TRAIN_AUG, seed=0,
+                      compute_dtype=spec.dtype, device="cuda")
+    for phase_idx, (ph, res) in enumerate(zip(spec.phases, r["phases"])):
+        trainer.begin_phase(phase_idx, ph, sd)
+        metrics = M.init_metrics(2, device="cuda")
+        prof = device_time_by_kernel(
+            lambda: trainer.train_step(images, labels, mask, metrics))
+        wall, busy = prof["wall_ms"], prof["busy_ms"]
+        share = (res["train_frames_per_sec"] * res["flops_per_frame"]
+                 / PEAK_BF16_FLOPS)
+        print(f"training throughput on {smi}: {spec.name} [{ph.name}] "
+              f"128x128 batch {bs}: {res['train_frames_per_sec']:.1f} "
+              f"frames/s, {res['ms_per_step']:.3f} ms/step, "
+              f"{res['flops_per_frame'] / 1e9:.4f} GFLOP/frame, "
+              f"{100 * share:.2f}% of 989 TFLOP/s bf16; profiled step: wall "
+              f"{wall:.3f} ms, device busy {busy:.3f} ms (idle share "
+              f"{1 - busy / wall:.4f})", flush=True)
+        for kname, ms in prof["kernels"][:8]:
+            print(f"  {ms:9.3f} ms {100 * ms / wall:6.2f}%  {kname[:110]}")
+        ms = sum(v for k, v in prof["kernels"]
+                 if any(key in k for key in KERNEL_KEYS["depthwise"]))
+        print(f"  depthwise kernel: {ms:.4f} ms; copy and fill kernels by "
+              f"the operator that launched them: "
+              + ", ".join(f"{op} {t:.3f} ms" for op, t in prof["copies"][:6]),
+              flush=True)
+
+
+def phase_training(vgg_sd, mbv2, mbv2_sd, smi):
+    """Phase 11: the training path (module docstring). Returns the
+    training path's (B1, B2) launches."""
+    from ab_line_classifier_torch.data.pipeline import DeviceCachedDataset
+
+    images, labels = labelled_frames(TRAIN_FRAMES + VAL_FRAMES, seed=11)
+    tr = DeviceCachedDataset.from_arrays(images[:TRAIN_FRAMES],
+                                         labels[:TRAIN_FRAMES], "cuda")
+    va = DeviceCachedDataset.from_arrays(images[TRAIN_FRAMES:],
+                                         labels[TRAIN_FRAMES:], "cuda")
+    fixed_images, fixed_labels = tr.frames, tr.labels_dev
+    vgg = train_cutoffvgg16(vgg_sd, tr, va, fixed_images, fixed_labels)
+    small_tr = DeviceCachedDataset.from_arrays(
+        images[:MBV2_FRAMES], labels[:MBV2_FRAMES], "cuda")
+    mb = train_mobilenetv2(mbv2, mbv2_sd, small_tr, va, fixed_images,
+                           fixed_labels)
+    launches = (vgg[0] + mb[0], vgg[1] + mb[1])
+
+    # Checks and measurements outside the path's counted run.
+    from ab_line_classifier_torch.models import build_model
+    from ab_line_classifier_torch.predict.benchmark import ZOO_HPARAMS
+
+    vgg_spec = build_model("cutoffvgg16", ZOO_HPARAMS["cutoffvgg16"],
+                           OUT_HW + (3,), 2, mixed_precision=True)
+    # Dropout 0: the GPU's and the CPU's generators draw different masks.
+    no_dropout = build_model(
+        "cutoffvgg16", dict(ZOO_HPARAMS["cutoffvgg16"], DROPOUT=0.0),
+        OUT_HW + (3,), 2, mixed_precision=True)
+    batch = torch.as_tensor(images[:TRAIN_BATCH])
+    step_gpu_vs_cpu(no_dropout, vgg_sd, batch,
+                    torch.as_tensor(labels[:TRAIN_BATCH]), smi)
+    depthwise_gradients(mbv2, smi)
+    bn_training_step(smi)
+    for bs in (256, 1024):
+        training_throughput(vgg_spec, vgg_sd, bs, smi)
+    training_throughput(mbv2, mbv2_sd, 256, smi)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an "
@@ -1260,6 +1807,11 @@ def main():
             grad_specs[name], weights[name], per_forward[name], smi)
         counts.append((pre, dw))
     launches["latency"] = tuple(map(sum, zip(*counts)))
+    torch.cuda.synchronize()
+
+    phase("11 training")
+    launches["training"] = phase_training(vgg_sd, mbv2,
+                                          weights["mobilenetv2"], smi)
     torch.cuda.synchronize()
 
     def graph_runs(kernel):

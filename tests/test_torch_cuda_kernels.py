@@ -185,3 +185,54 @@ def test_gradcam_through_the_depthwise_kernel():
     assert torch.isfinite(cams).all()
     assert 0.0 <= float(cams.min()) and float(cams.max()) <= 1.0
     assert float(cams.amax(dim=(1, 2)).max()) > 0.5
+
+
+@pytest.mark.cuda
+def test_mobilenetv2_training_step_through_the_depthwise_kernel():
+    """A mobilenetv2 training step on the card (every layer but the batch
+    norms trainable, float32, TF32 off): B2 launched once per stride-1
+    depthwise layer, no input copied, and every gradient within 1e-4
+    (relative Frobenius) of the same step with the depthwise layers on the
+    grouped conv (B2's backward is the grouped conv's gradient; the
+    forwards agree to float32 rounding)."""
+    _need_cuda()
+    from ab_line_classifier_torch.models import build_model
+    from ab_line_classifier_torch.ops import metrics as M
+    from ab_line_classifier_torch.predict.benchmark import ZOO_HPARAMS
+    from ab_line_classifier_torch.train.loop import Trainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hp = dict(ZOO_HPARAMS["mobilenetv2"], FREEZE_IDX=-1, DROPOUT=0.0)
+    spec = build_model("mobilenetv2", hp, (32, 32, 3), 2)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    images = torch.randint(0, 256, (16, 32, 32, 3), dtype=torch.uint8,
+                           device="cuda", generator=gen)
+    labels = torch.randint(0, 2, (16,), device="cuda", generator=gen)
+    mask = torch.ones(16, device="cuda")
+    state = spec.module().state_dict()
+
+    def step():
+        t = Trainer(spec, seed=0, device="cuda")
+        t.begin_phase(0, spec.phases[0], state)
+        t.train_step(images, labels, mask, M.init_metrics(2, device="cuda"))
+        return {n: p.grad for n, p in t.module.named_parameters()
+                if p.grad is not None}
+
+    depthwise_cuda.reset_launch_count()
+    got = step()
+    assert depthwise_cuda.launch_count == 10
+    assert depthwise_cuda.copy_count == 0
+    supported = torch_depthwise._supported
+    torch_depthwise._supported = lambda *a: False
+    try:
+        want = step()
+    finally:
+        torch_depthwise._supported = supported
+    assert depthwise_cuda.launch_count == 10
+    assert set(got) == set(want)
+    assert any("depthwise" in n for n in got)
+    for n in want:
+        err = float((got[n] - want[n]).norm() / want[n].norm().clamp_min(
+            1e-30))
+        assert err <= 1e-4, (n, err)

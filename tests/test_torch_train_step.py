@@ -1,0 +1,295 @@
+"""PyTorch port, training step: one step of the port's ``Trainer`` against
+the JAX package's, on the same numpy-seeded weights (through the weight
+bridge) and the same uint8 batch, in float32, without augmentation and at
+dropout 0 (the two packages' random streams cannot match).
+
+Cases: cutoffvgg16's ``extract`` phase (Keras Adam, backbone frozen) and
+``finetune`` phase (RMSprop, block3_conv2/3 unfrozen), both with class
+weights and a masked partial batch (4 wraparound rows of mask 0);
+mobilenetv2 cut at ``block_5_add`` with every layer but the batch norms
+trainable (frozen batch norms in inference mode, the fc0 activity
+penalty, gradients through the depthwise layers' autograd function on
+kernel B2's plain version); cnn0, whose batch norms train (``batch_stats``
+after the step, biased variance, and the activity penalties on every
+conv). A batch norm on its own shows the repair of the running variance:
+the unbiased estimate ``F.batch_norm`` keeps misses flax's.
+
+Tolerances: the step's loss and metrics within 1e-5 relative; running
+statistics within 1e-5 relative. Updated parameters by the rule of
+``tests/test_keras_parity.py``: at the first step Adam and RMSprop move an
+element by about ``lr * sign(g)`` (RMSprop ``lr * sign(g) / sqrt(0.1)``)
+whatever ``|g|``, so an element whose gradient lies within float32 noise
+of zero may move the other way in the other package. Where ``|g| > 1e-6``
+the two updates agree within 1e-2 of ``lr`` (plus 1e-7 for the float32
+sum); elsewhere within twice the step. Frozen parameters stay bit-equal.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from conftest import randomize_leaves
+
+from ab_line_classifier_tpu.models import build_model as jax_build_model
+from ab_line_classifier_tpu.ops import metrics as jax_M
+from ab_line_classifier_tpu.train.loop import Trainer as JaxTrainer
+from ab_line_classifier_torch import graph as G
+from ab_line_classifier_torch.models import build_model
+from ab_line_classifier_torch.ops import metrics as M
+from ab_line_classifier_torch.predict.benchmark import ZOO_HPARAMS
+from ab_line_classifier_torch.train.loop import Trainer
+from ab_line_classifier_torch.utils.jax_params import (flax_from_state_dict,
+                                                       state_dict_from_flax)
+
+SHAPE = (32, 32, 3)
+BATCH = 16
+N_VALID = 12
+GAIN = 1.5
+RTOL = 1e-5
+CLASS_WEIGHT = {0: 0.7, 1: 1.6}
+
+HPARAMS = {
+    "cutoffvgg16": dict(ZOO_HPARAMS["cutoffvgg16"], DROPOUT=0.0),
+    "mobilenetv2": dict(ZOO_HPARAMS["mobilenetv2"], DROPOUT=0.0,
+                        CUTOFF_IDX=53, FREEZE_IDX=-1),
+    "cnn0": dict(ZOO_HPARAMS["cnn0"], DROPOUT=0.0, BLOCKS=2, INIT_FILTERS=8,
+                 NODES_DENSE0=16),
+}
+
+
+def specs(name):
+    return (jax_build_model(name, HPARAMS[name], SHAPE, 2),
+            build_model(name, HPARAMS[name], SHAPE, 2))
+
+
+def batch(seed=3):
+    """16 uint8 frames whose last 4 rows repeat rows 8-11 with mask 0 (a
+    partial batch, as the pipeline pads one), labels, mask."""
+    rng = np.random.RandomState(seed)
+    images = rng.randint(0, 256, (BATCH,) + SHAPE).astype(np.uint8)
+    labels = rng.randint(0, 2, BATCH).astype(np.int32)
+    images[N_VALID:] = images[N_VALID - 4:N_VALID]
+    labels[N_VALID:] = labels[N_VALID - 4:N_VALID]
+    mask = (np.arange(BATCH) < N_VALID).astype(np.float32)
+    return images, labels, mask
+
+
+def scaled_variables(jax_spec, port_spec, images=None, seed=0):
+    """Every leaf randomized, kernels scaled by GAIN / sqrt(fan_in) so the
+    logits stay O(1), batch-norm scales near 0.4; with ``images``, the
+    batch norms' statistics set from their inputs on those frames (the
+    port in float32, ``graph.adapt_batch_norm``)."""
+    v = randomize_leaves(jax_spec.init_variables(jax.random.PRNGKey(0)),
+                         seed)
+
+    def scale(path, a):
+        a = np.asarray(a)
+        leaf = path[-1].key
+        if leaf == "kernel":
+            fan_in = np.prod(a.shape[:-1])
+            return ((a - 0.1) * GAIN / np.sqrt(fan_in)).astype(np.float32)
+        if leaf == "scale":
+            return (0.4 + 0.2 * (a - 0.1)).astype(np.float32)
+        if leaf == "bias":
+            return (0.2 * (a - 0.1)).astype(np.float32)
+        return a.astype(np.float32)
+
+    v = jax.tree_util.tree_map_with_path(scale, v)
+    if images is None:
+        return v
+    module = port_spec.module()
+    module.load_state_dict(state_dict_from_flax(v))
+    x = port_spec_input(port_spec, images)
+    G.adapt_batch_norm(module.eval(), x)
+    return flax_from_state_dict(module.state_dict())
+
+
+def port_spec_input(port_spec, images):
+    from ab_line_classifier_torch.models.preprocess import get_preprocess_fn
+    return get_preprocess_fn(port_spec.preprocess_mode)(
+        torch.from_numpy(images).to(torch.float32))
+
+
+def jax_step(jax_spec, phase_idx, variables, images, labels, mask):
+    trainer = JaxTrainer(jax_spec, class_weight=CLASS_WEIGHT, seed=0)
+    phase = jax_spec.phases[phase_idx]
+    trainer._set_phase_module(phase)
+    state, tx = trainer.init_state(phase, variables)
+    step = trainer.make_train_step(phase, tx, phase_idx)
+    state, metrics = step(state, jax_M.init_metrics(2), jnp.asarray(images),
+                          jnp.asarray(labels), jnp.asarray(mask))
+    new = {"params": jax.tree.map(np.asarray, state.params)}
+    if state.batch_stats:
+        new["batch_stats"] = jax.tree.map(np.asarray, state.batch_stats)
+    return new, {k: float(v) for k, v in jax_M.compute_metrics(metrics).items()}
+
+
+def port_step(port_spec, phase_idx, variables, images, labels, mask):
+    trainer = Trainer(port_spec, class_weight=CLASS_WEIGHT, seed=0,
+                      device="cpu")
+    trainer.begin_phase(phase_idx, port_spec.phases[phase_idx],
+                        state_dict_from_flax(variables))
+    metrics = M.init_metrics(2)
+    trainer.train_step(torch.from_numpy(images), torch.from_numpy(labels),
+                       torch.from_numpy(mask), metrics)
+    grads = {n: p.grad.numpy() for n, p in trainer.module.named_parameters()
+             if p.grad is not None}
+    return (flax_from_state_dict(trainer.state()), M.compute_metrics(metrics),
+            grads, trainer)
+
+
+def leaves(tree):
+    return {"/".join(str(k.key) for k in path): np.asarray(a)
+            for path, a in jax.tree_util.tree_leaves_with_path(tree)}
+
+
+def grad_leaves(grads):
+    """Port gradients in the JAX tree's layout and leaf names."""
+    return leaves({"params": flax_from_state_dict(
+        {k: torch.from_numpy(g) for k, g in grads.items()})["params"]})
+
+
+def check_update(old, got, want, grads, lr, step_scale):
+    """The magnitude-aware rule of the module docstring."""
+    old, got, want = (leaves({"params": t["params"]})
+                      for t in (old, got, want))
+    g = grad_leaves(grads)
+    moved = 0
+    for key, w0 in old.items():
+        if key not in g:  # frozen
+            np.testing.assert_array_equal(got[key], w0, err_msg=key)
+            np.testing.assert_array_equal(want[key], w0, err_msg=key)
+            continue
+        moved += 1
+        stable = np.abs(g[key]) > 1e-6
+        np.testing.assert_allclose(got[key][stable], want[key][stable],
+                                   rtol=0, atol=1e-2 * lr + 1e-7,
+                                   err_msg=key)
+        np.testing.assert_allclose(got[key], want[key], rtol=0,
+                                   atol=2 * step_scale * lr + 1e-7,
+                                   err_msg=key)
+    return moved
+
+
+def check_metrics(got, want):
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=RTOL, atol=1e-7,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("phase_idx", [0, 1])
+def test_cutoffvgg16_phase_step_matches_jax(phase_idx):
+    jax_spec, port_spec = specs("cutoffvgg16")
+    images, labels, mask = batch()
+    v = scaled_variables(jax_spec, port_spec)
+    want, want_m = jax_step(jax_spec, phase_idx, v, images, labels, mask)
+    got, got_m, grads, _ = port_step(port_spec, phase_idx, v, images, labels,
+                                     mask)
+    check_metrics(got_m, want_m)
+    phase = port_spec.phases[phase_idx]
+    assert phase.optimizer == ("adam", "rmsprop")[phase_idx]
+    step_scale = 1.0 if phase_idx == 0 else 1.0 / np.sqrt(0.1)
+    moved = check_update(v, got, want, grads, phase.lr, step_scale)
+    # extract: the head's kernel and bias; finetune: + block3_conv2/3.
+    assert moved == (2, 6)[phase_idx]
+    assert set(k.split(".")[0] for k in grads) == (
+        {"logits"} if phase_idx == 0
+        else {"logits", "block3_conv2", "block3_conv3"})
+
+
+def test_mobilenetv2_step_matches_jax():
+    jax_spec, port_spec = specs("mobilenetv2")
+    images, labels, mask = batch()
+    v = scaled_variables(jax_spec, port_spec, batch(seed=5)[0])
+    want, want_m = jax_step(jax_spec, 0, v, images, labels, mask)
+    got, got_m, grads, trainer = port_step(port_spec, 0, v, images, labels,
+                                           mask)
+    check_metrics(got_m, want_m)
+    assert port_spec.activity_regularizers == {"fc0": 1e-3}
+    frozen = port_spec.frozen_bn_layers(port_spec.phases[0])
+    assert frozen and all(trainer.module._modules[n].frozen for n in frozen)
+    # Frozen batch norms neither move their statistics nor train.
+    for key, a in leaves({"batch_stats": v["batch_stats"]}).items():
+        np.testing.assert_array_equal(
+            leaves({"batch_stats": got["batch_stats"]})[key], a)
+    assert {"expanded_conv_depthwise.weight",
+            "block_5_depthwise.weight"} <= set(grads)
+    check_update(v, got, want, grads, port_spec.phases[0].lr, 1.0)
+
+
+def test_cnn0_batch_norm_trains_like_flax():
+    jax_spec, port_spec = specs("cnn0")
+    images, labels, mask = batch()
+    v = scaled_variables(jax_spec, port_spec, batch(seed=5)[0])
+    want, want_m = jax_step(jax_spec, 0, v, images, labels, mask)
+    got, got_m, grads, _ = port_step(port_spec, 0, v, images, labels, mask)
+    check_metrics(got_m, want_m)
+    assert set(port_spec.activity_regularizers) == {
+        "conv2d_block0_0", "conv2d_block1_0", "fc0"}
+    assert not port_spec.frozen_bn_layers(port_spec.phases[0])
+    gs, ws, olds = (leaves({"batch_stats": t["batch_stats"]})
+                    for t in (got, want, v))
+    for key in ws:
+        assert not np.array_equal(ws[key], olds[key]), key  # they moved
+        np.testing.assert_allclose(gs[key], ws[key], rtol=RTOL, atol=1e-7,
+                                   err_msg=key)
+    check_update(v, got, want, grads, port_spec.phases[0].lr, 1.0)
+
+
+def test_running_variance_is_biased_like_flax():
+    """A batch of 16 values per channel: the unbiased running variance
+    (what ``F.batch_norm`` keeps, the port before its repair) misses
+    flax's by 0.01 * var / 15; the repaired layer matches it."""
+    import flax.linen as nn
+
+    x = np.random.RandomState(0).normal(1.0, 2.0, (4, 2, 2, 5)).astype(
+        np.float32)
+    flax_bn = nn.BatchNorm(momentum=0.99, epsilon=1e-3)
+    variables = flax_bn.init(jax.random.PRNGKey(0), x,
+                             use_running_average=False)
+    _, upd = flax_bn.apply(variables, x, use_running_average=False,
+                           mutable=["batch_stats"])
+    want = np.asarray(upd["batch_stats"]["var"])
+
+    bn = G.BatchNorm(5).train()
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2)
+    bn(xt)
+    np.testing.assert_allclose(bn.running_var.numpy(), want, rtol=RTOL)
+    np.testing.assert_allclose(
+        bn.running_mean.numpy(),
+        np.asarray(upd["batch_stats"]["mean"]), rtol=RTOL, atol=1e-7)
+    old = torch.ones(5)
+    F.batch_norm(xt, torch.zeros(5), old, None, None, True, 0.01, 1e-3)
+    assert np.abs(old.numpy() - want).min() > 100 * RTOL * want.max()
+
+
+def test_packed_depthwise_weight_follows_the_optimizer():
+    """In mixed-precision training the depthwise kernel's packed weight is
+    the weight as the forward casts it (bf16-rounded), not the float32
+    master copy; an optimizer step (in place) rebuilds it, and it stays
+    cached while nothing changes."""
+    from ab_line_classifier_torch.models.common import KerasAdam
+    from ab_line_classifier_torch.ops.depthwise_cuda import pack_weight
+
+    layer = G.DepthwiseConv(8, (3, 3))
+    with torch.no_grad():
+        layer.weight.normal_(0, 0.3,
+                             generator=torch.Generator().manual_seed(0))
+    G.set_compute_dtype(layer, torch.bfloat16)
+    first = layer.packed_weight()
+    assert torch.equal(first, pack_weight(layer.weight.to(torch.bfloat16)))
+    assert not torch.equal(first, pack_weight(layer.weight))
+    assert layer.packed_weight() is first
+    opt = KerasAdam([layer.weight], lr=1e-2)
+    layer.weight.grad = torch.randn(layer.weight.shape)
+    opt.step()
+    second = layer.packed_weight()
+    assert second is not first
+    assert torch.equal(second, pack_weight(layer.weight.to(torch.bfloat16)))
+    assert not torch.equal(second, first)
+    G.set_compute_dtype(layer, None)
+    assert torch.equal(layer.packed_weight(), pack_weight(layer.weight))
