@@ -191,6 +191,28 @@ class FrameDataset:
             t.join(timeout=5.0)
 
 
+@dataclass
+class FrameArrays:
+    """A frames table in array form: every frame decoded at ``img_dim``,
+    uint8 ``[N, H, W, 3]``, its label and its ``Frame Path``. Built from a
+    table once (:meth:`from_table`), or from arrays where there is no
+    pandas."""
+
+    images: np.ndarray
+    labels: np.ndarray
+    frame_paths: Sequence[str]
+
+    def __len__(self) -> int:
+        return len(self.labels)
+
+    @classmethod
+    def from_table(cls, frames_df, frames_dir: str,
+                   img_dim: Tuple[int, int]) -> "FrameArrays":
+        ds = FrameDataset(frames_df, frames_dir, img_dim=img_dim)
+        images, labels = ds.load_all()
+        return cls(images, labels, ds.frame_paths)
+
+
 def drain_behind(launched: Iterable, consume: Callable) -> None:
     """One-deep host/device pipelining: item k+1 is LAUNCHED (pulled from
     ``launched``, which issues its copy and compute) before item k is
@@ -249,8 +271,23 @@ class DeviceCachedDataset:
         self.labels_dev = torch.as_tensor(
             labels.astype(np.int64)).to(self.device)
         self._labels = labels.astype(np.int32)
+        self._rows: Optional[torch.Tensor] = None
         self.frame_paths = (list(frame_paths) if frame_paths is not None
                             else [str(i) for i in range(len(labels))])
+
+    def subset(self, rows: np.ndarray) -> "DeviceCachedDataset":
+        """A view of rows ``rows`` (in that order) that shares this cache's
+        frames: its batches gather them from the same device tensor."""
+        rows = np.array(rows, np.int64)
+        view = type(self).__new__(type(self))
+        view.device, view.img_dim = self.device, self.img_dim
+        view.frames, view.labels_dev = self.frames, self.labels_dev
+        view._labels = self._labels[rows]
+        view.frame_paths = [self.frame_paths[i] for i in rows]
+        base = torch.as_tensor(rows).to(self.device)
+        view._rows = (base if self._rows is None
+                      else self._rows.index_select(0, base))
+        return view
 
     def __len__(self) -> int:
         return len(self._labels)
@@ -271,6 +308,8 @@ class DeviceCachedDataset:
     def gather(self, idx: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
         """The frames and labels of rows ``idx``, on the device."""
         rows = torch.as_tensor(idx, dtype=torch.int64).to(self.device)
+        if self._rows is not None:
+            rows = self._rows.index_select(0, rows)
         return (self.frames.index_select(0, rows),
                 self.labels_dev.index_select(0, rows))
 

@@ -1,8 +1,12 @@
 """CLI entry point: ``python -m ab_line_classifier_torch.train``.
 
-Runs TRAIN.EXPERIMENT_TYPE from the config (``single_train``; the sweeps
-and ``--trial-parallel`` come with later slices of the port) and saves a
-port checkpoint under ``PATHS.MODEL_WEIGHTS``. ``--device`` picks the
+Runs TRAIN.EXPERIMENT_TYPE from the config, or ``--experiment``:
+``single_train`` saves a port checkpoint under ``PATHS.MODEL_WEIGHTS``;
+``cross_validation`` and ``hparam_search`` run one training per fold or
+trial and write their records and summary CSV under
+``PATHS.EXPERIMENTS`` (``--resume`` skips the folds or trials that an
+interrupted run finished; ``--trial-parallel`` comes with a later slice
+of the port and raises). ``--device`` picks the
 device (default ``cuda``: without a GPU the command raises unless given
 ``--device cpu``); ``--profile`` writes a ``torch.profiler`` trace under
 ``<PATHS.LOGS>/profiles``.
@@ -30,9 +34,14 @@ def main():
     p.add_argument("--checkpoint-dir", default=None,
                    help="save the whole train state here every epoch")
     p.add_argument("--resume", action="store_true",
-                   help="continue an interrupted run from its checkpoint "
-                        "(--checkpoint-dir, default <MODEL_WEIGHTS>/_resume/"
-                        "<experiment>)")
+                   help="continue an interrupted run: restore the per-epoch "
+                        "checkpoint (single_train; from --checkpoint-dir, "
+                        "default <MODEL_WEIGHTS>/_resume/<experiment>) or "
+                        "skip the finished trials / folds (hparam_search / "
+                        "cross_validation)")
+    p.add_argument("--sweep-id", default=None,
+                   help="name of the sweep / k-fold run to create or resume "
+                        "(default on --resume: the most recent one)")
     p.add_argument("--profile", action="store_true",
                    help="write a torch.profiler trace of the run to "
                         "<PATHS.LOGS>/profiles")
@@ -48,7 +57,8 @@ def main():
                          save_weights=not args.no_save_weights,
                          trial_parallel=args.trial_parallel,
                          checkpoint_dir=args.checkpoint_dir,
-                         resume=args.resume, device=args.device)
+                         resume=args.resume, sweep_id=args.sweep_id,
+                         device=args.device)
 
     run_maybe_traced(run, args.profile, cfg)
 

@@ -1,41 +1,65 @@
-"""Experiment orchestration (port of the ``single_train`` part of the JAX
-package's ``train/experiment.py``): resolve the data, class weights and
-output bias, build the model, fit it through its phase plan, save a port
-checkpoint (``state.pt`` + ``meta.json``, which the predict CLI serves),
-and evaluate on the test set.
+"""Experiment orchestration (port of the JAX package's
+``train/experiment.py``): ``single_train``, serial ``cross_validation``
+and serial ``hparam_search``.
 
-``cross_validation``, ``hparam_search`` and the trial-parallel variants
-raise ``NotImplementedError``: they come with later slices of the port
-(ROADMAP Queue A items 13-14). pandas is imported only where tables are
-read.
+A run resolves its data, class weights and output bias, builds the model
+(config hyperparameters, overridden by a sweep's), fits it through its
+phase plan, saves a port checkpoint (``state.pt`` + ``meta.json``, which
+the predict CLI serves) and evaluates on the test set. Cross-validation
+runs one such run per fold, hyperparameter search one per trial, with the
+JAX package's folds, trials, records on disk and resume.
+
+Cross-validation and sweeps train from an :class:`ArraySource`: the frame
+table decoded once and uploaded to the device once per experiment, and a
+:class:`~ab_line_classifier_torch.data.splits.FoldSet` of row indices per
+fold (a sweep's train/val/test split is a one-fold set). That is the same
+data the JAX package decodes per fold, in the same order, and the seam
+through which both run where pandas and sklearn are not installed: the
+loop, records, resume, controllers and summaries are numeric and written
+with ``json`` and ``csv``. pandas is imported only where tables are read.
+
+The trial-parallel variants, W&B artifact pins and the W&B sweep backend
+raise ``NotImplementedError``: they come with later slices of the port.
 """
 
 from __future__ import annotations
 
+import csv
 import dataclasses
+import glob
+import json
+import math
 import os
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ab_line_classifier_torch import resolve_device
 from ab_line_classifier_torch.config import Config, ensure_output_dirs
 from ab_line_classifier_torch.data import splits as S
-from ab_line_classifier_torch.data.pipeline import (FrameDataset,
+from ab_line_classifier_torch.data.artifacts import (K_FOLD, TRAIN_VAL_TEST,
+                                                     store_from_config)
+from ab_line_classifier_torch.data.pipeline import (DeviceCachedDataset,
+                                                    FrameArrays, FrameDataset,
                                                     device_cache_budget,
                                                     maybe_device_cache)
 from ab_line_classifier_torch.models import build_model
 from ab_line_classifier_torch.models.common import ModelSpec, compute_dtype
+from ab_line_classifier_torch.predict.metrics import compute_metrics
 from ab_line_classifier_torch.predict.predict import Predictor
 from ab_line_classifier_torch.train.class_balance import (
     compute_class_weight, compute_output_bias)
 from ab_line_classifier_torch.train.loop import Trainer
+from ab_line_classifier_torch.train.sweep import (SweepExhausted,
+                                                  make_controller,
+                                                  replay_trials,
+                                                  space_from_config)
 from ab_line_classifier_torch.train.tracker import make_tracker
 from ab_line_classifier_torch.utils import checkpoint as ckpt
 
-_LATER = ("waits for a later slice of the port (ROADMAP Queue A items "
-          "13-14)")
+_LATER = "waits for a later slice of the port (ROADMAP Queue A)"
 
 
 @dataclasses.dataclass
@@ -94,92 +118,263 @@ def _cache_mode(cfg: Config):
     return mode
 
 
-def _store_has_train_val_test(cfg: Config) -> bool:
-    """Whether the local artifact store (``TRACKER.ARTIFACTS_DIR``) holds a
-    committed TrainValTest version (a ``v<N>`` directory with its
-    ``metadata.json``)."""
-    root = os.path.join((cfg.get("TRACKER") or {}).get(
-        "ARTIFACTS_DIR", "results/artifacts/"), "TrainValTest")
-    return os.path.isdir(root) and any(
-        d.startswith("v") and d[1:].isdigit()
-        and os.path.isfile(os.path.join(root, d, "metadata.json"))
-        for d in os.listdir(root))
+@dataclasses.dataclass
+class ArraySource:
+    """One frame table in array form and its fold set: what every fold of
+    a cross-validation and every trial of a sweep trains from. The table
+    goes to the device once (:meth:`cached`); a fold's train and val sets
+    are views that gather their rows from it."""
+
+    frames: FrameArrays
+    folds: S.FoldSet
+    _cache: Optional[DeviceCachedDataset] = dataclasses.field(
+        default=None, repr=False)
+
+    def cached(self, cfg: Config, device: torch.device
+               ) -> DeviceCachedDataset:
+        """The whole table as one cache: on ``device`` when
+        ``TRAIN.CACHE_DATASET`` takes it (true, or auto and within the
+        budget), else in host memory, each batch copied over as it is
+        used. Made at the first call."""
+        if self._cache is None:
+            mode, nbytes = _cache_mode(cfg), self.frames.images.nbytes
+            budget = configured_cache_budget(cfg, device)
+            on_device = mode is True or (mode == "auto" and nbytes <= budget)
+            if mode == "auto" and not on_device:
+                print(f"(device cache not taken: {len(self.frames)} frames "
+                      f"need {nbytes} bytes, over the {budget}-byte budget; "
+                      f"batches go over from host memory)")
+            self._cache = DeviceCachedDataset.from_arrays(
+                self.frames.images, self.frames.labels,
+                device if on_device else "cpu", self.frames.frame_paths)
+        return self._cache
 
 
-def resolve_datasets(cfg: Config) -> Tuple[Any, Any, Any, str]:
+def source_from_kfold_tables(cfg: Config, kfold_tables=None) -> ArraySource:
+    """The k-fold source (:func:`resolve_kfold_tables`, or the tables
+    given) as an :class:`ArraySource`: the folds' frames decoded once."""
+    folds, val_split, seed, frames_dir = (kfold_tables or
+                                          resolve_kfold_tables(cfg))
+    table, fold_set = S.fold_set_from_tables(folds, val_split, seed)
+    return ArraySource(FrameArrays.from_table(table, frames_dir, cfg.img_dim),
+                       fold_set)
+
+
+def source_from_datasets(cfg: Config) -> ArraySource:
+    """:func:`resolve_datasets`' split as a one-fold :class:`ArraySource`."""
+    train_df, val_df, test_df, frames_dir = resolve_datasets(cfg)
+    table, fold_set = S.fold_set_from_split(train_df, val_df, test_df)
+    return ArraySource(FrameArrays.from_table(table, frames_dir, cfg.img_dim),
+                       fold_set)
+
+
+def _pinned_version(cfg: Config, store, name: str, key: str) -> Optional[str]:
+    """The local store's version of a W&B artifact pinned by
+    ``WANDB.<key>``, or None when nothing is pinned. A pinned version
+    already fetched into the store (``source == wandb:<name>:<ver>``) is
+    served from it; fetching one raises (the W&B slice of the port)."""
+    ver = str((cfg.get("WANDB") or {}).get(key, "") or "")
+    if not ver:
+        return None
+    if ver != "latest":  # 'latest' can move upstream: always fetched
+        want = f"wandb:{name}:{ver}"
+        for v in reversed(store.versions(name)):
+            if store.metadata(name, v).get("source") == want:
+                return v
+    raise NotImplementedError(
+        f"WANDB.{key} pins W&B artifact version {ver!r}: fetching it "
+        f"{_LATER}")
+
+
+def resolve_datasets(cfg: Config, fold_id: Optional[int] = None,
+                     kfold_tables=None) -> Tuple[Any, Any, Any, str]:
     """``(train_df, val_df, test_df, frames_dir)`` by the JAX package's
-    resolution order, first match wins:
+    resolution order (JAX ``train/experiment.py:135-216``), first match
+    wins:
 
     1. a pinned W&B artifact version (``WANDB.TRAIN_VAL_TEST_ARTIFACT_
-       VERSION``): raises ``NotImplementedError``;
-    2. partition CSVs under ``PATHS.PARTITIONS``/frames;
-    3. the local artifact store's TrainValTest artifact: raises
+       VERSION``): served from the store when it was fetched before, else
        ``NotImplementedError``;
+    2. partition CSVs under ``PATHS.PARTITIONS``/frames;
+    3. the local artifact store's latest TrainValTest artifact;
     4. a patient-grouped split of ``PATHS.FRAME_TABLE`` with
        ``WANDB.ARTIFACT_SEED``.
 
-    Sources 1 and 3 wait for the artifact slice of the port; falling
-    through them would train on another split than the JAX package's."""
+    With ``fold_id``, fold ``fold_id`` of ``kfold_tables`` (default
+    :func:`resolve_kfold_tables`)."""
     import pandas as pd
 
     paths = cfg["PATHS"]
     frames_dir = paths["FRAMES"]
-    wandb = cfg.get("WANDB") or {}
-    if str(wandb.get("TRAIN_VAL_TEST_ARTIFACT_VERSION", "") or ""):
-        raise NotImplementedError(
-            f"WANDB.TRAIN_VAL_TEST_ARTIFACT_VERSION pins a W&B artifact: "
-            f"fetching it {_LATER}")
+    if fold_id is not None:
+        folds, val_split, seed, kf_dir = (kfold_tables or
+                                          resolve_kfold_tables(cfg))
+        if fold_id >= len(folds):
+            raise ValueError(
+                f"fold_id {fold_id} out of range: the resolved fold source "
+                f"has {len(folds)} folds")
+        return S.fold_train_val_test(folds, fold_id, val_split,
+                                     random_seed=seed) + (kf_dir,)
+
+    store = store_from_config(cfg)
+    pinned = _pinned_version(cfg, store, TRAIN_VAL_TEST,
+                             "TRAIN_VAL_TEST_ARTIFACT_VERSION")
+    if pinned is not None:
+        tr, va, te, fdir = store.get_train_val_test_artifact(version=pinned)
+        return tr, va, te, _live_dir(fdir, frames_dir)
     part_frames = os.path.join(paths.get("PARTITIONS", ""), "frames")
     if os.path.isfile(os.path.join(part_frames, "train.csv")):
         return tuple(pd.read_csv(os.path.join(part_frames, f"{s}.csv"))
                      for s in ("train", "val", "test")) + (frames_dir,)
-    if _store_has_train_val_test(cfg):
-        raise NotImplementedError(
-            f"the local artifact store holds a TrainValTest artifact: "
-            f"reading it {_LATER}")
+    try:
+        tr, va, te, fdir = store.get_train_val_test_artifact()
+        return tr, va, te, _live_dir(fdir, frames_dir)
+    except FileNotFoundError:
+        pass
     train_df, val_df, test_df = S.train_val_test_split(
         pd.read_csv(paths["FRAME_TABLE"]), float(cfg["DATA"]["VAL_SPLIT"]),
         float(cfg["DATA"]["TEST_SPLIT"]),
-        random_seed=int(wandb.get("ARTIFACT_SEED", 42)))
+        random_seed=int(cfg["WANDB"]["ARTIFACT_SEED"]))
     return train_df, val_df, test_df, frames_dir
 
 
-def generate_classification_test_results(predictor: Predictor, test_df,
+def resolve_kfold_tables(cfg: Config) -> Tuple[List, float, int, str]:
+    """``(folds, val_split, random_seed, frames_dir)`` by the same chain
+    (JAX ``train/experiment.py:217-273``): a pinned W&B KFold version ->
+    fold CSVs under ``PATHS.K_FOLDS_SPLIT_PATH`` (their ``metadata.json``
+    wins over the config) -> the store's latest KFold artifact -> a
+    k-fold split of ``PATHS.FRAME_TABLE``. The fold count is the source's
+    own, ``TRAIN.N_FOLDS`` only that of the last."""
+    import pandas as pd
+
+    paths = cfg["PATHS"]
+    frames_dir = paths["FRAMES"]
+    seed = int(cfg["WANDB"]["ARTIFACT_SEED"])
+    val_split = float(cfg["DATA"]["K_FOLD_VALIDATION_SPLIT"])
+    store = store_from_config(cfg)
+
+    pinned = _pinned_version(cfg, store, K_FOLD,
+                             "K_FOLD_CROSS_VAL_ARTIFACT_VERSION")
+    if pinned is not None:
+        return _kfold_from_store(store, pinned, val_split, seed, frames_dir)
+    folds_root = paths.get("K_FOLDS_SPLIT_PATH", "")
+    if os.path.isfile(os.path.join(folds_root, "fold_0", "frames.csv")):
+        n_folds = int(cfg["TRAIN"]["N_FOLDS"])
+        meta_path = os.path.join(folds_root, "metadata.json")
+        if os.path.isfile(meta_path):
+            with open(meta_path) as f:
+                meta = json.load(f)
+            n_folds = int(meta.get("n_folds", n_folds))
+            val_split = float(meta.get("val_split", val_split))
+            seed = int(meta.get("random_seed", seed))
+        folds = [pd.read_csv(os.path.join(folds_root, f"fold_{i}",
+                                          "frames.csv"))
+                 for i in range(n_folds)]
+        return folds, val_split, seed, frames_dir
+    try:
+        store.resolve(K_FOLD)
+    except FileNotFoundError:
+        pass
+    else:
+        return _kfold_from_store(store, "latest", val_split, seed,
+                                 frames_dir)
+    folds = S.k_fold_splits(pd.read_csv(paths["FRAME_TABLE"]),
+                            int(cfg["TRAIN"]["N_FOLDS"]), random_seed=seed)
+    return folds, val_split, seed, frames_dir
+
+
+def _kfold_from_store(store, version, default_val_split: float,
+                      default_seed: int, default_frames_dir: str):
+    """A store KFold artifact's fold tables and split metadata (JAX
+    ``train/experiment.py:276-286``)."""
+    import pandas as pd
+
+    path = store.resolve(K_FOLD, version)
+    meta = store.metadata(K_FOLD, version)
+    folds = [pd.read_csv(os.path.join(path, f"fold_{i}", "frames.csv"))
+             for i in range(int(meta["n_folds"]))]
+    return (folds, float(meta.get("val_split", default_val_split)),
+            int(meta.get("random_seed", default_seed)),
+            _live_dir(meta.get("frames_dir"), default_frames_dir))
+
+
+def _live_dir(fdir: Optional[str], default: str) -> str:
+    """An artifact's ``frames_dir`` wins only while it exists."""
+    return fdir if fdir and os.path.isdir(fdir) else default
+
+
+def generate_classification_test_results(predictor: Predictor, test,
                                          frames_dir: str, cfg: Config,
                                          tracker=None) -> Dict[str, Any]:
-    """Test-set evaluation with exact (sklearn) metrics, logged through the
-    tracker. The ROC and confusion-matrix figures wait for the plots of
-    ``viz/visualization.py``."""
-    from ab_line_classifier_torch.predict.metrics import compute_metrics
-
-    probs = predictor.predict_dataset(
-        FrameDataset(test_df, frames_dir, img_dim=cfg.img_dim))
-    labels = test_df["Class"].to_numpy()
+    """Test-set evaluation (JAX ``train/experiment.py:339-371``): metrics
+    (``predict/metrics.py``, numpy), logged through the tracker, and the
+    ``test_roc`` / ``test_cm`` PNGs under ``PATHS.IMAGES``, logged too.
+    ``test`` is a frames table (decoded from ``frames_dir``) or
+    :class:`FrameArrays` (served by ``Predictor.predict_probs``). A plot
+    that fails (no matplotlib) is skipped with a notice."""
+    if isinstance(test, FrameArrays):
+        probs = predictor.predict_probs(test.images)
+        labels = np.asarray(test.labels)
+    else:
+        probs = predictor.predict_dataset(
+            FrameDataset(test, frames_dir, img_dim=cfg.img_dim))
+        labels = test["Class"].to_numpy()
     preds = (probs[:, 1] >= 0.5).astype(int)
     metrics = compute_metrics(cfg.classes, labels, preds, probs)
     if tracker is not None:
         tracker.log_metrics("test", metrics)
+    try:
+        from ab_line_classifier_torch.viz.visualization import (
+            _pyplot, plot_confusion_matrix, plot_roc)
+
+        plt = _pyplot()
+        os.makedirs(cfg["PATHS"]["IMAGES"], exist_ok=True)
+        ts = time.strftime("%Y%m%d-%H%M%S")
+        for fname, fig in (
+                ("test_roc", plot_roc("test", labels, probs, cfg.classes)),
+                ("test_cm", plot_confusion_matrix(labels, preds,
+                                                  cfg.classes))):
+            fig.savefig(os.path.join(cfg["PATHS"]["IMAGES"],
+                                     f"{fname}_{ts}.png"), dpi=120)
+            if tracker is not None:
+                tracker.log_image(fname, fig)
+            plt.close(fig)
+    except Exception as e:  # plots never fail a run
+        print(f"(plotting skipped: {e})")
     return metrics
 
 
-def perform_single_run(cfg: Config, *, save_weights: bool = False,
-                       tracker=None, verbose: bool = True,
+def perform_single_run(cfg: Config, *,
+                       hparam_overrides: Optional[Dict] = None,
+                       fold_id: Optional[int] = None, kfold_tables=None,
+                       save_weights: bool = False, tracker=None,
+                       group: Optional[str] = None, verbose: bool = True,
                        checkpoint_dir: Optional[str] = None,
                        resume: bool = False, device=None) -> RunResult:
-    """One training run: data -> class weights and output bias -> model ->
-    fit through the phase plan -> checkpoint -> test-set evaluation. A
-    tracker made here is closed here, as failed when the run raises."""
+    """One training run (JAX ``train/experiment.py:372-418``): data ->
+    class weights and output bias -> model (config hyperparameters updated
+    by ``hparam_overrides``) -> fit through the phase plan -> checkpoint
+    -> test-set evaluation. A tracker made here (in ``group``) is closed
+    here, as failed when the run raises.
+
+    :param fold_id: train on this fold of ``kfold_tables``
+        (:func:`resolve_kfold_tables` by default).
+    :param kfold_tables: :func:`resolve_kfold_tables`' tables, or an
+        :class:`ArraySource`, whose fold ``fold_id`` (fold 0 when
+        ``fold_id`` is None) is the run's split.
+    """
+    kw = dict(hparam_overrides=hparam_overrides, fold_id=fold_id,
+              kfold_tables=kfold_tables, save_weights=save_weights,
+              verbose=verbose, checkpoint_dir=checkpoint_dir, resume=resume,
+              device=device)
     if tracker is not None:
-        return _perform_single_run_body(
-            cfg, tracker, save_weights=save_weights, verbose=verbose,
-            checkpoint_dir=checkpoint_dir, resume=resume, device=device,
-            finish_tracker=False)
-    tracker = make_tracker(cfg, job_type=cfg["TRAIN"]["EXPERIMENT_TYPE"])
+        return _perform_single_run_body(cfg, tracker, finish_tracker=False,
+                                        **kw)
+    tracker = make_tracker(cfg, group=group,
+                           job_type=cfg["TRAIN"]["EXPERIMENT_TYPE"])
     try:
-        return _perform_single_run_body(
-            cfg, tracker, save_weights=save_weights, verbose=verbose,
-            checkpoint_dir=checkpoint_dir, resume=resume, device=device,
-            finish_tracker=True)
+        return _perform_single_run_body(cfg, tracker, finish_tracker=True,
+                                        **kw)
     except BaseException as e:
         # A crashed run still closes its run directory; a finish that
         # fails itself must not hide the error.
@@ -191,34 +386,23 @@ def perform_single_run(cfg: Config, *, save_weights: bool = False,
         raise
 
 
-def _perform_single_run_body(cfg: Config, tracker, *, save_weights, verbose,
-                             checkpoint_dir, resume, device,
-                             finish_tracker) -> RunResult:
-    device = resolve_device(device)
-    ensure_output_dirs(cfg)
-    model_name = cfg.model_name
-    hparams = cfg.model_hparams()
-    tracker.log_config({"HPARAMS": hparams, "TRAIN": dict(cfg["TRAIN"]),
-                        "DATA": {"IMG_DIM": list(cfg.img_dim)},
-                        "FOLD_ID": None})
-
+def _run_data(cfg: Config, fold_id, kfold_tables, device):
+    """``(train labels, train_ds, val_ds, test, frames_dir)`` of a run:
+    from an :class:`ArraySource` (k-fold tables become one), or for a
+    plain run from :func:`resolve_datasets` through :class:`FrameDataset`
+    and the device cache."""
+    if fold_id is not None and kfold_tables is None:
+        kfold_tables = resolve_kfold_tables(cfg)
+    if kfold_tables is not None:
+        source = (kfold_tables if isinstance(kfold_tables, ArraySource)
+                  else source_from_kfold_tables(cfg, kfold_tables))
+        tr, va, te = source.folds.fold(fold_id or 0)
+        whole = source.cached(cfg, device)
+        labels = np.asarray(source.frames.labels)
+        test = FrameArrays(source.frames.images[te], labels[te],
+                           [source.frames.frame_paths[i] for i in te])
+        return labels[tr], whole.subset(tr), whole.subset(va), test, ""
     train_df, val_df, test_df, frames_dir = resolve_datasets(cfg)
-    mixed = bool(cfg["TRAIN"].get("MIXED_PRECISION", False))
-    dtype = compute_dtype(mixed)
-    seed = int(cfg["TRAIN"]["SEED"])
-    spec = build_model(model_name, hparams, cfg.img_dim + (3,),
-                       cfg.n_classes, mixed_precision=mixed,
-                       output_bias=compute_output_bias(train_df),
-                       total_epochs=int(cfg["TRAIN"]["EPOCHS"]))
-    pretrained = None
-    if cfg["TRAIN"].get("USE_PRETRAINED", False):
-        pretrained = load_pretrained_state(
-            cfg["PATHS"]["PRETRAINED_WEIGHTS"], spec, seed, verbose)
-
-    trainer = Trainer(spec, class_weight=compute_class_weight(train_df),
-                      class_names=cfg.classes,
-                      aug_config=dict(cfg["TRAIN"]["DATA_AUG"]), seed=seed,
-                      compute_dtype=dtype, device=device)
     train_ds = FrameDataset(train_df, frames_dir, img_dim=cfg.img_dim)
     val_ds = FrameDataset(val_df, frames_dir, img_dim=cfg.img_dim)
     # One budget for the pair, split by their sizes.
@@ -229,7 +413,41 @@ def _perform_single_run_body(cfg: Config, tracker, *, save_weights, verbose,
                                   budget=int(budget * frac))
     val_ds = maybe_device_cache(val_ds, mode, device=device,
                                 budget=int(budget * (1 - frac)))
+    return train_df, train_ds, val_ds, test_df, frames_dir
 
+
+def _perform_single_run_body(cfg: Config, tracker, *, hparam_overrides,
+                             fold_id, kfold_tables, save_weights, verbose,
+                             checkpoint_dir, resume, device,
+                             finish_tracker) -> RunResult:
+    device = resolve_device(device)
+    ensure_output_dirs(cfg)
+    model_name = cfg.model_name
+    hparams = cfg.model_hparams()
+    if hparam_overrides:
+        hparams.update(hparam_overrides)
+    tracker.log_config({"HPARAMS": hparams, "TRAIN": dict(cfg["TRAIN"]),
+                        "DATA": {"IMG_DIM": list(cfg.img_dim)},
+                        "FOLD_ID": fold_id})
+
+    train_labels, train_ds, val_ds, test, frames_dir = _run_data(
+        cfg, fold_id, kfold_tables, device)
+    mixed = bool(cfg["TRAIN"].get("MIXED_PRECISION", False))
+    dtype = compute_dtype(mixed)
+    seed = int(cfg["TRAIN"]["SEED"])
+    spec = build_model(model_name, hparams, cfg.img_dim + (3,),
+                       cfg.n_classes, mixed_precision=mixed,
+                       output_bias=compute_output_bias(train_labels),
+                       total_epochs=int(cfg["TRAIN"]["EPOCHS"]))
+    pretrained = None
+    if cfg["TRAIN"].get("USE_PRETRAINED", False):
+        pretrained = load_pretrained_state(
+            cfg["PATHS"]["PRETRAINED_WEIGHTS"], spec, seed, verbose)
+
+    trainer = Trainer(spec, class_weight=compute_class_weight(train_labels),
+                      class_names=cfg.classes,
+                      aug_config=dict(cfg["TRAIN"]["DATA_AUG"]), seed=seed,
+                      compute_dtype=dtype, device=device)
     from ab_line_classifier_torch.train.callbacks import (
         PredictionTableLogger)
     callbacks = [PredictionTableLogger(spec, val_ds, tracker=tracker,
@@ -240,6 +458,9 @@ def _perform_single_run_body(cfg: Config, tracker, *, save_weights, verbose,
         patience=int(cfg["TRAIN"]["PATIENCE"]), variables=pretrained,
         tracker=tracker, verbose=verbose, callbacks=callbacks,
         checkpoint_dir=checkpoint_dir, resume=resume)
+    # The trained module and its optimizer state go before the test set's
+    # predictor comes: serial folds and trials then peak no higher.
+    del trainer, callbacks
 
     model_dir = None
     if save_weights:
@@ -253,11 +474,11 @@ def _perform_single_run_body(cfg: Config, tracker, *, save_weights, verbose,
             "mixed_precision": mixed})
 
     test_metrics: Dict[str, Any] = {}
-    if test_df is not None and len(test_df):
+    if test is not None and len(test):
         predictor = Predictor(spec, best, batch_size=cfg.batch_size,
                               compute_dtype=dtype, device=device)
         test_metrics = generate_classification_test_results(
-            predictor, test_df, frames_dir, cfg, tracker)
+            predictor, test, frames_dir, cfg, tracker)
 
     best_val: Dict[str, float] = {}
     with_val = [h for h in history if h.val]
@@ -271,6 +492,260 @@ def _perform_single_run_body(cfg: Config, tracker, *, save_weights, verbose,
                      model_dir=model_dir, best_val=best_val)
 
 
+# -- serial sweeps and cross-validation -----------------------------------
+def _extract_raw_metric(result: RunResult,
+                        metric_name: str) -> Optional[float]:
+    """The run's raw value of a sweep metric (``epoch/val_auc`` -> the best
+    epoch's val_auc; other names -> test metrics), or None."""
+    key = metric_name.split("/")[-1]
+    value = (result.best_val.get(key) if key.startswith("val_")
+             else result.test_metrics.get(key))
+    return None if value is None else float(value)
+
+
+def _sweep_objective(result: RunResult, metric_name: str, goal: str) -> float:
+    """The sweep objective, signed to be maximized (JAX
+    ``train/experiment.py:554-572``). A metric the run lacks falls back to
+    val_auc, maximized, and says so."""
+    value = _extract_raw_metric(result, metric_name)
+    if value is None:
+        print(f"sweep: metric {metric_name!r} absent from run results "
+              f"(val metrics: {sorted(result.best_val)}; test metrics: "
+              f"{sorted(result.test_metrics)}); scoring this trial by "
+              f"val_auc (maximize) instead")
+        return float(result.best_val.get("val_auc", 0.0))
+    return float(value) if goal == "maximize" else -float(value)
+
+
+def _latest_trials_file(cfg: Config, prefix: str) -> Optional[str]:
+    """The most recently modified ``EXPERIMENTS/{prefix}-*.jsonl``'s group
+    id, or None."""
+    paths = glob.glob(os.path.join(cfg["PATHS"]["EXPERIMENTS"],
+                                   f"{prefix}-*.jsonl"))
+    if not paths:
+        return None
+    latest = max(paths, key=os.path.getmtime)
+    return os.path.splitext(os.path.basename(latest))[0]
+
+
+def _read_trial_records(path: str, verbose: bool) -> list:
+    """A ``{group}.jsonl`` trial or fold log, tolerating a torn tail (JAX
+    ``train/experiment.py:588-621``): a final line cut mid-write is
+    dropped and truncated off the file, so that trial reruns and appends
+    at a clean line boundary; a malformed line before the last raises; an
+    intact last record missing only its newline gets it back."""
+    if not os.path.isfile(path):
+        return []
+    records = []
+    with open(path, "rb") as f:
+        lines = f.readlines()
+    good_bytes = 0
+    for i, line in enumerate(lines):
+        try:
+            records.append(json.loads(line))
+            good_bytes += len(line)
+        except json.JSONDecodeError:
+            if i != len(lines) - 1:
+                raise
+            if verbose:
+                print(f"dropping torn trailing record in {path} "
+                      f"(interrupted mid-write); rerunning that trial")
+            with open(path, "rb+") as f:
+                f.truncate(good_bytes)
+    if (lines and len(records) == len(lines)
+            and not lines[-1].endswith(b"\n")):
+        with open(path, "ab") as f:
+            f.write(b"\n")
+    return records
+
+
+def _append_record(path: str, record: Dict) -> None:
+    with open(path, "a") as f:
+        f.write(json.dumps(record) + "\n")
+
+
+def _csv_cell(v) -> str:
+    """A value as pandas' ``to_csv`` writes it: floats by their shortest
+    repr, NaN and missing as empty."""
+    if v is None or (isinstance(v, float) and math.isnan(v)):
+        return ""
+    return repr(v) if isinstance(v, float) else str(v)
+
+
+def write_csv(path: str, rows: Sequence[Dict]) -> None:
+    """``rows`` as ``pd.DataFrame(rows).to_csv(path, index=False)`` writes
+    them: the columns in order of first appearance, a missing cell
+    empty."""
+    columns: List[str] = []
+    for row in rows:
+        columns += [k for k in row if k not in columns]
+    with open(path, "w", newline="") as f:
+        writer = csv.writer(f, lineterminator="\n")
+        writer.writerow(columns)
+        writer.writerows([_csv_cell(row.get(c)) for c in columns]
+                         for row in rows)
+
+
+def mean_std_rows(rows: Sequence[Dict], key: str = "fold") -> List[Dict]:
+    """The ``mean`` and ``std`` rows of ``rows``' numeric columns other than
+    ``key``, as pandas' ``agg(["mean", "std"])`` computes them: NaN and
+    missing cells skipped, the sample std (ddof 1) by its two-pass sum."""
+    columns: List[str] = []
+    for row in rows:
+        columns += [k for k in row if k not in columns and k != key]
+    mean, std = {key: "mean"}, {key: "std"}
+    for c in columns:
+        x = np.array([row.get(c, np.nan) for row in rows], np.float64)
+        x[np.isnan(x)] = 0.0
+        missing = np.array([c not in row or row[c] is None
+                            or (isinstance(row[c], float)
+                                and math.isnan(row[c])) for row in rows])
+        n = int((~missing).sum())
+        avg = x.sum(dtype=np.float64) / n if n else np.nan
+        sqr = (avg - x) ** 2
+        sqr[missing] = 0.0
+        mean[c] = float(avg)
+        std[c] = (float(np.sqrt(sqr.sum(dtype=np.float64) / (n - 1)))
+                  if n > 1 else np.nan)
+    return [mean, std]
+
+
+def hparam_search(cfg: Config, save_weights: bool = False,
+                  verbose: bool = True, sweep_id: Optional[str] = None,
+                  resume: bool = False, device=None,
+                  source: Optional[ArraySource] = None) -> Dict[str, Any]:
+    """Serial hyperparameter search with the native controllers (JAX
+    ``train/experiment.py:622-734``). Each trial's record (``trial``, its
+    parameters, ``objective``) is appended to
+    ``EXPERIMENTS/{sweep_id}.jsonl`` when it finishes; rerunning with the
+    same ``sweep_id`` (``resume`` without one: the latest sweep) replays
+    the finished trials into the controller and runs only the rest. Then
+    ``hparam_search_<timestamp>.csv`` and the sweep plot.
+
+    ``source``: the split to train every trial on (default: the
+    :func:`resolve_datasets` split, decoded and uploaded once)."""
+    device = resolve_device(device)
+    search = cfg["TRAIN"]["HPARAM_SEARCH"]
+    if str(search.get("BACKEND", "native")).lower() == "wandb":
+        try:
+            import wandb  # noqa: F401
+        except ImportError as e:
+            print(f"wandb sweep backend unavailable ({e}); "
+                  f"using the native controller")
+        else:
+            raise NotImplementedError(f"the W&B sweep backend {_LATER}")
+    space = space_from_config(cfg.hparam_search_space())
+    controller = make_controller(search["METHOD"], space,
+                                 seed=int(cfg["TRAIN"]["SEED"]))
+    n_evals = int(search["N_EVALS"])
+    if sweep_id is None and resume:
+        sweep_id = _latest_trials_file(cfg, "sweep")
+        if sweep_id is None:
+            print("hparam_search --resume: no previous sweep trials file "
+                  "found; starting a new sweep")
+    group = sweep_id or f"sweep-{time.strftime('%Y%m%d-%H%M%S')}"
+    out_dir = cfg["PATHS"]["EXPERIMENTS"]
+    os.makedirs(out_dir, exist_ok=True)
+    trials_path = os.path.join(out_dir, f"{group}.jsonl")
+    results = _read_trial_records(trials_path, verbose)
+    replay_trials(controller, results)
+    if verbose and results:
+        print(f"resuming sweep {group}: {len(results)} trials done")
+
+    for trial in range(len(results), n_evals):
+        try:
+            params = controller.suggest()
+        except SweepExhausted as e:
+            print(f"stopping sweep early: {e} "
+                  f"(N_EVALS={n_evals} > grid size)")
+            break
+        if verbose:
+            print(f"--- sweep trial {trial}/{n_evals}: {params}")
+        if source is None:
+            source = source_from_datasets(cfg)
+        result = perform_single_run(cfg, hparam_overrides=params,
+                                    kfold_tables=source,
+                                    save_weights=save_weights, group=group,
+                                    verbose=verbose, device=device)
+        obj = _sweep_objective(result, search["METRIC_NAME"],
+                               search["METRIC_GOAL"])
+        controller.observe(params, obj)
+        rec = {"trial": trial, **params, "objective": obj}
+        results.append(rec)
+        _append_record(trials_path, rec)
+    if controller.best is None:
+        raise ValueError(
+            "hparam search observed no trials (N_EVALS set to 0, or a "
+            "resumed sweep with an empty trials file): nothing to select "
+            "a best from")
+    best_params, best_obj = controller.best
+    write_csv(os.path.join(
+        out_dir, f"hparam_search_{time.strftime('%Y%m%d-%H%M%S')}.csv"),
+        results)
+    plot_dir = cfg["PATHS"].get("EXPERIMENT_VISUALIZATIONS",
+                                cfg["PATHS"]["IMAGES"])
+    if len(results) >= 2:
+        try:
+            from ab_line_classifier_torch.viz.visualization import (
+                plot_bayesian_hparam_opt, plot_hparam_search)
+            if hasattr(controller, "partial_dependence"):
+                plot_bayesian_hparam_opt(controller, dir_path=plot_dir)
+            else:  # grid and random: the progress plot
+                plot_hparam_search(results, dir_path=plot_dir)
+        except Exception as e:
+            print(f"(sweep plot skipped: {e})")
+    if verbose:
+        print(f"best: {best_params} (objective {best_obj:.4f})")
+    return {"best_params": best_params, "best_objective": best_obj,
+            "trials": results}
+
+
+def cross_validation(cfg: Config, save_weights: bool = False,
+                     verbose: bool = True, group: Optional[str] = None,
+                     resume: bool = False, device=None,
+                     source: Optional[ArraySource] = None) -> List[Dict]:
+    """One run per fold (JAX ``train/experiment.py:1004-1055``), and the
+    mean / std summary ``kfold_<timestamp>.csv``. The fold source is
+    resolved once (``source``, default :func:`resolve_kfold_tables`
+    decoded and uploaded once). Each fold's record (``fold`` and its test
+    metrics) is appended to ``EXPERIMENTS/{group}.jsonl`` when it
+    finishes; ``resume`` (the latest k-fold run, or ``group``) skips the
+    folds done. Returns the summary's rows: one per fold, then ``mean``
+    and ``std``."""
+    device = resolve_device(device)
+    if source is None:
+        source = source_from_kfold_tables(cfg)
+    n_folds = len(source.folds)
+    if group is None and resume:
+        group = _latest_trials_file(cfg, "kfold")
+        if group is None:
+            print("cross_validation --resume: no previous fold results file "
+                  "found; starting a new run")
+    group = group or f"kfold-{time.strftime('%Y%m%d-%H%M%S')}"
+    out_dir = cfg["PATHS"]["EXPERIMENTS"]
+    os.makedirs(out_dir, exist_ok=True)
+    folds_path = os.path.join(out_dir, f"{group}.jsonl")
+    rows = _read_trial_records(folds_path, verbose)
+    if verbose and rows:
+        print(f"resuming k-fold run {group}: {len(rows)} folds done")
+    for fold_id in range(len(rows), n_folds):
+        if verbose:
+            print(f"=== fold {fold_id}/{n_folds}")
+        result = perform_single_run(cfg, fold_id=fold_id,
+                                    kfold_tables=source,
+                                    save_weights=save_weights, group=group,
+                                    verbose=verbose, device=device)
+        row = {"fold": fold_id, **{k: v for k, v
+                                   in result.test_metrics.items()
+                                   if not isinstance(v, list)}}
+        rows.append(row)
+        _append_record(folds_path, row)
+    summary = list(rows) + mean_std_rows(rows)
+    write_csv(os.path.join(
+        out_dir, f"kfold_{time.strftime('%Y%m%d-%H%M%S')}.csv"), summary)
+    return summary
+
+
 def default_checkpoint_dir(cfg: Config, experiment: str) -> str:
     """Where per-epoch resume checkpoints live when ``--resume`` names no
     ``--checkpoint-dir``."""
@@ -281,20 +756,31 @@ def train_experiment(cfg: Config, experiment: Optional[str] = None,
                      save_weights: bool = False, verbose: bool = True,
                      trial_parallel: bool = False,
                      checkpoint_dir: Optional[str] = None,
-                     resume: bool = False, device=None) -> RunResult:
+                     resume: bool = False, sweep_id: Optional[str] = None,
+                     device=None):
     """Run ``TRAIN.EXPERIMENT_TYPE`` (or ``experiment``) on ``device``
-    (``cuda`` unless asked for the CPU; raises at once without a GPU)."""
+    (``cuda`` unless asked for the CPU; raises at once without a GPU), as
+    the JAX package dispatches (``train/experiment.py:1068-1111``).
+    ``single_train`` checkpoints every epoch into ``checkpoint_dir`` and
+    resumes from it; the serial sweeps resume by trial or fold
+    (``sweep_id`` names the run, default the latest)."""
     device = resolve_device(device)
     experiment = experiment or cfg["TRAIN"]["EXPERIMENT_TYPE"]
     if trial_parallel:
         raise NotImplementedError(f"--trial-parallel {_LATER}")
-    if experiment in ("cross_validation", "hparam_search"):
-        raise NotImplementedError(f"experiment {experiment!r} {_LATER}")
-    if experiment != "single_train":
-        raise ValueError(
-            "Invalid entry in TRAIN > EXPERIMENT_TYPE field of config.yml.")
     if resume and checkpoint_dir is None:
         checkpoint_dir = default_checkpoint_dir(cfg, experiment)
-    return perform_single_run(cfg, save_weights=save_weights,
-                              verbose=verbose, checkpoint_dir=checkpoint_dir,
-                              resume=resume, device=device)
+    if experiment == "single_train":
+        return perform_single_run(cfg, save_weights=save_weights,
+                                  verbose=verbose,
+                                  checkpoint_dir=checkpoint_dir,
+                                  resume=resume, device=device)
+    if experiment == "hparam_search":
+        return hparam_search(cfg, save_weights=save_weights, verbose=verbose,
+                             sweep_id=sweep_id, resume=resume, device=device)
+    if experiment == "cross_validation":
+        return cross_validation(cfg, save_weights=save_weights,
+                                verbose=verbose, group=sweep_id,
+                                resume=resume, device=device)
+    raise ValueError(
+        "Invalid entry in TRAIN > EXPERIMENT_TYPE field of config.yml.")

@@ -2,11 +2,13 @@
 ``LocalTracker`` of the JAX package's ``train/tracker.py``).
 
 ``LocalTracker`` writes one directory per run under ``TRACKER.DIR``:
-``events.jsonl`` (timestamped epoch and metric events), ``config.json``
-and, from :meth:`LocalTracker.finish`, ``summary.json``. The W&B and
-TensorBoard backends wait for a later slice of the port: selecting one
-says so and tracks locally, as the JAX package does when its backend is
-not importable.
+``events.jsonl`` (timestamped epoch and metric events; the first,
+``start``, names the run's group, a sweep's or k-fold run's id, and its
+job type), ``config.json`` (the hyperparameters with a trial's overrides,
+and ``FOLD_ID``) and, from :meth:`LocalTracker.finish`, ``summary.json``.
+The W&B and TensorBoard backends wait for a later slice of the port:
+selecting one says so and tracks locally, as the JAX package does when
+its backend is not importable.
 """
 
 from __future__ import annotations

@@ -1,22 +1,89 @@
-"""Figures (the part of the JAX package's ``viz/visualization.py`` that the
-port's paths use so far): the Grad-CAM heatmap panel, written as a PNG
-under ``PATHS.HEATMAPS`` with the reference's file contract.
+"""Figures (port of the JAX package's ``viz/visualization.py:34-178``):
+the test set's ROC curves and confusion matrix, the Grad-CAM heatmap
+panel, and the sweep plots (progress of a grid or random sweep, the GP's
+partial dependence of a Bayesian one), written as timestamped PNGs with
+the reference's file contract. Curves and matrices come from
+``predict/metrics.py`` (numpy), not sklearn.
 
 matplotlib is imported by the function that draws, with the ``Agg``
-backend, so the package imports where matplotlib is not installed.
+backend, so the package imports where matplotlib is not installed. The
+threshold-experiment plots come with the deploy slice of the port.
 """
 
 from __future__ import annotations
 
 import datetime
 import os
-from typing import Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
 
 def _ts() -> str:
     return datetime.datetime.now().strftime("%Y%m%d-%H%M%S")
+
+
+def _pyplot():
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    return plt
+
+
+def _save(fig, dir_path: Optional[str], name: str):
+    """Write ``fig`` as ``<dir_path>/<name>_<timestamp>.png`` and close it,
+    when ``dir_path`` is given. Returns the figure."""
+    if dir_path:
+        os.makedirs(dir_path, exist_ok=True)
+        fig.savefig(os.path.join(dir_path, f"{name}_{_ts()}.png"), dpi=120)
+        _pyplot().close(fig)
+    return fig
+
+
+def plot_roc(name: str, labels: np.ndarray, probs: np.ndarray,
+             class_names: Sequence[str], dir_path: Optional[str] = None):
+    """One-vs-rest ROC curve of each class with both outcomes present (JAX
+    ``viz/visualization.py:34-57``); ``roc_<name>_<timestamp>.png``."""
+    from ab_line_classifier_torch.predict.metrics import roc_curves
+
+    plt = _pyplot()
+    fig, ax = plt.subplots(figsize=(7, 6))
+    curves = roc_curves(labels, probs, class_names)
+    for cname, fpr, tpr, area in curves:
+        ax.plot(fpr, tpr, label=f"{cname} (AUC = {area:.3f})")
+    ax.plot([0, 1], [0, 1], "k--", lw=0.8)
+    ax.set_xlabel("False positive rate")
+    ax.set_ylabel("True positive rate")
+    ax.set_title(f"ROC — {name}")
+    if curves:
+        ax.legend(loc="lower right")
+    fig.tight_layout()
+    return _save(fig, dir_path, f"roc_{name}")
+
+
+def plot_confusion_matrix(labels: np.ndarray, preds: np.ndarray,
+                          class_names: Sequence[str],
+                          dir_path: Optional[str] = None):
+    """Confusion-matrix heatmap (JAX ``viz/visualization.py:62-84``);
+    ``cm_<timestamp>.png``."""
+    from ab_line_classifier_torch.predict.metrics import confusion_matrix
+
+    plt = _pyplot()
+    cm = confusion_matrix(labels, preds, len(class_names))
+    fig, ax = plt.subplots(figsize=(5.5, 5))
+    im = ax.imshow(cm, cmap="Blues")
+    ax.set_xticks(range(len(class_names)), class_names)
+    ax.set_yticks(range(len(class_names)), class_names)
+    ax.set_xlabel("Predicted")
+    ax.set_ylabel("True")
+    thresh = cm.max() / 2.0 if cm.max() else 0.5
+    for i in range(cm.shape[0]):
+        for j in range(cm.shape[1]):
+            ax.text(j, i, str(cm[i, j]), ha="center", va="center",
+                    color="white" if cm[i, j] > thresh else "black")
+    fig.colorbar(im)
+    fig.tight_layout()
+    return _save(fig, dir_path, "cm")
 
 
 def visualize_heatmap(orig_img: np.ndarray, heatmap_img: np.ndarray,
@@ -27,10 +94,7 @@ def visualize_heatmap(orig_img: np.ndarray, heatmap_img: np.ndarray,
     class in the title; saved as ``heatmap_<frame>_<timestamp>.png`` in
     ``dir_path`` (and the figure closed) when ``dir_path`` is given.
     Returns the matplotlib figure."""
-    import matplotlib
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-
+    plt = _pyplot()
     fig, axes = plt.subplots(1, 2, figsize=(10, 5))
     axes[0].imshow(orig_img.astype(np.uint8))
     axes[0].set_title("Original")
@@ -44,10 +108,58 @@ def visualize_heatmap(orig_img: np.ndarray, heatmap_img: np.ndarray,
         f"pred: {class_names[pred_idx]} "
         f"(p={float(np.max(probs)):.3f})")
     fig.tight_layout()
-    if dir_path:
-        os.makedirs(dir_path, exist_ok=True)
-        base = os.path.splitext(os.path.basename(img_filename))[0]
-        fig.savefig(os.path.join(dir_path, f"heatmap_{base}_{_ts()}.png"),
-                    dpi=120)
-        plt.close(fig)
-    return fig
+    base = os.path.splitext(os.path.basename(img_filename))[0]
+    return _save(fig, dir_path, f"heatmap_{base}")
+
+
+def plot_hparam_search(trials: List[Dict], objective_key: str = "objective",
+                       goal: str = "maximize",
+                       dir_path: Optional[str] = None):
+    """Sweep progress: each trial's objective and the running best (JAX
+    ``viz/visualization.py:117-138``); ``hparam_search_<timestamp>.png``.
+    The serial sweep's objectives are signed to be maximized."""
+    plt = _pyplot()
+    objs = [t[objective_key] for t in trials]
+    best = (np.maximum.accumulate(objs) if goal == "maximize"
+            else np.minimum.accumulate(objs))
+    fig, ax = plt.subplots(figsize=(7, 4.5))
+    ax.plot(objs, "o-", label="trial objective")
+    ax.plot(best, "r--", label="running best")
+    ax.set_xlabel("Trial")
+    ax.set_ylabel("Objective")
+    ax.legend()
+    fig.tight_layout()
+    return _save(fig, dir_path, "hparam_search")
+
+
+def plot_bayesian_hparam_opt(controller, dir_path: Optional[str] = None):
+    """A Bayesian sweep's objective landscape (JAX
+    ``viz/visualization.py:141-176``): per variable, the GP posterior
+    mean's partial dependence, with the observed trials over it;
+    ``bayes_opt_<timestamp>.png``. ``controller`` is a
+    ``train.sweep.BayesController``."""
+    plt = _pyplot()
+    space = controller.space
+    fig, axes = plt.subplots(1, len(space), figsize=(4.5 * len(space), 4),
+                             squeeze=False)
+    for ax, var in zip(axes[0], space):
+        values, pd = controller.partial_dependence(var.name)
+        xs = [p[var.name] for p, _ in controller.history]
+        ys = [o for _, o in controller.history]
+        if var.type == "set":
+            pos = {val: i for i, val in enumerate(values)}
+            ax.plot(range(len(values)), pd, "o-", label="GP partial dep.")
+            ax.scatter([pos[x] for x in xs], ys, s=18, c="crimson",
+                       alpha=0.6, label="trials")
+            ax.set_xticks(range(len(values)), [str(v) for v in values])
+        else:
+            ax.plot(values, pd, "-", label="GP partial dep.")
+            ax.scatter(xs, ys, s=18, c="crimson", alpha=0.6, label="trials")
+            if var.type == "float_log":
+                ax.set_xscale("log")
+        ax.set_xlabel(var.name)
+        ax.set_ylabel("objective")
+    axes[0][0].legend(loc="best", fontsize=8)
+    fig.suptitle("Bayesian hyperparameter search — GP partial dependence")
+    fig.tight_layout()
+    return _save(fig, dir_path, "bayes_opt")

@@ -91,7 +91,22 @@ no result):
    training batch norm beside ``F.batch_norm`` alone;
    ``training_throughput_benchmark`` of every phase at
    batch 256 and 1024 (cutoffvgg16) and 256 (mobilenetv2), with share of
-   bf16 peak and a profiled step (idle share, top kernels).
+   bf16 peak and a profiled step (idle share, top kernels);
+12. cross-validation and hyperparameter search — the port's own
+   ``cross_validation`` (cutoffvgg16, full width, config.yml's
+   hyperparameters, ``extract`` then ``finetune`` one epoch each, batch
+   64) over 3 patient-grouped folds (config.yml has 5: cut for time) of
+   480 synthetic frames of 24 patients, through the array seam
+   (``ArraySource``: the table uploaded once, each fold's rows gathered),
+   interrupted as fold 1 starts and resumed (fold 0's record
+   byte-identical); then ``hparam_search`` (mobilenetv2, full width,
+   ``METHOD: bayes``, 4 trials of one epoch over config.yml's space),
+   whose fourth suggestion must equal what the same controller suggests
+   on the CPU after replaying the card's three observations. Per fold and
+   trial: wall and setup seconds, training frames/s, B1 and B2 launches
+   (held to the counts the data gives; B2's input copies 0) and
+   ``max_memory_allocated``, the last run's peak within 5% of the
+   first's.
 
 The last two lines of standard output are a JSON line of per-kernel
 numbers (launches per path, ``training`` included: the wrappers' counts,
@@ -1701,6 +1716,295 @@ def phase_training(vgg_sd, mbv2, mbv2_sd, smi):
     return launches
 
 
+# Phase 12 (cross-validation and hyperparameter search): 24 patients of 20
+# frames; 3 folds (config.yml's N_FOLDS is 5: cut for the smoke's time),
+# K_FOLD_VALIDATION_SPLIT 0.1; one epoch a phase; a Bayesian sweep of 4
+# trials (the fourth suggestion from the GP) over config.yml's mobilenetv2
+# space. Peak memory of the last run within MEM_DRIFT of the first's.
+EXP_PATIENTS, EXP_FRAMES_PER_PATIENT, EXP_FOLDS, EXP_TRIALS = 24, 20, 3, 4
+MEM_DRIFT = 0.05
+MBV2_SEARCH = {"LR": {"TYPE": "float_log", "RANGE": [1e-5, 1e-3]},
+               "DROPOUT": {"TYPE": "float_uniform", "RANGE": [0.0, 0.5]}}
+
+
+class Interrupted(Exception):
+    pass
+
+
+def experiment_config(root, model, experiment):
+    """The port's Config for ``model`` at 128x128 with config.yml's values
+    (built as a dict: the card has no PyYAML), every output under
+    ``root``, one epoch a phase, batch 64. Sweeps score by the validation
+    loss (config.yml: AUC, which sits at 0.5 for every trial after one
+    epoch from random weights, and a GP over one value tests nothing)."""
+    from ab_line_classifier_torch.config import Config
+    from ab_line_classifier_torch.predict.benchmark import (TRAIN_AUG,
+                                                            ZOO_HPARAMS)
+
+    paths = {k: os.path.join(root, k.lower()) for k in (
+        "EXPERIMENTS", "IMAGES", "MODEL_WEIGHTS", "EXPERIMENT_VISUALIZATIONS",
+        "LOGS")}
+    return Config({
+        "PATHS": dict(paths, FRAMES=root),
+        "WANDB": {"ARTIFACT_SEED": 42},
+        "TRACKER": {"BACKEND": "local", "DIR": os.path.join(root, "runs")},
+        "DATA": {"IMG_DIM": list(OUT_HW), "CLASSES": ["a_lines", "b_lines"],
+                 "K_FOLD_VALIDATION_SPLIT": 0.1},
+        "TRAIN": {"MODEL_DEF": model, "EXPERIMENT_TYPE": experiment,
+                  "SEED": 10001, "BATCH_SIZE": TRAIN_BATCH, "EPOCHS": 1,
+                  "PATIENCE": 15, "MIXED_PRECISION": True,
+                  "CACHE_DATASET": "auto", "DATA_AUG": TRAIN_AUG,
+                  "HPARAM_SEARCH": {"N_EVALS": EXP_TRIALS, "METHOD": "bayes",
+                                    "METRIC_GOAL": "minimize",
+                                    "METRIC_NAME": "epoch/val_loss",
+                                    "BACKEND": "native"}},
+        "HPARAMS": {"CUTOFFVGG16": dict(ZOO_HPARAMS["cutoffvgg16"],
+                                        EXTRACT_EPOCHS=1),
+                    "MOBILENETV2": ZOO_HPARAMS["mobilenetv2"]},
+        "HPARAM_SEARCH": {"MOBILENETV2": MBV2_SEARCH}})
+
+
+def grouped_folds(patients, n_folds, val_split, seed):
+    """A patient-grouped fold set without sklearn: the patients shuffled
+    by ``np.random.RandomState(seed)`` and dealt to the folds in turn; fold
+    k tests on its own patients, validates on the first ``val_split`` of
+    the others' (at least one) and trains on the rest."""
+    from ab_line_classifier_torch.data.splits import FoldSet
+
+    ids = np.random.RandomState(seed).permutation(np.unique(patients))
+    fold_of = {p: i % n_folds for i, p in enumerate(ids)}
+    rows = np.arange(len(patients))
+    fold = np.array([fold_of[p] for p in patients])
+    out = FoldSet([], [], [])
+    for k in range(n_folds):
+        rest = [p for p in ids if fold_of[p] != k]
+        val_ids = rest[:max(1, round(val_split * len(rest)))]
+        in_val = np.isin(patients, val_ids)
+        out.train.append(rows[(fold != k) & ~in_val])
+        out.val.append(rows[in_val])
+        out.test.append(rows[fold == k])
+        groups = [set(patients[r]) for r in (out.train[k], out.val[k],
+                                              out.test[k])]
+        if any(a & b for a, b in itertools.combinations(groups, 2)):
+            raise AssertionError(f"fold {k}: a patient in two sets")
+    return out
+
+
+class RunMeter:
+    """Per run of ``perform_single_run`` (the port's functions wrapped, not
+    copied): wall and setup seconds (to ``Trainer.fit``'s start: model
+    build, weight upload, the table's upload in the first run), training
+    frames/s (frames over the training epochs' time, synchronized), the
+    kernels' launches, B2's input copies and the peak of
+    ``torch.cuda.max_memory_allocated``. ``stop_at`` makes that run raise
+    :class:`Interrupted` as it starts."""
+
+    def __init__(self, stop_at=None):
+        self.runs, self.stop_at = [], stop_at
+
+    def __enter__(self):
+        from ab_line_classifier_torch.ops import depthwise_cuda as DC
+        from ab_line_classifier_torch.ops import preprocess_cuda as PC
+        from ab_line_classifier_torch.train import experiment as E
+        from ab_line_classifier_torch.train.loop import Trainer
+
+        self.saved = (E.perform_single_run, Trainer.fit, Trainer.run_epoch)
+        run_fn, fit, run_epoch = self.saved
+        meter = self
+
+        def perform_single_run(cfg, **kw):
+            key = kw.get("fold_id", kw.get("hparam_overrides"))
+            if meter.stop_at is not None and len(meter.runs) == meter.stop_at:
+                raise Interrupted
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            rec = {"run": key, "t0": time.perf_counter(), "train_s": 0.0,
+                   "frames": 0, "pre": PC.launch_count,
+                   "dw": DC.launch_count, "copies": DC.copy_count}
+            meter.runs.append(rec)
+            result = run_fn(cfg, **kw)
+            torch.cuda.synchronize()
+            rec.update(wall=time.perf_counter() - rec["t0"],
+                       pre=PC.launch_count - rec["pre"],
+                       dw=DC.launch_count - rec["dw"],
+                       copies=DC.copy_count - rec["copies"],
+                       peak=torch.cuda.max_memory_allocated(),
+                       result=result)
+            return result
+
+        def timed_fit(trainer, *a, **kw):
+            meter.runs[-1]["setup"] = time.perf_counter() - meter.runs[-1][
+                "t0"]
+            return fit(trainer, *a, **kw)
+
+        def timed_epoch(trainer, dataset, batch_size, *, train, **kw):
+            if not train:
+                return run_epoch(trainer, dataset, batch_size, train=train,
+                                 **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run_epoch(trainer, dataset, batch_size, train=train, **kw)
+            torch.cuda.synchronize()
+            meter.runs[-1]["train_s"] += time.perf_counter() - t0
+            meter.runs[-1]["frames"] += len(dataset)
+            return out
+
+        E.perform_single_run = perform_single_run
+        Trainer.fit, Trainer.run_epoch = timed_fit, timed_epoch
+        return self
+
+    def __exit__(self, *exc):
+        from ab_line_classifier_torch.train import experiment as E
+        from ab_line_classifier_torch.train.loop import Trainer
+
+        E.perform_single_run, Trainer.fit, Trainer.run_epoch = self.saved
+        return False
+
+
+def check_runs(label, runs, source, per_forward, smi):
+    """Print each run's numbers; hold its launches to the count its data
+    gives (B1: each validation batch of each epoch, the prediction table's
+    one batch an epoch and each test batch; B2: ``per_forward`` in each of
+    those and each training forward), no input copied, and the last run's
+    peak memory within MEM_DRIFT of the first's."""
+    def nb(n):
+        return -(-n // TRAIN_BATCH)
+
+    for rec, (tr, va, te) in zip(runs, source):
+        epochs = len(rec["result"].history)
+        evals = epochs * (nb(len(va)) + 1) + nb(len(te))
+        want = (evals, per_forward * (epochs * nb(len(tr)) + evals))
+        print(f"{label} {rec['run']} on {smi}: wall {rec['wall']:.3f} s, "
+              f"setup {rec['setup']:.3f} s, training "
+              f"{rec['frames'] / rec['train_s']:.1f} frames/s ({epochs} "
+              f"epochs of {len(tr)} frames), val {len(va)}, test "
+              f"{len(te)}; preprocess launches {rec['pre']}, depthwise "
+              f"{rec['dw']}, input copies {rec['copies']}; "
+              f"max_memory_allocated {rec['peak']} bytes; test "
+              f"accuracy {rec['result'].test_metrics['accuracy']:.4f}",
+              flush=True)
+        if (rec["pre"], rec["dw"]) != want or rec["copies"]:
+            raise AssertionError(f"{label} {rec['run']}: launches "
+                                 f"{(rec['pre'], rec['dw'])}, want {want}, "
+                                 f"copies {rec['copies']}")
+    first, last = runs[0]["peak"], runs[-1]["peak"]
+    print(f"{label}: peak memory first run {first}, last {last} "
+          f"({last / first - 1:+.4f}; bar {MEM_DRIFT})", flush=True)
+    if abs(last / first - 1) > MEM_DRIFT:
+        raise AssertionError(f"{label}: peak memory drifts from {first} to "
+                             f"{last}")
+
+
+def phase_experiments(smi):
+    """Phase 12: ``cross_validation`` (cutoffvgg16) with an interruption
+    and a resume, and a Bayesian ``hparam_search`` (mobilenetv2), both
+    through the array seam (``ArraySource``). Returns each path's (B1, B2)
+    launches."""
+    import shutil
+
+    from ab_line_classifier_torch.data.pipeline import FrameArrays
+    from ab_line_classifier_torch.data.splits import FoldSet
+    from ab_line_classifier_torch.ops import depthwise_cuda as DC
+    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+    from ab_line_classifier_torch.train import experiment as E
+    from ab_line_classifier_torch.train.sweep import (make_controller,
+                                                      replay_trials,
+                                                      space_from_config)
+
+    root = os.path.join(REPO, "build", "phase12")
+    shutil.rmtree(root, ignore_errors=True)
+    n = EXP_PATIENTS * EXP_FRAMES_PER_PATIENT
+    images, labels = labelled_frames(n, seed=12)
+    patients = np.repeat(np.arange(EXP_PATIENTS), EXP_FRAMES_PER_PATIENT)
+    frames = FrameArrays(images, labels, [f"frame{i:04d}.png"
+                                          for i in range(n)])
+    folds = grouped_folds(patients, EXP_FOLDS, 0.1, seed=42)
+    launches = {}
+
+    cfg = experiment_config(os.path.join(root, "kfold"), "cutoffvgg16",
+                            "cross_validation")
+    source = E.ArraySource(frames, folds)
+    records = os.path.join(cfg["PATHS"]["EXPERIMENTS"], "kfold-smoke.jsonl")
+    PC.reset_launch_count()
+    DC.reset_launch_count()
+    t0 = time.perf_counter()
+    with RunMeter(stop_at=1) as first:
+        try:
+            E.cross_validation(cfg, group="kfold-smoke", verbose=False,
+                               device="cuda", source=source)
+            raise AssertionError("the interrupted run went on")
+        except Interrupted:
+            pass
+    with open(records, "rb") as f:
+        done = f.read()
+    with RunMeter() as rest:
+        summary = E.cross_validation(cfg, group="kfold-smoke", resume=True,
+                                     verbose=False, device="cuda",
+                                     source=source)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    with open(records, "rb") as f:
+        after = f.read()
+    runs = first.runs + rest.runs
+    if ([r["run"] for r in runs] != list(range(EXP_FOLDS))
+            or not after.startswith(done) or done.count(b"\n") != 1
+            or after.count(b"\n") != EXP_FOLDS):
+        raise AssertionError(f"cross-validation resume: runs "
+                             f"{[r['run'] for r in runs]}, records {after!r}")
+    check_runs("cross_validation fold", runs,
+               [folds.fold(k) for k in range(EXP_FOLDS)], 0, smi)
+    if (sum(r["pre"] for r in runs), sum(r["dw"] for r in runs)) != (
+            PC.launch_count, DC.launch_count):
+        raise AssertionError("launches outside the folds' runs")
+    launches["cross_validation"] = (PC.launch_count, DC.launch_count)
+    stats = {r["fold"]: r for r in summary}
+    print(f"cross_validation: {EXP_FOLDS} folds of cutoffvgg16 128x128 "
+          f"({n} frames, {EXP_PATIENTS} patients) in {seconds:.2f} s, "
+          f"interrupted after fold 0 and resumed (fold 0's record "
+          f"byte-identical, folds 1-2 run on resume); accuracy mean "
+          f"{stats['mean']['accuracy']:.4f} std "
+          f"{stats['std']['accuracy']:.4f}, AUC mean "
+          f"{stats['mean'].get('macro_mean_auc', float('nan')):.4f}",
+          flush=True)
+    if len(summary) != EXP_FOLDS + 2 or not all(
+            np.isfinite(r["accuracy"]) for r in summary):
+        raise AssertionError(f"cross-validation summary: {summary}")
+
+    cfg = experiment_config(os.path.join(root, "sweep"), "mobilenetv2",
+                            "hparam_search")
+    split = FoldSet(*([part] for part in folds.fold(0)))
+    source = E.ArraySource(frames, split)
+    PC.reset_launch_count()
+    DC.reset_launch_count()
+    t0 = time.perf_counter()
+    with RunMeter() as sweep:
+        out = E.hparam_search(cfg, sweep_id="sweep-smoke", verbose=False,
+                              device="cuda", source=source)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check_runs("hparam_search trial", sweep.runs, [split.fold(0)] * len(
+        sweep.runs), ZOO["mobilenetv2"][1], smi)
+    launches["hparam_search"] = (PC.launch_count, DC.launch_count)
+    trials = out["trials"]
+    replay = make_controller("bayes", space_from_config(MBV2_SEARCH),
+                             seed=10001)
+    replay_trials(replay, trials[:-1])
+    gp = replay.suggest()
+    want = {k: v for k, v in trials[-1].items()
+            if k not in ("trial", "objective")}
+    print(f"hparam_search: {len(trials)} bayes trials of mobilenetv2 "
+          f"128x128 in {seconds:.2f} s; objectives (-val loss) "
+          f"{[round(t['objective'], 6) for t in trials]}; trial "
+          f"{len(trials) - 1} (the GP's) {want}, the CPU's replay of the "
+          f"card's {len(trials) - 1} observations suggests {gp}", flush=True)
+    if len(trials) != EXP_TRIALS or gp != want:
+        raise AssertionError(f"the GP's suggestion on the card {want} is not "
+                             f"the CPU replay's {gp}")
+    if DC.copy_count:
+        raise AssertionError(f"{DC.copy_count} depthwise input copies")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an "
@@ -1813,6 +2117,9 @@ def main():
     launches["training"] = phase_training(vgg_sd, mbv2,
                                           weights["mobilenetv2"], smi)
     torch.cuda.synchronize()
+
+    phase("12 cross-validation and hyperparameter search")
+    launches.update(phase_experiments(smi))
 
     def graph_runs(kernel):
         """Runs on the card of ``kernel`` in one replay of each model's

@@ -4,9 +4,11 @@ a synthetic JPEG workspace (``conftest.derive_workspace_config``; 32x32,
 mixed precision, the config's augmentation), logs its epochs and
 validation prediction tables locally, and saves a port checkpoint that
 ``python -m ab_line_classifier_torch.predict --device cpu`` serves. Without
-``--device cpu`` and without a GPU the command raises. The experiment
-types and data sources that wait for later slices raise
-``NotImplementedError``.
+``--device cpu`` and without a GPU the command raises. Cross-validation
+and hyperparameter search run on the same workspace, and the local
+artifact store is read as the JAX package reads it; what waits for later
+slices (``--trial-parallel``, fetching a pinned W&B artifact, the W&B
+sweep backend) raises ``NotImplementedError``.
 """
 
 import glob
@@ -26,6 +28,7 @@ from conftest import REPO_ROOT, cli_env, derive_workspace_config
 from ab_line_classifier_tpu.data.synthetic import generate_dataset
 from ab_line_classifier_torch.config import load_config
 from ab_line_classifier_torch.train.experiment import (resolve_datasets,
+                                                       resolve_kfold_tables,
                                                        train_experiment)
 
 
@@ -109,22 +112,70 @@ def test_train_cli_raises_without_a_gpu(workspace):
 
 
 def test_later_slices_raise(workspace, tmp_path):
+    """What still waits for a later slice raises: ``--trial-parallel``
+    (for every experiment), a W&B artifact version pinned for the split
+    or the folds that the store does not hold, and the W&B sweep backend
+    where wandb is importable (without it the sweep says so and runs the
+    native controller)."""
     ws, cfg_path = workspace
     cfg = load_config(cfg_path)
-    for kw in ({"experiment": "cross_validation"},
-               {"experiment": "hparam_search"}, {"trial_parallel": True}):
-        with pytest.raises(NotImplementedError):
-            train_experiment(cfg, device="cpu", **kw)
+    for experiment in ("single_train", "cross_validation", "hparam_search"):
+        with pytest.raises(NotImplementedError, match="trial-parallel"):
+            train_experiment(cfg, experiment=experiment, trial_parallel=True,
+                             device="cpu")
     pinned = cfg.replace_path("WANDB.TRAIN_VAL_TEST_ARTIFACT_VERSION", "v3")
     with pytest.raises(NotImplementedError, match="W&B"):
         resolve_datasets(pinned)
-    store = tmp_path / "artifacts"
-    (store / "TrainValTest" / "v0").mkdir(parents=True)
-    (store / "TrainValTest" / "v0" / "metadata.json").write_text("{}")
-    local = cfg.replace_path("TRACKER.ARTIFACTS_DIR", str(store))
-    with pytest.raises(NotImplementedError, match="artifact store"):
-        resolve_datasets(local)
-    # Partition CSVs win over both later sources.
+    pinned = cfg.replace_path("WANDB.K_FOLD_CROSS_VAL_ARTIFACT_VERSION",
+                              "latest")
+    with pytest.raises(NotImplementedError, match="W&B"):
+        resolve_kfold_tables(pinned)
+    with pytest.raises(NotImplementedError, match="W&B"):
+        train_experiment(pinned, experiment="cross_validation", device="cpu")
+    import types
+
+    wandb_cfg = cfg.replace_path("TRAIN.HPARAM_SEARCH.BACKEND", "wandb")
+    sys.modules["wandb"] = types.ModuleType("wandb")
+    try:
+        with pytest.raises(NotImplementedError, match="W&B sweep"):
+            train_experiment(wandb_cfg, experiment="hparam_search",
+                             device="cpu")
+    finally:
+        del sys.modules["wandb"]
+
+
+def test_store_and_partitions_resolve_like_jax(workspace, tmp_path):
+    """The local artifact store's TrainValTest artifact (source 3) is read,
+    as the JAX package reads it, and a pinned version the store already
+    fetched is served from it; partition CSVs (source 2) win over the
+    store."""
+    from ab_line_classifier_tpu.config import Config as JaxConfig
+    from ab_line_classifier_tpu.train.experiment import (
+        resolve_datasets as jax_resolve_datasets)
+    from ab_line_classifier_torch.data.artifacts import ArtifactStore
+
+    ws, cfg_path = workspace
+    store_root = str(tmp_path / "artifacts")
+    cfg = load_config(cfg_path).replace_path("TRACKER.ARTIFACTS_DIR",
+                                             store_root)
+    store = ArtifactStore(store_root)
+    store.log_images(cfg["PATHS"]["FRAME_TABLE"], cfg["PATHS"]["CLIPS_TABLE"],
+                     frames_dir=cfg["PATHS"]["FRAMES"])
+    store.log_model_dev_holdout(cfg)
+    path = store.log_train_val_test(cfg)
+    got = resolve_datasets(cfg)
+    want = jax_resolve_datasets(JaxConfig(cfg.to_dict()))
+    for g, w in zip(got[:3], want[:3]):
+        pd.testing.assert_frame_equal(g, w)
+    assert got[3] == want[3]
+    meta = json.loads(open(os.path.join(path, "metadata.json")).read())
+    meta["source"] = "wandb:TrainValTest:v7"
+    with open(os.path.join(path, "metadata.json"), "w") as f:
+        json.dump(meta, f)
+    pinned = cfg.replace_path("WANDB.TRAIN_VAL_TEST_ARTIFACT_VERSION", "v7")
+    for g, w in zip(resolve_datasets(pinned)[:3], got[:3]):
+        pd.testing.assert_frame_equal(g, w)
+    # Partition CSVs win over the store.
     part = tmp_path / "partitions"
     (part / "frames").mkdir(parents=True)
     frames = pd.read_csv(os.path.join(ws, "frames.csv"))
@@ -132,8 +183,51 @@ def test_later_slices_raise(workspace, tmp_path):
         frames.iloc[i::3].to_csv(part / "frames" / f"{name}.csv",
                                  index=False)
     tr, va, te, _ = resolve_datasets(
-        local.replace_path("PATHS.PARTITIONS", str(part)))
+        cfg.replace_path("PATHS.PARTITIONS", str(part)))
     assert (len(tr), len(va), len(te)) == (14, 13, 13)
+
+
+def test_cross_validation_and_hparam_search_run(workspace, capsys):
+    """Both experiments run on the CPU with the workspace's cutoffvgg16
+    (both phases; float32, and at most 2 extract epochs a trial, for the
+    CPU's time): a record per fold or trial, the mean and std rows, the
+    test plots; the sweep asks for the W&B backend and, wandb not being
+    importable, says so and runs the native controller; without a device
+    they need a GPU."""
+    import importlib.util
+
+    ws, cfg_path = workspace
+    backend = "native" if importlib.util.find_spec("wandb") else "wandb"
+    cfg = load_config(cfg_path).replace(
+        DATA={"K_FOLD_VALIDATION_SPLIT": 0.3},
+        TRAIN={"N_FOLDS": 3, "EPOCHS": 1, "MIXED_PRECISION": False,
+               "HPARAM_SEARCH": {"N_EVALS": 2, "METHOD": "random",
+                                 "BACKEND": backend}},
+        HPARAM_SEARCH={"CUTOFFVGG16": {"EXTRACT_EPOCHS": {"RANGE": [1, 2]}}},
+        PATHS={"EXPERIMENTS": os.path.join(ws, "experiments_run"),
+               "IMAGES": os.path.join(ws, "figures_run")})
+    summary = train_experiment(cfg, experiment="cross_validation",
+                               device="cpu", verbose=False)
+    assert [r["fold"] for r in summary] == [0, 1, 2, "mean", "std"]
+    assert all(np.isfinite(r["accuracy"]) for r in summary)
+    capsys.readouterr()
+    out = train_experiment(cfg, experiment="hparam_search", device="cpu",
+                           verbose=False)
+    if backend == "wandb":
+        assert "using the native controller" in capsys.readouterr().out
+    assert [t["trial"] for t in out["trials"]] == [0, 1]
+    assert set(out["best_params"]) == {"LR_EXTRACT", "LR_FINETUNE",
+                                       "DROPOUT", "EXTRACT_EPOCHS"}
+    exp = os.path.join(ws, "experiments_run")
+    assert len(glob.glob(os.path.join(exp, "kfold-*.jsonl"))) == 1
+    assert len(glob.glob(os.path.join(exp, "sweep-*.jsonl"))) == 1
+    assert len(glob.glob(os.path.join(exp, "*.csv"))) == 2
+    assert len(glob.glob(os.path.join(ws, "figures_run",
+                                      "test_roc_*.png"))) >= 1
+    if not torch.cuda.is_available():
+        for experiment in ("cross_validation", "hparam_search"):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                train_experiment(cfg, experiment=experiment)
 
 
 @pytest.mark.parametrize("shuffle,drop_remainder",

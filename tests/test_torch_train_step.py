@@ -11,17 +11,32 @@ trainable (frozen batch norms in inference mode, the fc0 activity
 penalty, gradients through the depthwise layers' autograd function on
 kernel B2's plain version); cnn0, whose batch norms train (``batch_stats``
 after the step, biased variance, and the activity penalties on every
-conv). A batch norm on its own shows the repair of the running variance:
-the unbiased estimate ``F.batch_norm`` keeps misses flax's.
+conv); and xception, custom_resnetv2, vgg16 and efficientnet (b7's
+layer graph at b0's widths and depths, drop-connect 0), each with its
+config.yml hyperparameters and batch-norm statistics set from a batch. A
+batch norm on its own shows the repair of the running variance: the
+unbiased estimate ``F.batch_norm`` keeps misses flax's.
 
 Tolerances: the step's loss and metrics within 1e-5 relative; running
 statistics within 1e-5 relative. Updated parameters by the rule of
 ``tests/test_keras_parity.py``: at the first step Adam and RMSprop move an
 element by about ``lr * sign(g)`` (RMSprop ``lr * sign(g) / sqrt(0.1)``)
 whatever ``|g|``, so an element whose gradient lies within float32 noise
-of zero may move the other way in the other package. Where ``|g| > 1e-6``
-the two updates agree within 1e-2 of ``lr`` (plus 1e-7 for the float32
-sum); elsewhere within twice the step. Frozen parameters stay bit-equal.
+of zero may move the other way in the other package. Which elements are
+held tight is decided from neither package's float32 gradient: the port
+takes the step once more in float64, and an element is held where that
+gradient is above 3e-5 (where the first step of Keras Adam, eps 1e-7 on
+``sqrt(v)``, and of RMSprop is flat in ``g``; ``chip_smoke.py``'s
+``G_FLAT``) and above a tenth of its tensor's RMS (float32 gradients of
+these nets are off float64 by up to ~1e-2 of that RMS, custom_resnetv2's
+on either package). There the two updates agree within 1e-2 of ``lr``
+(plus 1e-7 for the float32 sum), but for at most 1 in 10^4 of those
+elements: where a ReLU's input lies within float32 rounding of zero, one
+package passes a batch element's gradient and the other does not (the
+JAX package's float32 gradient of xception's ``block10_sepconv1_bn``
+bias, channel 554, is 1.456e-3 against 1.133e-3 in float64 and in the
+port's float32). Every element agrees within twice the step. Frozen
+parameters stay bit-equal.
 """
 
 import jax
@@ -34,10 +49,14 @@ import torch.nn.functional as F
 from conftest import randomize_leaves
 
 from ab_line_classifier_tpu.models import build_model as jax_build_model
+from ab_line_classifier_tpu.models import common as jax_C
+from ab_line_classifier_tpu.models import efficientnet as jax_effnet
 from ab_line_classifier_tpu.ops import metrics as jax_M
 from ab_line_classifier_tpu.train.loop import Trainer as JaxTrainer
 from ab_line_classifier_torch import graph as G
 from ab_line_classifier_torch.models import build_model
+from ab_line_classifier_torch.models import common as port_C
+from ab_line_classifier_torch.models import efficientnet as port_effnet
 from ab_line_classifier_torch.ops import metrics as M
 from ab_line_classifier_torch.predict.benchmark import ZOO_HPARAMS
 from ab_line_classifier_torch.train.loop import Trainer
@@ -51,8 +70,20 @@ GAIN = 1.5
 RTOL = 1e-5
 CLASS_WEIGHT = {0: 0.7, 1: 1.6}
 
+# An element's update is held tight where its float64 gradient is above
+# G_FLAT and above REL_FLAT of its tensor's RMS; of those, at most
+# KINK_SHARE may miss (module docstring).
+G_FLAT = 3e-5
+REL_FLAT = 0.1
+KINK_SHARE = 1e-4
+
 HPARAMS = {
     "cutoffvgg16": dict(ZOO_HPARAMS["cutoffvgg16"], DROPOUT=0.0),
+    "xception": dict(ZOO_HPARAMS["xception"], DROPOUT=0.0),
+    "vgg16": dict(ZOO_HPARAMS["vgg16"], DROPOUT=0.0),
+    "custom_resnetv2": dict(ZOO_HPARAMS["custom_resnetv2"], DROPOUT0=0.0,
+                            DROPOUT1=0.0),
+    "efficientnetb0": dict(ZOO_HPARAMS["efficientnetb7"], DROPOUT=0.0),
     "mobilenetv2": dict(ZOO_HPARAMS["mobilenetv2"], DROPOUT=0.0,
                         CUTOFF_IDX=53, FREEZE_IDX=-1),
     "cnn0": dict(ZOO_HPARAMS["cnn0"], DROPOUT=0.0, BLOCKS=2, INIT_FILTERS=8,
@@ -61,8 +92,28 @@ HPARAMS = {
 
 
 def specs(name):
+    if name == "efficientnetb0":
+        return tuple(efficientnet_b0(C) for C in (jax_C, port_C))
     return (jax_build_model(name, HPARAMS[name], SHAPE, 2),
             build_model(name, HPARAMS[name], SHAPE, 2))
+
+
+def efficientnet_b0(C):
+    """A package's efficientnet spec made as ``build_efficientnetb7``
+    makes it (``models/efficientnet.py``), at b0's widths and depths and
+    with drop-connect 0 (its stochastic depth draws random numbers)."""
+    effnet = (jax_effnet if C is jax_C else port_effnet)
+    hp = HPARAMS["efficientnetb0"]
+    backbone = effnet.efficientnet_backbone("b0", SHAPE[:2],
+                                            drop_connect_rate=0.0)
+    graph, regs = C.classifier_head(backbone, n_classes=2,
+                                    dropout=hp["DROPOUT"])
+    phases = C.single_phase(graph, hp["FREEZE_IDX"], hp["LR"],
+                            backbone_len=len(backbone.layers))
+    return C.ModelSpec(name="efficientnetb0", graph=graph,
+                       preprocess_mode="identity", input_shape=SHAPE,
+                       n_classes=2, phases=phases,
+                       activity_regularizers=regs)
 
 
 def batch(seed=3):
@@ -127,9 +178,19 @@ def jax_step(jax_spec, phase_idx, variables, images, labels, mask):
     return new, {k: float(v) for k, v in jax_M.compute_metrics(metrics).items()}
 
 
-def port_step(port_spec, phase_idx, variables, images, labels, mask):
+def port_step(port_spec, phase_idx, variables, images, labels, mask,
+              dtype=torch.float32):
     trainer = Trainer(port_spec, class_weight=CLASS_WEIGHT, seed=0,
-                      device="cpu")
+                      compute_dtype=dtype, device="cpu")
+    if dtype == torch.float64:
+        # Batch norms keep float32 through casts; in float64 they take
+        # float64 inputs, so their tensors are made float64 here.
+        for m in trainer.module.modules():
+            if isinstance(m, G.BatchNorm):
+                for p in m.parameters(recurse=False):
+                    p.data = p.data.double()
+                for n, b in list(m.named_buffers(recurse=False)):
+                    setattr(m, n, b.double())
     trainer.begin_phase(phase_idx, port_spec.phases[phase_idx],
                         state_dict_from_flax(variables))
     metrics = M.init_metrics(2)
@@ -139,6 +200,12 @@ def port_step(port_spec, phase_idx, variables, images, labels, mask):
              if p.grad is not None}
     return (flax_from_state_dict(trainer.state()), M.compute_metrics(metrics),
             grads, trainer)
+
+
+def grads64(port_spec, phase_idx, variables, images, labels, mask):
+    """The port's gradients of the same step computed in float64."""
+    return port_step(port_spec, phase_idx, variables, images, labels, mask,
+                     dtype=torch.float64)[2]
 
 
 def leaves(tree):
@@ -152,25 +219,31 @@ def grad_leaves(grads):
         {k: torch.from_numpy(g) for k, g in grads.items()})["params"]})
 
 
-def check_update(old, got, want, grads, lr, step_scale):
-    """The magnitude-aware rule of the module docstring."""
+def check_update(old, got, want, g64, lr, step_scale):
+    """The magnitude-aware rule of the module docstring, the tight set
+    chosen by the float64 gradients ``g64``. Returns the number of
+    trained tensors."""
     old, got, want = (leaves({"params": t["params"]})
                       for t in (old, got, want))
-    g = grad_leaves(grads)
-    moved = 0
+    g = grad_leaves(g64)
+    moved = n_tight = n_all = n_miss = 0
     for key, w0 in old.items():
         if key not in g:  # frozen
             np.testing.assert_array_equal(got[key], w0, err_msg=key)
             np.testing.assert_array_equal(want[key], w0, err_msg=key)
             continue
         moved += 1
-        stable = np.abs(g[key]) > 1e-6
-        np.testing.assert_allclose(got[key][stable], want[key][stable],
-                                   rtol=0, atol=1e-2 * lr + 1e-7,
-                                   err_msg=key)
+        mag = np.abs(g[key])
+        tight = (mag > G_FLAT) & (mag > REL_FLAT * np.sqrt(np.mean(mag ** 2)))
+        n_tight += int(tight.sum())
+        n_all += tight.size
+        n_miss += int((np.abs(got[key] - want[key])[tight]
+                       > 1e-2 * lr + 1e-7).sum())
         np.testing.assert_allclose(got[key], want[key], rtol=0,
                                    atol=2 * step_scale * lr + 1e-7,
                                    err_msg=key)
+    assert n_tight > n_all / 4, (n_tight, n_all)
+    assert n_miss <= KINK_SHARE * n_tight, (n_miss, n_tight)
     return moved
 
 
@@ -193,7 +266,9 @@ def test_cutoffvgg16_phase_step_matches_jax(phase_idx):
     phase = port_spec.phases[phase_idx]
     assert phase.optimizer == ("adam", "rmsprop")[phase_idx]
     step_scale = 1.0 if phase_idx == 0 else 1.0 / np.sqrt(0.1)
-    moved = check_update(v, got, want, grads, phase.lr, step_scale)
+    moved = check_update(v, got, want, grads64(port_spec, phase_idx, v, images,
+                                               labels, mask),
+                         phase.lr, step_scale)
     # extract: the head's kernel and bias; finetune: + block3_conv2/3.
     assert moved == (2, 6)[phase_idx]
     assert set(k.split(".")[0] for k in grads) == (
@@ -218,7 +293,9 @@ def test_mobilenetv2_step_matches_jax():
             leaves({"batch_stats": got["batch_stats"]})[key], a)
     assert {"expanded_conv_depthwise.weight",
             "block_5_depthwise.weight"} <= set(grads)
-    check_update(v, got, want, grads, port_spec.phases[0].lr, 1.0)
+    check_update(v, got, want,
+                 grads64(port_spec, 0, v, images, labels, mask),
+                 port_spec.phases[0].lr, 1.0)
 
 
 def test_cnn0_batch_norm_trains_like_flax():
@@ -237,7 +314,27 @@ def test_cnn0_batch_norm_trains_like_flax():
         assert not np.array_equal(ws[key], olds[key]), key  # they moved
         np.testing.assert_allclose(gs[key], ws[key], rtol=RTOL, atol=1e-7,
                                    err_msg=key)
-    check_update(v, got, want, grads, port_spec.phases[0].lr, 1.0)
+    check_update(v, got, want,
+                 grads64(port_spec, 0, v, images, labels, mask),
+                 port_spec.phases[0].lr, 1.0)
+
+
+@pytest.mark.parametrize("name", ["xception", "custom_resnetv2", "vgg16",
+                                  "efficientnetb0"])
+def test_zoo_step_matches_jax(name):
+    """One step of each remaining zoo model, every layer trainable (its
+    config's FREEZE_IDX -1), frozen batch norms in inference mode."""
+    jax_spec, port_spec = specs(name)
+    images, labels, mask = batch()
+    v = scaled_variables(jax_spec, port_spec, batch(seed=5)[0])
+    want, want_m = jax_step(jax_spec, 0, v, images, labels, mask)
+    got, got_m, grads, _ = port_step(port_spec, 0, v, images, labels, mask)
+    check_metrics(got_m, want_m)
+    assert len(port_spec.phases) == 1
+    moved = check_update(v, got, want,
+                         grads64(port_spec, 0, v, images, labels, mask),
+                         port_spec.phases[0].lr, 1.0)
+    assert moved == len(grads) > 10
 
 
 def test_running_variance_is_biased_like_flax():
