@@ -6,6 +6,8 @@ cache.
   IMG_DIM with the same nearest index map as the device kernel, into
   static-shape uint8 batches with a validity mask, on a background thread;
   normalization runs on the device.
+* :class:`FrameArrays`: frames already decoded, in host memory (no PIL
+  or pandas); the same batches.
 * :class:`DeviceCachedDataset`: the frames decoded once (or given as
   arrays) and kept on the device; an epoch is a table of row indices
   (:meth:`DeviceCachedDataset.epoch_index_table`) and a batch a gather.
@@ -97,6 +99,11 @@ class FrameDataset:
     def n_batches(self, batch_size: int, drop_remainder: bool = False) -> int:
         n = len(self)
         return n // batch_size if drop_remainder else -(-n // batch_size)
+
+    def take(self, rows: np.ndarray) -> "FrameDataset":
+        """Rows ``rows`` of the table, in that order."""
+        return FrameDataset(self.df.iloc[rows], self.frames_dir,
+                            self.img_dim, self.resize_mode)
 
     def load_frame(self, row_idx: int) -> np.ndarray:
         img = decode_jpeg(self._paths[row_idx])
@@ -193,10 +200,10 @@ class FrameDataset:
 
 @dataclass
 class FrameArrays:
-    """A frames table in array form: every frame decoded at ``img_dim``,
-    uint8 ``[N, H, W, 3]``, its label and its ``Frame Path``. Built from a
-    table once (:meth:`from_table`), or from arrays where there is no
-    pandas."""
+    """A frames table in array form, served from host memory: every frame
+    decoded at ``img_dim``, uint8 ``[N, H, W, 3]``, its label and its
+    ``Frame Path``. Built from arrays, so it needs no pandas or PIL; its
+    batches are :meth:`FrameDataset.batches`' batches."""
 
     images: np.ndarray
     labels: np.ndarray
@@ -205,12 +212,31 @@ class FrameArrays:
     def __len__(self) -> int:
         return len(self.labels)
 
-    @classmethod
-    def from_table(cls, frames_df, frames_dir: str,
-                   img_dim: Tuple[int, int]) -> "FrameArrays":
-        ds = FrameDataset(frames_df, frames_dir, img_dim=img_dim)
-        images, labels = ds.load_all()
-        return cls(images, labels, ds.frame_paths)
+    @property
+    def img_dim(self) -> Tuple[int, int]:
+        return tuple(self.images.shape[1:3])
+
+    def take(self, rows: np.ndarray) -> "FrameArrays":
+        """Rows ``rows``, in that order."""
+        return FrameArrays(self.images[rows], np.asarray(self.labels)[rows],
+                           [self.frame_paths[i] for i in rows])
+
+    def load_all(self) -> Tuple[np.ndarray, np.ndarray]:
+        return self.images, np.asarray(self.labels, np.int32)
+
+    def batches(self, batch_size: int, *, shuffle: bool = False,
+                seed: int = 0, drop_remainder: bool = False,
+                prefetch: int = 0) -> Iterator[Batch]:
+        del prefetch
+        idx_tab, mask_tab = epoch_index_table(len(self), batch_size,
+                                              shuffle=shuffle, seed=seed)
+        nb = idx_tab.shape[0]
+        if drop_remainder and len(self) % batch_size:
+            nb -= 1
+        labels = np.asarray(self.labels, np.int32)
+        for idx, mask in zip(idx_tab[:nb], mask_tab[:nb]):
+            yield Batch(self.images[idx], labels[idx], mask,
+                        np.where(mask > 0, idx, -1).astype(np.int32))
 
 
 def drain_behind(launched: Iterable, consume: Callable) -> None:
@@ -246,9 +272,10 @@ class DeviceCachedDataset:
     """uint8 frames ``[N, H, W, 3]`` and int64 labels kept on ``device``;
     a batch is a gather of rows on the device, so after the decode the
     host moves no pixels. Build it from a :class:`FrameDataset` (decoded
-    once) or from arrays (:meth:`from_arrays`, no pandas)."""
+    once) or a :class:`FrameArrays`, or from arrays (:meth:`from_arrays`,
+    no pandas)."""
 
-    def __init__(self, ds: FrameDataset, device):
+    def __init__(self, ds, device):
         images, labels = ds.load_all()
         self._init(images, labels, ds.img_dim, device, ds.frame_paths)
 
@@ -271,23 +298,8 @@ class DeviceCachedDataset:
         self.labels_dev = torch.as_tensor(
             labels.astype(np.int64)).to(self.device)
         self._labels = labels.astype(np.int32)
-        self._rows: Optional[torch.Tensor] = None
         self.frame_paths = (list(frame_paths) if frame_paths is not None
                             else [str(i) for i in range(len(labels))])
-
-    def subset(self, rows: np.ndarray) -> "DeviceCachedDataset":
-        """A view of rows ``rows`` (in that order) that shares this cache's
-        frames: its batches gather them from the same device tensor."""
-        rows = np.array(rows, np.int64)
-        view = type(self).__new__(type(self))
-        view.device, view.img_dim = self.device, self.img_dim
-        view.frames, view.labels_dev = self.frames, self.labels_dev
-        view._labels = self._labels[rows]
-        view.frame_paths = [self.frame_paths[i] for i in rows]
-        base = torch.as_tensor(rows).to(self.device)
-        view._rows = (base if self._rows is None
-                      else self._rows.index_select(0, base))
-        return view
 
     def __len__(self) -> int:
         return len(self._labels)
@@ -308,8 +320,6 @@ class DeviceCachedDataset:
     def gather(self, idx: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
         """The frames and labels of rows ``idx``, on the device."""
         rows = torch.as_tensor(idx, dtype=torch.int64).to(self.device)
-        if self._rows is not None:
-            rows = self._rows.index_select(0, rows)
         return (self.frames.index_select(0, rows),
                 self.labels_dev.index_select(0, rows))
 
@@ -348,12 +358,14 @@ def device_cache_budget(device) -> int:
     return DEVICE_CACHE_BYTES
 
 
-def maybe_device_cache(ds: FrameDataset, mode="auto", *, device,
+def maybe_device_cache(ds, mode="auto", *, device,
                        budget: Optional[int] = None):
-    """``ds`` as a :class:`DeviceCachedDataset` on ``device`` when ``mode``
-    is True, or 'auto' and its decoded frames fit ``budget`` (default
-    :func:`device_cache_budget`); else ``ds`` itself, streamed from the
-    host. Says why when the cache is not taken."""
+    """``ds`` (a :class:`FrameDataset` or :class:`FrameArrays`) as a
+    :class:`DeviceCachedDataset` on ``device`` when ``mode`` is True, or
+    'auto' and its decoded frames fit ``budget`` (default
+    :func:`device_cache_budget`); else ``ds`` itself, its batches going over
+    from the host (decoded from disk, or from host memory). Says why when
+    the cache is not taken."""
     if mode is False or mode is None or len(ds) == 0:
         return ds
     if budget is None:
@@ -362,7 +374,7 @@ def maybe_device_cache(ds: FrameDataset, mode="auto", *, device,
     nbytes = len(ds) * h * w * 3
     if mode == "auto" and nbytes > budget:
         print(f"(device cache not taken: {len(ds)} frames need {nbytes} "
-              f"bytes, over the {budget}-byte budget; streaming from the "
-              f"host)")
+              f"bytes, over the {budget}-byte budget; batches go over from "
+              f"the host)")
         return ds
     return DeviceCachedDataset(ds, device)

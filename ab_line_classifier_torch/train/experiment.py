@@ -9,14 +9,17 @@ the predict CLI serves) and evaluates on the test set. Cross-validation
 runs one such run per fold, hyperparameter search one per trial, with the
 JAX package's folds, trials, records on disk and resume.
 
-Cross-validation and sweeps train from an :class:`ArraySource`: the frame
-table decoded once and uploaded to the device once per experiment, and a
+Every run trains from a :class:`FoldSource`: one frame table (a
+:class:`FrameDataset` decoded from its JPEGs as it is used, or
+:class:`FrameArrays` already decoded) and a
 :class:`~ab_line_classifier_torch.data.splits.FoldSet` of row indices per
-fold (a sweep's train/val/test split is a one-fold set). That is the same
-data the JAX package decodes per fold, in the same order, and the seam
-through which both run where pandas and sklearn are not installed: the
-loop, records, resume, controllers and summaries are numeric and written
-with ``json`` and ``csv``. pandas is imported only where tables are read.
+fold; a train/val/test split is a one-fold set. A run takes its fold's
+rows and caches its train and val sets on the device by the JAX
+package's rule (one budget for the pair, per run), else streams them.
+:class:`FrameArrays` is the seam through which cross-validation and sweeps
+run where pandas, PIL and sklearn are not installed: the loop, records,
+resume, controllers and summaries are numeric and written with ``json``
+and ``csv``. pandas is imported only where tables are read.
 
 The trial-parallel variants, W&B artifact pins and the W&B sweep backend
 raise ``NotImplementedError``: they come with later slices of the port.
@@ -41,8 +44,7 @@ from ab_line_classifier_torch.config import Config, ensure_output_dirs
 from ab_line_classifier_torch.data import splits as S
 from ab_line_classifier_torch.data.artifacts import (K_FOLD, TRAIN_VAL_TEST,
                                                      store_from_config)
-from ab_line_classifier_torch.data.pipeline import (DeviceCachedDataset,
-                                                    FrameArrays, FrameDataset,
+from ab_line_classifier_torch.data.pipeline import (FrameDataset,
                                                     device_cache_budget,
                                                     maybe_device_cache)
 from ab_line_classifier_torch.models import build_model
@@ -119,53 +121,35 @@ def _cache_mode(cfg: Config):
 
 
 @dataclasses.dataclass
-class ArraySource:
-    """One frame table in array form and its fold set: what every fold of
-    a cross-validation and every trial of a sweep trains from. The table
-    goes to the device once (:meth:`cached`); a fold's train and val sets
-    are views that gather their rows from it."""
+class FoldSource:
+    """One frame table and its fold set: what every run trains from.
+    ``frames`` is a :class:`FrameDataset` (decoded from disk as it is
+    used) or :class:`FrameArrays` (decoded already, in host memory); a
+    fold's train, val and test sets are its rows (:meth:`fold`)."""
 
-    frames: FrameArrays
+    frames: Any
     folds: S.FoldSet
-    _cache: Optional[DeviceCachedDataset] = dataclasses.field(
-        default=None, repr=False)
 
-    def cached(self, cfg: Config, device: torch.device
-               ) -> DeviceCachedDataset:
-        """The whole table as one cache: on ``device`` when
-        ``TRAIN.CACHE_DATASET`` takes it (true, or auto and within the
-        budget), else in host memory, each batch copied over as it is
-        used. Made at the first call."""
-        if self._cache is None:
-            mode, nbytes = _cache_mode(cfg), self.frames.images.nbytes
-            budget = configured_cache_budget(cfg, device)
-            on_device = mode is True or (mode == "auto" and nbytes <= budget)
-            if mode == "auto" and not on_device:
-                print(f"(device cache not taken: {len(self.frames)} frames "
-                      f"need {nbytes} bytes, over the {budget}-byte budget; "
-                      f"batches go over from host memory)")
-            self._cache = DeviceCachedDataset.from_arrays(
-                self.frames.images, self.frames.labels,
-                device if on_device else "cpu", self.frames.frame_paths)
-        return self._cache
+    def fold(self, fold_id: int):
+        """Fold ``fold_id``'s ``(train, val, test)`` sets of frames."""
+        return tuple(self.frames.take(rows)
+                     for rows in self.folds.fold(fold_id))
 
 
-def source_from_kfold_tables(cfg: Config, kfold_tables=None) -> ArraySource:
+def source_from_kfold_tables(cfg: Config, kfold_tables=None) -> FoldSource:
     """The k-fold source (:func:`resolve_kfold_tables`, or the tables
-    given) as an :class:`ArraySource`: the folds' frames decoded once."""
+    given) as a :class:`FoldSource`."""
     folds, val_split, seed, frames_dir = (kfold_tables or
                                           resolve_kfold_tables(cfg))
     table, fold_set = S.fold_set_from_tables(folds, val_split, seed)
-    return ArraySource(FrameArrays.from_table(table, frames_dir, cfg.img_dim),
-                       fold_set)
+    return FoldSource(FrameDataset(table, frames_dir, cfg.img_dim), fold_set)
 
 
-def source_from_datasets(cfg: Config) -> ArraySource:
-    """:func:`resolve_datasets`' split as a one-fold :class:`ArraySource`."""
+def source_from_datasets(cfg: Config) -> FoldSource:
+    """:func:`resolve_datasets`' split as a one-fold :class:`FoldSource`."""
     train_df, val_df, test_df, frames_dir = resolve_datasets(cfg)
     table, fold_set = S.fold_set_from_split(train_df, val_df, test_df)
-    return ArraySource(FrameArrays.from_table(table, frames_dir, cfg.img_dim),
-                       fold_set)
+    return FoldSource(FrameDataset(table, frames_dir, cfg.img_dim), fold_set)
 
 
 def _pinned_version(cfg: Config, store, name: str, key: str) -> Optional[str]:
@@ -304,21 +288,15 @@ def _live_dir(fdir: Optional[str], default: str) -> str:
 
 
 def generate_classification_test_results(predictor: Predictor, test,
-                                         frames_dir: str, cfg: Config,
+                                         cfg: Config,
                                          tracker=None) -> Dict[str, Any]:
     """Test-set evaluation (JAX ``train/experiment.py:339-371``): metrics
     (``predict/metrics.py``, numpy), logged through the tracker, and the
     ``test_roc`` / ``test_cm`` PNGs under ``PATHS.IMAGES``, logged too.
-    ``test`` is a frames table (decoded from ``frames_dir``) or
-    :class:`FrameArrays` (served by ``Predictor.predict_probs``). A plot
+    ``test`` is a :class:`FrameDataset` or :class:`FrameArrays`. A plot
     that fails (no matplotlib) is skipped with a notice."""
-    if isinstance(test, FrameArrays):
-        probs = predictor.predict_probs(test.images)
-        labels = np.asarray(test.labels)
-    else:
-        probs = predictor.predict_dataset(
-            FrameDataset(test, frames_dir, img_dim=cfg.img_dim))
-        labels = test["Class"].to_numpy()
+    probs = predictor.predict_dataset(test)
+    labels = np.asarray(test.labels)
     preds = (probs[:, 1] >= 0.5).astype(int)
     metrics = compute_metrics(cfg.classes, labels, preds, probs)
     if tracker is not None:
@@ -358,9 +336,10 @@ def perform_single_run(cfg: Config, *,
     here, as failed when the run raises.
 
     :param fold_id: train on this fold of ``kfold_tables``
-        (:func:`resolve_kfold_tables` by default).
-    :param kfold_tables: :func:`resolve_kfold_tables`' tables, or an
-        :class:`ArraySource`, whose fold ``fold_id`` (fold 0 when
+        (:func:`resolve_kfold_tables` by default); without it and without
+        ``kfold_tables``, on :func:`resolve_datasets`' split.
+    :param kfold_tables: :func:`resolve_kfold_tables`' tables, or a
+        :class:`FoldSource`, whose fold ``fold_id`` (fold 0 when
         ``fold_id`` is None) is the run's split.
     """
     kw = dict(hparam_overrides=hparam_overrides, fold_id=fold_id,
@@ -387,25 +366,18 @@ def perform_single_run(cfg: Config, *,
 
 
 def _run_data(cfg: Config, fold_id, kfold_tables, device):
-    """``(train labels, train_ds, val_ds, test, frames_dir)`` of a run:
-    from an :class:`ArraySource` (k-fold tables become one), or for a
-    plain run from :func:`resolve_datasets` through :class:`FrameDataset`
-    and the device cache."""
-    if fold_id is not None and kfold_tables is None:
-        kfold_tables = resolve_kfold_tables(cfg)
-    if kfold_tables is not None:
-        source = (kfold_tables if isinstance(kfold_tables, ArraySource)
-                  else source_from_kfold_tables(cfg, kfold_tables))
-        tr, va, te = source.folds.fold(fold_id or 0)
-        whole = source.cached(cfg, device)
-        labels = np.asarray(source.frames.labels)
-        test = FrameArrays(source.frames.images[te], labels[te],
-                           [source.frames.frame_paths[i] for i in te])
-        return labels[tr], whole.subset(tr), whole.subset(va), test, ""
-    train_df, val_df, test_df, frames_dir = resolve_datasets(cfg)
-    train_ds = FrameDataset(train_df, frames_dir, img_dim=cfg.img_dim)
-    val_ds = FrameDataset(val_df, frames_dir, img_dim=cfg.img_dim)
-    # One budget for the pair, split by their sizes.
+    """``(train_ds, val_ds, test)`` of a run: its fold of the
+    :class:`FoldSource` (k-fold tables, or :func:`resolve_datasets`' split,
+    become one), train and val cached on the device where they fit one
+    budget for the pair, split by their sizes (JAX
+    ``train/experiment.py:465-485``), else streamed."""
+    if isinstance(kfold_tables, FoldSource):
+        source = kfold_tables
+    elif fold_id is None and kfold_tables is None:
+        source = source_from_datasets(cfg)
+    else:
+        source = source_from_kfold_tables(cfg, kfold_tables)
+    train_ds, val_ds, test = source.fold(fold_id or 0)
     mode = _cache_mode(cfg)
     budget = configured_cache_budget(cfg, device)
     frac = len(train_ds) / max(len(train_ds) + len(val_ds), 1)
@@ -413,7 +385,7 @@ def _run_data(cfg: Config, fold_id, kfold_tables, device):
                                   budget=int(budget * frac))
     val_ds = maybe_device_cache(val_ds, mode, device=device,
                                 budget=int(budget * (1 - frac)))
-    return train_df, train_ds, val_ds, test_df, frames_dir
+    return train_ds, val_ds, test
 
 
 def _perform_single_run_body(cfg: Config, tracker, *, hparam_overrides,
@@ -430,8 +402,8 @@ def _perform_single_run_body(cfg: Config, tracker, *, hparam_overrides,
                         "DATA": {"IMG_DIM": list(cfg.img_dim)},
                         "FOLD_ID": fold_id})
 
-    train_labels, train_ds, val_ds, test, frames_dir = _run_data(
-        cfg, fold_id, kfold_tables, device)
+    train_ds, val_ds, test = _run_data(cfg, fold_id, kfold_tables, device)
+    train_labels = train_ds.labels
     mixed = bool(cfg["TRAIN"].get("MIXED_PRECISION", False))
     dtype = compute_dtype(mixed)
     seed = int(cfg["TRAIN"]["SEED"])
@@ -458,9 +430,10 @@ def _perform_single_run_body(cfg: Config, tracker, *, hparam_overrides,
         patience=int(cfg["TRAIN"]["PATIENCE"]), variables=pretrained,
         tracker=tracker, verbose=verbose, callbacks=callbacks,
         checkpoint_dir=checkpoint_dir, resume=resume)
-    # The trained module and its optimizer state go before the test set's
-    # predictor comes: serial folds and trials then peak no higher.
-    del trainer, callbacks
+    # The trained module, its optimizer state and the run's cached frames
+    # go before the test set's predictor comes: serial folds and trials
+    # then peak no higher.
+    del trainer, callbacks, train_ds, val_ds
 
     model_dir = None
     if save_weights:
@@ -478,7 +451,7 @@ def _perform_single_run_body(cfg: Config, tracker, *, hparam_overrides,
         predictor = Predictor(spec, best, batch_size=cfg.batch_size,
                               compute_dtype=dtype, device=device)
         test_metrics = generate_classification_test_results(
-            predictor, test, frames_dir, cfg, tracker)
+            predictor, test, cfg, tracker)
 
     best_val: Dict[str, float] = {}
     with_val = [h for h in history if h.val]
@@ -613,7 +586,7 @@ def mean_std_rows(rows: Sequence[Dict], key: str = "fold") -> List[Dict]:
 def hparam_search(cfg: Config, save_weights: bool = False,
                   verbose: bool = True, sweep_id: Optional[str] = None,
                   resume: bool = False, device=None,
-                  source: Optional[ArraySource] = None) -> Dict[str, Any]:
+                  source: Optional[FoldSource] = None) -> Dict[str, Any]:
     """Serial hyperparameter search with the native controllers (JAX
     ``train/experiment.py:622-734``). Each trial's record (``trial``, its
     parameters, ``objective``) is appended to
@@ -623,7 +596,7 @@ def hparam_search(cfg: Config, save_weights: bool = False,
     ``hparam_search_<timestamp>.csv`` and the sweep plot.
 
     ``source``: the split to train every trial on (default: the
-    :func:`resolve_datasets` split, decoded and uploaded once)."""
+    :func:`resolve_datasets` split, resolved once)."""
     device = resolve_device(device)
     search = cfg["TRAIN"]["HPARAM_SEARCH"]
     if str(search.get("BACKEND", "native")).lower() == "wandb":
@@ -703,11 +676,10 @@ def hparam_search(cfg: Config, save_weights: bool = False,
 def cross_validation(cfg: Config, save_weights: bool = False,
                      verbose: bool = True, group: Optional[str] = None,
                      resume: bool = False, device=None,
-                     source: Optional[ArraySource] = None) -> List[Dict]:
+                     source: Optional[FoldSource] = None) -> List[Dict]:
     """One run per fold (JAX ``train/experiment.py:1004-1055``), and the
     mean / std summary ``kfold_<timestamp>.csv``. The fold source is
-    resolved once (``source``, default :func:`resolve_kfold_tables`
-    decoded and uploaded once). Each fold's record (``fold`` and its test
+    resolved once (``source``, default :func:`resolve_kfold_tables`). Each fold's record (``fold`` and its test
     metrics) is appended to ``EXPERIMENTS/{group}.jsonl`` when it
     finishes; ``resume`` (the latest k-fold run, or ``group``) skips the
     folds done. Returns the summary's rows: one per fold, then ``mean``

@@ -97,7 +97,8 @@ no result):
    hyperparameters, ``extract`` then ``finetune`` one epoch each, batch
    64) over 3 patient-grouped folds (config.yml has 5: cut for time) of
    480 synthetic frames of 24 patients, through the array seam
-   (``ArraySource``: the table uploaded once, each fold's rows gathered),
+   (``FoldSource`` over ``FrameArrays``: each fold's rows cached on the
+   card for its run),
    interrupted as fold 1 starts and resumed (fold 0's record
    byte-identical); then ``hparam_search`` (mobilenetv2, full width,
    ``METHOD: bayes``, 4 trials of one epoch over config.yml's space),
@@ -1793,7 +1794,7 @@ def grouped_folds(patients, n_folds, val_split, seed):
 class RunMeter:
     """Per run of ``perform_single_run`` (the port's functions wrapped, not
     copied): wall and setup seconds (to ``Trainer.fit``'s start: model
-    build, weight upload, the table's upload in the first run), training
+    build, weight upload, the run's frames cached on the card), training
     frames/s (frames over the training epochs' time, synchronized), the
     kernels' launches, B2's input copies and the peak of
     ``torch.cuda.max_memory_allocated``. ``stop_at`` makes that run raise
@@ -1898,7 +1899,7 @@ def check_runs(label, runs, source, per_forward, smi):
 def phase_experiments(smi):
     """Phase 12: ``cross_validation`` (cutoffvgg16) with an interruption
     and a resume, and a Bayesian ``hparam_search`` (mobilenetv2), both
-    through the array seam (``ArraySource``). Returns each path's (B1, B2)
+    through the array seam (``FoldSource``). Returns each path's (B1, B2)
     launches."""
     import shutil
 
@@ -1923,7 +1924,7 @@ def phase_experiments(smi):
 
     cfg = experiment_config(os.path.join(root, "kfold"), "cutoffvgg16",
                             "cross_validation")
-    source = E.ArraySource(frames, folds)
+    source = E.FoldSource(frames, folds)
     records = os.path.join(cfg["PATHS"]["EXPERIMENTS"], "kfold-smoke.jsonl")
     PC.reset_launch_count()
     DC.reset_launch_count()
@@ -1973,7 +1974,7 @@ def phase_experiments(smi):
     cfg = experiment_config(os.path.join(root, "sweep"), "mobilenetv2",
                             "hparam_search")
     split = FoldSet(*([part] for part in folds.fold(0)))
-    source = E.ArraySource(frames, split)
+    source = E.FoldSource(frames, split)
     PC.reset_launch_count()
     DC.reset_launch_count()
     t0 = time.perf_counter()

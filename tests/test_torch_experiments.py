@@ -209,6 +209,44 @@ def test_folds_match_jax(workspace):
                                           w["Class"].to_numpy())
 
 
+@pytest.mark.parametrize("kind", ["disk", "arrays"])
+@pytest.mark.parametrize("limit_mb", [None, 0])
+def test_fold_data_cached_within_the_run_budget(workspace, kind, limit_mb):
+    """A run caches its fold's train and val sets on the device when the
+    pair fits the run's budget, and otherwise serves them from the host
+    (decoded from disk, or from host memory), whether the table is read
+    from its JPEGs or given decoded; the batches are the same either
+    way."""
+    from ab_line_classifier_torch.config import load_config
+    from ab_line_classifier_torch.data.pipeline import (DeviceCachedDataset,
+                                                        FrameArrays)
+
+    path = config(workspace, "cache")
+    if limit_mb is not None:
+        with open(path) as f:
+            d = yaml.safe_load(f)
+        d["TRAIN"].update(USE_MEMORY_LIMIT=True, MEMORY_LIMIT=limit_mb)
+        with open(path, "w") as f:
+            yaml.safe_dump(d, f)
+    cfg = load_config(path)
+    source = E.source_from_kfold_tables(cfg)
+    if kind == "arrays":
+        disk = source.frames
+        source = E.FoldSource(FrameArrays(*disk.load_all(), disk.frame_paths),
+                              source.folds)
+    want = source.fold(1)
+    train_ds, val_ds, test = E._run_data(cfg, 1, source, "cpu")
+    for got, w in zip((train_ds, val_ds, test), want):
+        if got is not test:
+            assert type(got) is (DeviceCachedDataset if limit_mb is None
+                                 else type(w))
+        assert list(got.frame_paths) == list(w.frame_paths)
+        for g, b in zip(got.batches(8, shuffle=True, seed=2),
+                        w.batches(8, shuffle=True, seed=2)):
+            np.testing.assert_array_equal(np.asarray(g.images), b.images)
+            np.testing.assert_array_equal(np.asarray(g.labels), b.labels)
+
+
 def test_cross_validation_matches_jax(workspace, monkeypatch, tmp_path):
     jax_path = config(workspace, "kfold_jax")
     port_path = config(workspace, "kfold_port")

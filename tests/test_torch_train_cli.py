@@ -254,3 +254,33 @@ def test_streamed_epochs_match_jax(workspace, shuffle, drop_remainder):
         np.testing.assert_array_equal(g.mask, w.mask)
         np.testing.assert_array_equal(g.images, w.images)
         np.testing.assert_array_equal(g.labels, w.labels)
+
+
+@pytest.mark.parametrize("shuffle,drop_remainder",
+                         [(False, False), (True, False), (True, True)])
+def test_array_epochs_match_jax(workspace, shuffle, drop_remainder):
+    """The same epochs from frames already decoded (``FrameArrays``, served
+    from host memory, and taken by rows as a fold takes them) give the JAX
+    package's rows, masks, pixels and labels."""
+    from ab_line_classifier_tpu.data.pipeline import (
+        FrameDataset as JaxFrameDataset)
+    from ab_line_classifier_torch.data.pipeline import (FrameArrays,
+                                                        FrameDataset)
+
+    ws, _ = workspace
+    frames = pd.read_csv(os.path.join(ws, "frames.csv"))
+    fdir = os.path.join(ws, "frames")
+    rows = np.random.RandomState(1).permutation(len(frames))
+    kw = dict(shuffle=shuffle, seed=5, drop_remainder=drop_remainder)
+    want = list(JaxFrameDataset(frames.iloc[rows], fdir, img_dim=(32, 32),
+                                use_native=False).batches(16, **kw))
+    ds = FrameDataset(frames, fdir, img_dim=(32, 32))
+    arrays = FrameArrays(*ds.load_all(), ds.frame_paths).take(rows)
+    assert arrays.frame_paths == list(frames["Frame Path"].iloc[rows])
+    got = list(arrays.batches(16, **kw))
+    assert len(got) == len(want) == (2 if drop_remainder else 3)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.indices, w.indices)
+        np.testing.assert_array_equal(g.mask, w.mask)
+        np.testing.assert_array_equal(g.images, w.images)
+        np.testing.assert_array_equal(g.labels, w.labels)

@@ -27,16 +27,22 @@ held tight is decided from neither package's float32 gradient: the port
 takes the step once more in float64, and an element is held where that
 gradient is above 3e-5 (where the first step of Keras Adam, eps 1e-7 on
 ``sqrt(v)``, and of RMSprop is flat in ``g``; ``chip_smoke.py``'s
-``G_FLAT``) and above a tenth of its tensor's RMS (float32 gradients of
-these nets are off float64 by up to ~1e-2 of that RMS, custom_resnetv2's
-on either package). There the two updates agree within 1e-2 of ``lr``
-(plus 1e-7 for the float32 sum), but for at most 1 in 10^4 of those
-elements: where a ReLU's input lies within float32 rounding of zero, one
-package passes a batch element's gradient and the other does not (the
-JAX package's float32 gradient of xception's ``block10_sepconv1_bn``
-bias, channel 554, is 1.456e-3 against 1.133e-3 in float64 and in the
-port's float32). Every element agrees within twice the step. Frozen
-parameters stay bit-equal.
+``G_FLAT``). There the two updates agree within 1e-2 of ``lr`` (plus
+1e-7 for the float32 sum); every element agrees within twice the step.
+Frozen parameters stay bit-equal.
+
+Four models need more, each by its own measured cause (``LOOSER``).
+efficientnet's, custom_resnetv2's and xception's elements under a tenth
+of their tensor's RMS carry float32 gradients off float64 by up to 40%
+in either package, so those are not held. At a few held elements of
+vgg16, custom_resnetv2 and xception the JAX package's float32 gradient
+is off float64 while the port's matches it to 1e-3 (where a ReLU's input
+lies within float32 rounding of zero, one passes a batch element's
+gradient and the other does not: xception's ``block10_sepconv1_bn``
+bias, channel 554, is 1.456e-3 in JAX against 1.133e-3 in float64 and
+the port), so those models let a share of held elements miss, about
+twice what their step shows: 5 of 4,410,445 (vgg16), 21 of 477,442
+(custom_resnetv2), 9 of 16,298,041 (xception).
 """
 
 import jax
@@ -71,11 +77,17 @@ RTOL = 1e-5
 CLASS_WEIGHT = {0: 0.7, 1: 1.6}
 
 # An element's update is held tight where its float64 gradient is above
-# G_FLAT and above REL_FLAT of its tensor's RMS; of those, at most
-# KINK_SHARE may miss (module docstring).
+# G_FLAT (module docstring).
 G_FLAT = 3e-5
-REL_FLAT = 0.1
-KINK_SHARE = 1e-4
+# Where a model needs more (module docstring): the share of its tensor's
+# RMS under which an element is not held either, and the share of held
+# elements that may miss.
+LOOSER = {
+    "vgg16": (0.0, 2e-6),
+    "custom_resnetv2": (0.1, 1e-4),
+    "xception": (0.1, 1e-6),
+    "efficientnetb0": (0.1, 0.0),
+}
 
 HPARAMS = {
     "cutoffvgg16": dict(ZOO_HPARAMS["cutoffvgg16"], DROPOUT=0.0),
@@ -219,10 +231,12 @@ def grad_leaves(grads):
         {k: torch.from_numpy(g) for k, g in grads.items()})["params"]})
 
 
-def check_update(old, got, want, g64, lr, step_scale):
+def check_update(old, got, want, g64, lr, step_scale, rel_flat=0.0,
+                 miss_share=0.0):
     """The magnitude-aware rule of the module docstring, the tight set
-    chosen by the float64 gradients ``g64``. Returns the number of
-    trained tensors."""
+    chosen by the float64 gradients ``g64`` (and, with ``rel_flat``, by
+    their tensor's RMS); ``miss_share`` of it may miss. Returns the
+    number of trained tensors."""
     old, got, want = (leaves({"params": t["params"]})
                       for t in (old, got, want))
     g = grad_leaves(g64)
@@ -234,16 +248,21 @@ def check_update(old, got, want, g64, lr, step_scale):
             continue
         moved += 1
         mag = np.abs(g[key])
-        tight = (mag > G_FLAT) & (mag > REL_FLAT * np.sqrt(np.mean(mag ** 2)))
+        tight = (mag > G_FLAT) & (mag > rel_flat * np.sqrt(np.mean(mag ** 2)))
         n_tight += int(tight.sum())
         n_all += tight.size
-        n_miss += int((np.abs(got[key] - want[key])[tight]
-                       > 1e-2 * lr + 1e-7).sum())
+        if miss_share:
+            n_miss += int((np.abs(got[key] - want[key])[tight]
+                           > 1e-2 * lr + 1e-7).sum())
+        else:
+            np.testing.assert_allclose(got[key][tight], want[key][tight],
+                                       rtol=0, atol=1e-2 * lr + 1e-7,
+                                       err_msg=key)
         np.testing.assert_allclose(got[key], want[key], rtol=0,
                                    atol=2 * step_scale * lr + 1e-7,
                                    err_msg=key)
     assert n_tight > n_all / 4, (n_tight, n_all)
-    assert n_miss <= KINK_SHARE * n_tight, (n_miss, n_tight)
+    assert n_miss <= miss_share * n_tight, (n_miss, n_tight)
     return moved
 
 
@@ -333,7 +352,7 @@ def test_zoo_step_matches_jax(name):
     assert len(port_spec.phases) == 1
     moved = check_update(v, got, want,
                          grads64(port_spec, 0, v, images, labels, mask),
-                         port_spec.phases[0].lr, 1.0)
+                         port_spec.phases[0].lr, 1.0, *LOOSER[name])
     assert moved == len(grads) > 10
 
 
