@@ -318,10 +318,15 @@ class DeviceCachedDataset:
                                  seed=seed)
 
     def gather(self, idx: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The frames and labels of rows ``idx``, on the device."""
+        """The frames and labels of rows ``idx``, on the device: ``idx`` of
+        any shape (the trial-parallel trainer's ``[F, B]`` table) gives
+        frames ``idx.shape + (H, W, 3)`` and labels ``idx.shape``, one
+        gather each."""
         rows = torch.as_tensor(idx, dtype=torch.int64).to(self.device)
-        return (self.frames.index_select(0, rows),
-                self.labels_dev.index_select(0, rows))
+        flat = rows.reshape(-1)
+        return (self.frames.index_select(0, flat).view(
+                    tuple(rows.shape) + tuple(self.frames.shape[1:])),
+                self.labels_dev.index_select(0, flat).view(rows.shape))
 
     def batches(self, batch_size: int, *, shuffle: bool = False,
                 seed: int = 0, drop_remainder: bool = False,

@@ -42,6 +42,17 @@ running ones by flax's rule (biased variance); one listed in
 ``inference_bn`` (a layer frozen in the phase) runs in inference mode in
 training too and never moves them.
 
+Stacked trials. The trial-parallel trainer (``parallel/trial_parallel.py``)
+runs the module under ``torch.func.vmap`` over ``functional_call``, with
+every parameter and buffer stacked along a leading trial axis. There a
+forward takes ``bn_stats`` (a dict): each batch norm normalizes in float32,
+written out (:meth:`BatchNorm.stacked`), and, in training, puts its new
+running statistics into it under its name instead of replacing its
+buffers, which ``functional_call`` would drop;
+and ``dropout_masks``: each dropout layer applies the keep mask given under
+its name (drawn outside the vmapped forward, one generator per trial,
+:func:`dropout_mask_shapes`) instead of drawing one.
+
 TF ``SAME`` padding: at stride 1 with an odd kernel it is symmetric; at
 stride 2 it depends on the input size and puts the odd pixel bottom/right
 (``ops/padding.py``), so those convs and max-pools pad explicitly (max-pool
@@ -60,7 +71,7 @@ from torch import nn
 
 from ab_line_classifier_torch.ops import depthwise as DW
 from ab_line_classifier_torch.ops.depthwise_cuda import pack_weight
-from ab_line_classifier_torch.ops.padding import pad_same
+from ab_line_classifier_torch.ops.padding import pad_hw, pad_same
 
 INPUT = "__input__"
 
@@ -263,7 +274,10 @@ class GraphModule(nn.Module):
     def forward(self, x: torch.Tensor,
                 overrides: Optional[Dict[str, torch.Tensor]] = None,
                 leaf: Optional[str] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                dropout_masks: Optional[Dict[str, torch.Tensor]] = None,
+                bn_stats: Optional[Dict[str, Tuple[torch.Tensor,
+                                                   torch.Tensor]]] = None):
         """``overrides`` injects activations (NHWC) by layer name: the node's
         computation is skipped and the given tensor used instead.
 
@@ -273,7 +287,10 @@ class GraphModule(nn.Module):
         pass (Grad-CAM's tap).
 
         ``generator`` is what dropout draws from in training mode (on the
-        activations' device)."""
+        activations' device); ``dropout_masks`` gives each dropout layer its
+        keep mask instead. ``bn_stats``, a dict, makes every batch norm
+        take the stacked form (:meth:`BatchNorm.stacked`) and collects the
+        new running statistics of those that train."""
         acts: Dict[str, torch.Tensor] = {INPUT: _to_internal(x)}
         overrides = overrides or {}
         captured = {}
@@ -283,7 +300,13 @@ class GraphModule(nn.Module):
                 continue
             ins = [acts[n] for n in spec.inputs]
             if spec.kind == KIND_DROPOUT:
-                y = self._modules[spec.name](ins[0], generator)
+                y = self._modules[spec.name](
+                    ins[0], generator,
+                    mask=(dropout_masks or {}).get(spec.name))
+            elif spec.kind == KIND_BN and bn_stats is not None:
+                y, stats = self._modules[spec.name].stacked(ins[0])
+                if stats is not None:
+                    bn_stats[spec.name] = stats
             elif spec.module_fn is not None:
                 y = self._modules[spec.name](*ins)
                 if spec.post_fn is not None:
@@ -437,8 +460,12 @@ class DepthwiseConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, w, b = _cast(self.compute_dtype, x, self.weight, self.bias)
+        # Stacked trials (a vmapped weight) pack inside the kernel's trial
+        # launch, every forward: the weights change every step.
+        cached = (x.is_cuda
+                  and not torch._C._functorch.is_batchedtensor(self.weight))
         y = DW.depthwise_conv(x, w, self.stride, self.padding,
-                              packed=self.packed_weight() if x.is_cuda
+                              packed=self.packed_weight() if cached
                               else None)
         if b is not None:
             y = y + b.view(1, -1, 1, 1)
@@ -550,6 +577,39 @@ class BatchNorm(_Float32State):
             self.running_var = torch.lerp(self.running_var, kept, 1.0 / n)
         return y
 
+    def stacked(self, x: torch.Tensor
+                ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor,
+                                                        torch.Tensor]]]:
+        """The layer under ``torch.func.vmap`` with stacked statistics:
+        ``(y, (mean, var))``, the new running statistics by flax's rule
+        (the batch mean and biased variance, ``ra = m * ra + (1 - m) *
+        batch``; ``None`` where they do not move), left to the caller
+        instead of replacing the buffers. Written out in float32 and
+        returned in ``x``'s dtype, as ``F.batch_norm`` computes a bfloat16
+        input against float32 statistics: vmap's batch-norm rule takes one
+        dtype, and on CUDA asks for a memory format that a vmapped tensor
+        cannot report."""
+        xf = x.to(torch.float32)
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        dims = (0,) + tuple(range(2, x.ndim))
+        moving = self.training and not self.frozen
+        if moving:
+            mean = xf.mean(dims)
+            var = (xf - mean.view(shape)).square().mean(dims)
+        else:
+            mean, var = self.running_mean, self.running_var
+        scale = torch.rsqrt(var + self.epsilon)
+        if self.weight is not None:
+            scale = scale * self.weight
+        y = (xf - mean.view(shape)) * scale.view(shape) + self.bias.view(shape)
+        if not moving:
+            return y.to(x.dtype), None
+        m = self.momentum
+        with torch.no_grad():
+            stats = (self.running_mean * m + mean.detach() * (1.0 - m),
+                     self.running_var * m + var.detach() * (1.0 - m))
+        return y.to(x.dtype), stats
+
 
 def adapt_batch_norm(module: nn.Module, x: torch.Tensor) -> None:
     """Set every :class:`BatchNorm`'s running statistics from its own input
@@ -636,19 +696,55 @@ class Dropout(nn.Module):
         super().__init__()
         self.rate, self.broadcast_dims = rate, tuple(broadcast_dims)
 
+    def mask_shape(self, shape: Sequence[int]) -> List[int]:
+        """The keep mask's shape for an input of ``shape`` (internal
+        layout): 1 along the broadcast dims."""
+        shape = list(shape)
+        for d in self.broadcast_dims:
+            shape[_INTERNAL_AXIS[d] if len(shape) == 4 else d] = 1
+        return shape
+
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``mask``, a boolean keep mask of :meth:`mask_shape`, replaces
+        the draw."""
         if not self.training or self.rate == 0.0:
             return x
-        if generator is None:
-            raise ValueError("dropout in training mode draws from an "
-                             "explicit generator: pass one to the forward")
         keep = 1.0 - self.rate
-        shape = list(x.shape)
-        for d in self.broadcast_dims:
-            shape[_INTERNAL_AXIS[d] if x.ndim == 4 else d] = 1
-        mask = torch.rand(shape, device=x.device, generator=generator) < keep
+        if mask is None:
+            if generator is None:
+                raise ValueError("dropout in training mode draws from an "
+                                 "explicit generator: pass one to the "
+                                 "forward")
+            mask = torch.rand(self.mask_shape(x.shape), device=x.device,
+                              generator=generator) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def dropout_mask_shapes(module: "GraphModule", x: torch.Tensor
+                        ) -> Dict[str, List[int]]:
+    """The keep-mask shape (:meth:`Dropout.mask_shape`) of every dropout
+    layer of ``module`` that draws in training, for one frame of ``x``'s
+    shape (NHWC, batch axis first), found by an inference pass over one
+    zero frame; a batch of B has B in place of the leading 1."""
+    shapes: Dict[str, List[int]] = {}
+    hooks = []
+    for name, m in module.named_children():
+        if isinstance(m, Dropout) and m.rate > 0.0:
+            hooks.append(m.register_forward_pre_hook(
+                lambda mod, args, name=name: shapes.__setitem__(
+                    name, mod.mask_shape(args[0].shape))))
+    was_training = module.training
+    try:
+        with torch.no_grad():
+            module.eval()(torch.zeros((1,) + tuple(x.shape[1:]),
+                                      dtype=x.dtype, device=x.device))
+    finally:
+        module.train(was_training)
+        for h in hooks:
+            h.remove()
+    return shapes
 
 
 def dropout(name: str, inp: str, rate: float,
@@ -715,7 +811,7 @@ def zero_pad(name: str, inp: str,
     """Keras ZeroPadding2D: ``((top, bottom), (left, right))``."""
     (top, bottom), (left, right) = pad
     return LayerSpec(name=name, kind=KIND_FN, inputs=(inp,),
-                     fn=lambda x: F.pad(x, (left, right, top, bottom)))
+                     fn=lambda x: pad_hw(x, (left, right, top, bottom)))
 
 
 def add(name: str, a: str, b: str) -> LayerSpec:

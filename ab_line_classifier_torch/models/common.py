@@ -19,6 +19,12 @@ buffers, and autograd records nothing that only it needs (optax's
 ``set_to_zero`` plus XLA's dead-code elimination). The learning rate lives
 in the optimizer's ``param_groups``, where ReduceLROnPlateau scales it
 (:func:`scale_learning_rate`).
+
+:class:`StackedOptimizer` applies the same three rules to F trials'
+parameters stacked along a leading axis, each tensor once for all trials,
+with the JAX package's trial-parallel semantics: trial t's update is
+scaled by ``lr_factor[t] * active[t]``, and an inactive trial's moments
+and step count stay as they were.
 """
 
 from __future__ import annotations
@@ -103,6 +109,91 @@ def make_optimizer(phase: TrainPhase, module: torch.nn.Module
     if phase.optimizer == "sgd":
         return torch.optim.SGD(params, lr=phase.lr)
     raise ValueError(f"unknown optimizer {phase.optimizer!r}")
+
+
+class StackedOptimizer:
+    """``phase``'s optimizer over stacked trial parameters (name -> ``[F,
+    ...]`` tensor, a leaf): the trainable ones (``TrainPhase.trainable``)
+    require grad and get moments, the frozen ones stop requiring grad.
+
+    :meth:`step` takes each trial's learning-rate factor and active flag
+    (host arrays ``[F]``). Per element it computes what the one-trial
+    optimizer computes (Keras Adam, RMSprop, SGD; the same operations in
+    the same order), with the update multiplied by ``lr_factor * active``
+    before the learning rate: for a trial at factor 1 the result is the
+    one-trial optimizer's, and factor f is training at ``f * lr``, the
+    updates being linear in the rate. Where ``active`` is 0 the trial's
+    moments and step count keep their values (the parameters then move by
+    ``0 * update``: not at all). Keras Adam's bias correction takes each
+    trial's own step count, computed in float32 as :class:`KerasAdam`
+    does."""
+
+    def __init__(self, phase: TrainPhase, params: Dict[str, torch.Tensor],
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-7):
+        if phase.optimizer not in ("adam", "rmsprop", "sgd"):
+            raise ValueError(f"unknown optimizer {phase.optimizer!r}")
+        self.kind, self.lr = phase.optimizer, float(phase.lr)
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.rho = 0.9  # RMSprop's decay (tf.keras 2.9)
+        self.names = []
+        for name, p in params.items():
+            train = phase.trainable.get(_layer_of(name), True)
+            p.requires_grad_(train)
+            if train:
+                self.names.append(name)
+        n_trials = next(iter(params.values())).shape[0]
+        self.count = np.zeros(n_trials, np.int64)
+        slots = {"adam": ("m", "v"), "rmsprop": ("sq",), "sgd": ()}
+        self.state = {name: {k: torch.zeros_like(params[name])
+                             for k in slots[self.kind]}
+                      for name in self.names}
+
+    @torch.no_grad()
+    def step(self, params: Dict[str, torch.Tensor], lr_factor: np.ndarray,
+             active: np.ndarray) -> None:
+        """One update of every trainable parameter from its ``.grad``."""
+        lr_factor = np.asarray(lr_factor, np.float32)
+        active = np.asarray(active, np.float32)
+        dev = params[self.names[0]].device if self.names else None
+        gate = torch.as_tensor(lr_factor * active).to(dev)
+        on = torch.as_tensor(active > 0).to(dev)
+        if self.kind == "adam":
+            t = (self.count + 1).astype(np.float32)
+            alpha = (np.sqrt(np.float32(1) - np.float32(self.b2) ** t)
+                     / (np.float32(1) - np.float32(self.b1) ** t))
+            alpha = torch.as_tensor(alpha.astype(np.float32)).to(dev)
+        for name in self.names:
+            p, g, st = params[name], params[name].grad, self.state[name]
+            if g is None:
+                continue
+            shape = (-1,) + (1,) * (p.ndim - 1)
+            keep = on.view(shape)
+            if self.kind == "adam":
+                m = st["m"].mul(self.b1).add_(g, alpha=1.0 - self.b1)
+                v = st["v"].mul(self.b2).addcmul_(g, g, value=1.0 - self.b2)
+                update = (m * alpha.view(shape)) / (v.sqrt() + self.eps)
+                p.add_(update * gate.view(shape), alpha=-self.lr)
+                st["m"].copy_(torch.where(keep, m, st["m"]))
+                st["v"].copy_(torch.where(keep, v, st["v"]))
+            elif self.kind == "rmsprop":
+                sq = st["sq"].mul(self.rho).addcmul_(g, g,
+                                                     value=1.0 - self.rho)
+                avg = sq.sqrt().add_(self.eps)
+                p.addcdiv_(g * gate.view(shape), avg, value=-self.lr)
+                st["sq"].copy_(torch.where(keep, sq, st["sq"]))
+            else:
+                p.add_(g * gate.view(shape), alpha=-self.lr)
+        self.count += (active > 0).astype(np.int64)
+
+    def state_dict(self) -> Dict:
+        return {"count": torch.as_tensor(self.count),
+                "state": {n: dict(s) for n, s in self.state.items()}}
+
+    def load_state_dict(self, sd: Dict) -> None:
+        self.count = np.asarray(sd["count"], np.int64).copy()
+        for name, slots in sd["state"].items():
+            for k, v in slots.items():
+                self.state[name][k].copy_(v)
 
 
 def scale_learning_rate(optimizer: torch.optim.Optimizer,

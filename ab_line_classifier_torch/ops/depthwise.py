@@ -21,7 +21,10 @@ tensor (the graph's channels_last views of NHWC memory) and ``w`` is
   version for a CPU tensor, and whose backward is the grouped conv's
   gradients, as the JAX ``custom_vjp`` is. There is no switch: on CUDA a
   supported layer always launches the kernel, and a failed build or launch
-  raises.
+  raises. Under ``torch.func.vmap`` (stacked trials with per-trial
+  weights) it launches once over all trials (:func:`depthwise_trials`),
+  the counterpart of the trial axis that JAX's ``vmap`` adds to the
+  Pallas grid.
 
 On the H100 a K x K depthwise conv is bound by bytes, not operations: it
 does 2K^2 FLOP per element against 4 bytes moved in bf16 (4.5 FLOP/byte at
@@ -79,16 +82,22 @@ def _supported(x: torch.Tensor, w: torch.Tensor, stride: int,
 
 class _DepthwiseConv(torch.autograd.Function):
     """Forward: the CUDA kernel (CUDA tensor) or its plain version (CPU
-    tensor). Backward: the grouped conv's input and weight gradients."""
+    tensor). Backward: the grouped conv's input and weight gradients.
+    Under ``torch.func.vmap`` (stacked trials, per-trial weights) it runs
+    once over all trials (:meth:`vmap`)."""
 
     @staticmethod
-    def forward(ctx, x, w, packed):
-        ctx.save_for_backward(x, w)
+    def forward(x, w, packed):
         if x.device.type == "cpu":
             return depthwise_plain(x, w)
         if packed is None:
             packed = depthwise_cuda.pack_weight(w)
         return depthwise_cuda.cuda_depthwise(x, packed)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w, _ = inputs
+        ctx.save_for_backward(x, w)
 
     @staticmethod
     def backward(ctx, g):
@@ -102,6 +111,37 @@ class _DepthwiseConv(torch.autograd.Function):
             gw = torch.nn.grad.conv2d_weight(x.to(g.dtype), w.shape, g,
                                              padding=p, groups=c).to(w.dtype)
         return gx, gw, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, w, packed):
+        """The batching rule: trial t's ``[B, C, H, W]`` input and ``[C, 1,
+        K, K]`` weight at index t of the vmapped axis, as one launch over
+        ``F * C`` channels (:func:`depthwise_trials`)."""
+        x_dim, w_dim, _ = in_dims
+        n = info.batch_size
+        x = (x.movedim(x_dim, 1) if x_dim is not None
+             else x.unsqueeze(1).expand(-1, n, -1, -1, -1))
+        w = (w.movedim(w_dim, 0) if w_dim is not None
+             else w.unsqueeze(0).expand(n, -1, -1, -1, -1))
+        return depthwise_trials(x, w), 1
+
+
+def depthwise_trials(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """F trials' depthwise convs in one launch of the kernel (its plain
+    version on the CPU): ``x`` ``[B, F, C, H, W]``, trial t's activations
+    at ``x[:, t]``, and ``w`` ``[F, C, 1, K, K]``. The trials become the
+    ``F * C`` channels of one ``[B, F * C, H, W]`` tensor, which is a view
+    when ``x`` lies in memory as ``[B, H, W, F, C]`` (what vmap's conv and
+    batch-norm rules leave in channels_last: trial-major channels); the
+    weight packs to ``[K, K, F * C]``. Each output channel is computed
+    from its own input channel and taps alone, so trial t's result is
+    what a launch on its own would give, bit for bit. Autograd records
+    one grouped conv over ``F * C`` channels for the backward. Returns
+    ``[B, F, C, H, W]``."""
+    b, f, c, h, wd = x.shape
+    y = _DepthwiseConv.apply(x.reshape(b, f * c, h, wd),
+                             w.reshape(f * c, 1, *w.shape[-2:]), None)
+    return y.unflatten(1, (f, c))
 
 
 def depthwise_conv(x: torch.Tensor, w: torch.Tensor, stride: int = 1,

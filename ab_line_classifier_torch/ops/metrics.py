@@ -7,13 +7,15 @@ per-class precision / recall at threshold ``1 / n_classes``.
 :class:`MetricsState` holds only sums (confusion counts per threshold bin,
 correct counts, loss totals), so a batch updates it on the device inside
 the step, and :func:`compute_metrics` finalizes it to floats at the end of
-an epoch.
+an epoch. With ``trials``, the state has a leading trial axis and
+:func:`update_stacked_metrics` accumulates a stacked batch ``[F, B, C]``
+of all trials at once (the trial-parallel trainer's).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -49,9 +51,13 @@ def auc_thresholds(num_thresholds: int = 200, device=None) -> torch.Tensor:
 
 
 def init_metrics(n_classes: int, num_thresholds: int = 200,
-                 device=None) -> MetricsState:
+                 device=None, trials: Optional[int] = None) -> MetricsState:
+    """Zero accumulators; with ``trials``, each with a leading axis of
+    that many trials."""
+    lead = () if trials is None else (trials,)
+
     def z(*shape):
-        return torch.zeros(shape, dtype=torch.float32, device=device)
+        return torch.zeros(lead + shape, dtype=torch.float32, device=device)
     return MetricsState(n=z(), correct=z(), loss_sum=z(),
                         auc_tp=z(num_thresholds), auc_fp=z(num_thresholds),
                         auc_tn=z(num_thresholds), auc_fn=z(num_thresholds),
@@ -106,6 +112,55 @@ def update_metrics(state: MetricsState, probs: torch.Tensor,
     state.cls_tp += (cls_pred * labels).sum(0)
     state.cls_fp += (cls_pred * (1.0 - labels)).sum(0)
     state.cls_fn += ((1.0 - cls_pred) * labels * m[:, None]).sum(0)
+
+
+@torch.no_grad()
+def update_stacked_metrics(state: MetricsState, probs: torch.Tensor,
+                           labels: torch.Tensor, loss: torch.Tensor,
+                           sample_mask: torch.Tensor) -> None:
+    """:func:`update_metrics` for F trials at once, one launch per op:
+    ``state`` from ``init_metrics(..., trials=F)``, ``probs`` and
+    ``labels`` (one-hot) ``[F, B, C]``, ``loss`` and ``sample_mask``
+    ``[F, B]``; trial t's accumulators see only its own rows."""
+    probs = probs.to(torch.float32)
+    labels = labels.to(torch.float32)
+    m = sample_mask.to(torch.float32)
+    f, _, n_classes = probs.shape
+    correct = ((probs.argmax(-1) == labels.argmax(-1)) * m).sum(-1)
+
+    th = auc_thresholds(state.auc_tp.shape[-1], probs.device)
+    p_flat = probs.reshape(f, -1)
+    y_flat = labels.reshape(f, -1)
+    m_flat = m.repeat_interleave(n_classes, dim=1)
+    pred_pos = (p_flat[:, None, :] > th[None, :, None]).to(torch.float32)
+    w_pos = y_flat * m_flat
+    w_neg = (1.0 - y_flat) * m_flat
+    tp = torch.bmm(pred_pos, w_pos[:, :, None])[..., 0]
+    fp = torch.bmm(pred_pos, w_neg[:, :, None])[..., 0]
+
+    cls_pred = (probs > 1.0 / n_classes).to(torch.float32) * m[..., None]
+    state.n += m.sum(-1)
+    state.correct += correct
+    state.loss_sum += (loss.to(torch.float32) * m).sum(-1)
+    state.auc_tp += tp
+    state.auc_fp += fp
+    state.auc_fn += w_pos.sum(-1, keepdim=True) - tp
+    state.auc_tn += w_neg.sum(-1, keepdim=True) - fp
+    state.cls_tp += (cls_pred * labels).sum(1)
+    state.cls_fp += (cls_pred * (1.0 - labels)).sum(1)
+    state.cls_fn += ((1.0 - cls_pred) * labels * m[..., None]).sum(1)
+
+
+def compute_stacked_metrics(state: MetricsState,
+                            class_names: Optional[Sequence[str]] = None
+                            ) -> List[Dict[str, float]]:
+    """Each trial's :func:`compute_metrics` of a stacked state (one
+    device-to-host copy)."""
+    host = MetricsState(**{f.name: getattr(state, f.name).detach().to("cpu")
+                           for f in dataclasses.fields(state)})
+    return [compute_metrics(MetricsState(**{
+        f.name: getattr(host, f.name)[t] for f in dataclasses.fields(host)}),
+        class_names) for t in range(host.n.shape[0])]
 
 
 def compute_metrics(state: MetricsState,

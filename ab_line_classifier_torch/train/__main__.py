@@ -5,8 +5,10 @@ Runs TRAIN.EXPERIMENT_TYPE from the config, or ``--experiment``:
 ``cross_validation`` and ``hparam_search`` run one training per fold or
 trial and write their records and summary CSV under
 ``PATHS.EXPERIMENTS`` (``--resume`` skips the folds or trials that an
-interrupted run finished; ``--trial-parallel`` comes with a later slice
-of the port and raises). ``--device`` picks the
+interrupted run finished). With ``--trial-parallel`` they train every
+fold, or every learning-rate trial, at once as one stacked model
+(``kfold_parallel_*.csv`` / ``lr_sweep_parallel_*.csv``; ``--resume``
+continues from the per-epoch checkpoint). ``--device`` picks the
 device (default ``cuda``: without a GPU the command raises unless given
 ``--device cpu``); ``--profile`` writes a ``torch.profiler`` trace under
 ``<PATHS.LOGS>/profiles``.
@@ -29,15 +31,16 @@ def main():
                         "silent fallback to the CPU)")
     p.add_argument("--no-save-weights", action="store_true")
     p.add_argument("--trial-parallel", action="store_true",
-                   help="train all folds / LR trials at once (not ported "
-                        "yet: raises)")
+                   help="cross_validation / hparam_search: train all folds "
+                        "/ LR trials at once as one stacked model")
     p.add_argument("--checkpoint-dir", default=None,
                    help="save the whole train state here every epoch")
     p.add_argument("--resume", action="store_true",
                    help="continue an interrupted run: restore the per-epoch "
-                        "checkpoint (single_train; from --checkpoint-dir, "
-                        "default <MODEL_WEIGHTS>/_resume/<experiment>) or "
-                        "skip the finished trials / folds (hparam_search / "
+                        "checkpoint (single_train and --trial-parallel; from "
+                        "--checkpoint-dir, default "
+                        "<MODEL_WEIGHTS>/_resume/<experiment>) or skip the "
+                        "finished trials / folds (serial hparam_search / "
                         "cross_validation)")
     p.add_argument("--sweep-id", default=None,
                    help="name of the sweep / k-fold run to create or resume "

@@ -21,8 +21,14 @@ run where pandas, PIL and sklearn are not installed: the loop, records,
 resume, controllers and summaries are numeric and written with ``json``
 and ``csv``. pandas is imported only where tables are read.
 
-The trial-parallel variants, W&B artifact pins and the W&B sweep backend
-raise ``NotImplementedError``: they come with later slices of the port.
+The trial-parallel variants (:func:`lr_search_parallel`,
+:func:`cross_validation_parallel`) train every LR trial or every fold at
+once, one stacked model on one device
+(``parallel/trial_parallel.py::ParallelFoldTrainer``), from the union of
+their rows held once on the device; a ``PARALLEL.MESH.TRIAL`` above 1 (the
+JAX package's trial sharding over a device mesh) raises. Fetching a W&B
+artifact pin and the W&B sweep backend raise ``NotImplementedError``:
+they come with later slices of the port.
 """
 
 from __future__ import annotations
@@ -44,7 +50,8 @@ from ab_line_classifier_torch.config import Config, ensure_output_dirs
 from ab_line_classifier_torch.data import splits as S
 from ab_line_classifier_torch.data.artifacts import (K_FOLD, TRAIN_VAL_TEST,
                                                      store_from_config)
-from ab_line_classifier_torch.data.pipeline import (FrameDataset,
+from ab_line_classifier_torch.data.pipeline import (DeviceCachedDataset,
+                                                    FrameDataset,
                                                     device_cache_budget,
                                                     maybe_device_cache)
 from ab_line_classifier_torch.models import build_model
@@ -52,7 +59,8 @@ from ab_line_classifier_torch.models.common import ModelSpec, compute_dtype
 from ab_line_classifier_torch.predict.metrics import compute_metrics
 from ab_line_classifier_torch.predict.predict import Predictor
 from ab_line_classifier_torch.train.class_balance import (
-    compute_class_weight, compute_output_bias)
+    class_weight_array, compute_class_weight, compute_output_bias,
+    output_bias_array)
 from ab_line_classifier_torch.train.loop import Trainer
 from ab_line_classifier_torch.train.sweep import (SweepExhausted,
                                                   make_controller,
@@ -718,6 +726,311 @@ def cross_validation(cfg: Config, save_weights: bool = False,
     return summary
 
 
+# -- trial-parallel -------------------------------------------------------
+def _check_single_device_mesh(cfg: Config) -> None:
+    """The port trains the trial axis on one device: a configured mesh
+    that shards it raises (multi-device training: ROADMAP Queue A)."""
+    mesh = (cfg.get("PARALLEL") or {}).get("MESH") or {}
+    if int(mesh.get("TRIAL", 1)) > 1:
+        raise NotImplementedError(
+            f"PARALLEL.MESH.TRIAL {mesh['TRIAL']}: sharding trials over a "
+            f"device mesh is multi-device training, which {_LATER}, item "
+            f"5); set TRIAL to 1 to train every trial on one device")
+
+
+def _union_cache(frames, rows_per_trial: Sequence[Sequence[np.ndarray]],
+                 cfg: Config, device) -> Tuple[DeviceCachedDataset, List]:
+    """The union of every trial's rows of ``frames`` (a
+    :class:`FrameDataset` or :class:`FrameArrays`) uploaded once to the
+    device, and each list of ``rows_per_trial`` re-indexed into it. The
+    table must fit :func:`configured_cache_budget`: every trial gathers
+    from it at every step, and there is no streaming form (the JAX
+    package holds it in device memory too); it raises with the sizes when
+    it does not fit."""
+    union = np.unique(np.concatenate([np.asarray(r) for rows in
+                                      rows_per_trial for r in rows]))
+    h, w = frames.img_dim
+    nbytes = len(union) * h * w * 3
+    budget = configured_cache_budget(cfg, device)
+    if nbytes > budget:
+        raise MemoryError(
+            f"the trial-parallel frame table ({len(union)} frames of "
+            f"{h}x{w}x3 uint8, {nbytes} bytes) does not fit the device "
+            f"cache budget of {budget} bytes (half the free device memory, "
+            f"or TRAIN.MEMORY_LIMIT); use the serial experiment")
+    cache = DeviceCachedDataset(frames.take(union), device)
+    return cache, [[np.searchsorted(union, r) for r in rows]
+                   for rows in rows_per_trial]
+
+
+def load_pretrained_overlay(cfg: Config, spec: ModelSpec, seed: int,
+                            verbose: bool = True):
+    """``USE_PRETRAINED``'s warm start for the trial-parallel trainer:
+    ``(state_dict, layer_names)``, the names of the layers the file set
+    (a ``.h5``: those whose weights differ from the seeded initialization
+    it was imported over), None for a port checkpoint (every layer)."""
+    path = cfg["PATHS"]["PRETRAINED_WEIGHTS"]
+    state = load_pretrained_state(path, spec, seed, verbose)
+    if not path.endswith(".h5"):
+        return state, None
+    base = spec.logits_module(
+        generator=torch.Generator().manual_seed(seed)).state_dict()
+    names = sorted({k.split(".", 1)[0] for k, v in state.items()
+                    if not torch.equal(v, base[k])})
+    return state, names
+
+
+def lr_candidates(cfg: Config, n_trials: Optional[int] = None
+                  ) -> Tuple[Dict[str, np.ndarray], Optional[Dict[str, str]]]:
+    """The trial-parallel LR search's candidates (JAX
+    ``train/experiment.py:735-835``): ``(trial_lrs, phase_vars)``. An
+    ``LR`` space is a deterministic grid (log-spaced for ``float_log``) of
+    ``N_EVALS`` (or ``n_trials``) points, one factor in every phase
+    (``phase_vars`` None); ``LR_EXTRACT`` / ``LR_FINETUNE`` (cutoffvgg16's
+    two phases) are drawn per trial from ``RandomState(TRAIN.SEED)``, an
+    unswept one at its HPARAMS value, ``phase_vars`` mapping each phase to
+    its variable. Other variables cannot be update-scaled: they are
+    ignored with a message."""
+    search = cfg["TRAIN"]["HPARAM_SEARCH"]
+    space = {v.name: v for v in space_from_config(cfg.hparam_search_space())}
+    n = int(n_trials or search["N_EVALS"])
+
+    def grid(var, k):
+        lo, hi = float(var.range[0]), float(var.range[1])
+        if var.type == "float_log":
+            return np.exp(np.linspace(np.log(lo), np.log(hi), k))
+        return np.linspace(lo, hi, k)
+
+    def samples(var, k, rng):
+        lo, hi = float(var.range[0]), float(var.range[1])
+        if var.type == "float_log":
+            return np.exp(rng.uniform(np.log(lo), np.log(hi), k))
+        return rng.uniform(lo, hi, k)
+
+    hparams = cfg.model_hparams()
+    rng = np.random.RandomState(int(cfg["TRAIN"]["SEED"]))
+    lr_names = {"LR", "LR_EXTRACT", "LR_FINETUNE"}
+    ignored = sorted(set(space) - lr_names)
+    if ignored:
+        print(f"lr_search_parallel: only learning rates can be update-scaled"
+              f" trial-parallel; ignoring search variables {ignored} "
+              f"(they stay at their HPARAMS defaults — use the serial "
+              f"hparam_search to sweep them)")
+    if "LR" in space and ({"LR_EXTRACT", "LR_FINETUNE"} & set(space)):
+        raise ValueError(
+            "HPARAM_SEARCH defines both LR and LR_EXTRACT/LR_FINETUNE — "
+            "ambiguous for the trial-parallel sweep (the phase LRs would "
+            "silently stay at their HPARAMS defaults); keep one style")
+    if "LR" in space:
+        return {"LR": grid(space["LR"], n)}, None
+    if "LR_EXTRACT" in space or "LR_FINETUNE" in space:
+        trial_lrs = {}
+        for name in ("LR_EXTRACT", "LR_FINETUNE"):
+            trial_lrs[name] = (samples(space[name], n, rng) if name in space
+                               else np.full(n, float(hparams[name])))
+        return trial_lrs, {"extract": "LR_EXTRACT",
+                           "finetune": "LR_FINETUNE"}
+    raise ValueError(
+        "lr_search_parallel needs LR (or LR_EXTRACT/LR_FINETUNE) in "
+        "HPARAM_SEARCH (other variables cannot be update-scaled)")
+
+
+def select_trial(history: List[Dict], metric_name: str, goal: str
+                 ) -> Tuple[np.ndarray, int, str, str]:
+    """Each trial's objective, the metric at its best-val-loss epoch (the
+    serial sweep's semantics), and the winner: ``(per_trial, best,
+    column, goal)``. A metric the history lacks falls back to val_auc,
+    maximized, with a message."""
+    key = metric_name.split("/")[-1]
+    if key in history[0]:
+        col = key
+    else:
+        print(f"lr_search_parallel: metric {key!r} not in per-epoch history "
+              f"({sorted(k for k in history[0] if k.startswith('val_'))}); "
+              f"selecting by val_auc (maximize) instead")
+        col, goal = "val_auc", "maximize"
+    stacked = np.stack([h[col] for h in history])
+    best_epoch = np.stack([h["val_loss"] for h in history]).argmin(axis=0)
+    per_trial = stacked[best_epoch, np.arange(stacked.shape[1])]
+    best = int(np.argmax(per_trial) if goal == "maximize"
+               else np.argmin(per_trial))
+    return per_trial, best, col, goal
+
+
+def _parallel_trainer(cfg: Config, spec: ModelSpec, n: int, cls_w, biases,
+                      device, label: str):
+    from ab_line_classifier_torch.parallel.trial_parallel import (
+        ParallelFoldTrainer)
+
+    mixed = bool(cfg["TRAIN"].get("MIXED_PRECISION", False))
+    return ParallelFoldTrainer(
+        spec, n, class_weights=cls_w, output_biases=biases,
+        aug_config=dict(cfg["TRAIN"]["DATA_AUG"]),
+        seed=int(cfg["TRAIN"]["SEED"]), compute_dtype=compute_dtype(mixed),
+        progress_label=label, device=device)
+
+
+def _fit_parallel(cfg: Config, trainer, spec, cache, train_idx, val_idx,
+                  verbose, checkpoint_dir, resume, lr_factors=None):
+    warm = None
+    if cfg["TRAIN"].get("USE_PRETRAINED", False):
+        warm = load_pretrained_overlay(cfg, spec, int(cfg["TRAIN"]["SEED"]),
+                                       verbose)
+    return trainer.fit(cache, None, train_idx, val_idx,
+                       batch_size=cfg.batch_size,
+                       epochs=int(cfg["TRAIN"]["EPOCHS"]),
+                       patience=int(cfg["TRAIN"]["PATIENCE"]),
+                       lr_factors=lr_factors, verbose=verbose,
+                       checkpoint_dir=checkpoint_dir, resume=resume,
+                       warm_start=warm)
+
+
+def lr_search_parallel(cfg: Config, n_trials: Optional[int] = None,
+                       verbose: bool = True,
+                       checkpoint_dir: Optional[str] = None,
+                       resume: bool = False, device=None,
+                       source: Optional[FoldSource] = None) -> Dict[str, Any]:
+    """Trial-parallel learning-rate search (JAX
+    ``train/experiment.py:735-909``): every candidate rate
+    (:func:`lr_candidates`) trains at once, one stacked model whose trials
+    differ only by their learning-rate factor (the updates are linear in
+    the rate), on the same train split with its class weights and output
+    bias. Each trial's objective is its metric at its best-val-loss epoch
+    (:func:`select_trial`); ``lr_sweep_parallel_<timestamp>.csv`` holds
+    one row per trial and the sweep plot follows. ``checkpoint_dir``
+    saves the stacked state every epoch and ``resume`` continues from it.
+
+    ``source``: the split (default :func:`resolve_datasets`'), fold 0's
+    train and val rows."""
+    device = resolve_device(device)
+    _check_single_device_mesh(cfg)
+    ensure_output_dirs(cfg)
+    search = cfg["TRAIN"]["HPARAM_SEARCH"]
+    hparams = cfg.model_hparams()
+    trial_lrs, phase_vars = lr_candidates(cfg, n_trials)
+    n = len(next(iter(trial_lrs.values())))
+    space = {v.name for v in space_from_config(cfg.hparam_search_space())}
+
+    if source is None:
+        source = source_from_datasets(cfg)
+    tr_rows, va_rows, _ = source.folds.fold(0)
+    cache, (train_idx, val_idx) = _union_cache(
+        source.frames, [[tr_rows] * n, [va_rows] * n], cfg, device)
+    train_labels = np.asarray(source.frames.labels)[tr_rows]
+    mixed = bool(cfg["TRAIN"].get("MIXED_PRECISION", False))
+    spec = build_model(cfg.model_name, hparams, cfg.img_dim + (3,),
+                       cfg.n_classes, mixed_precision=mixed,
+                       total_epochs=int(cfg["TRAIN"]["EPOCHS"]))
+    trainer = _parallel_trainer(
+        cfg, spec, n, np.tile(class_weight_array(train_labels,
+                                                 cfg.n_classes), (n, 1)),
+        np.tile(output_bias_array(train_labels, cfg.n_classes), (n, 1)),
+        device, "trials")
+    # Each trial's factor against the HPARAMS rate, per phase for
+    # cutoffvgg16's pair.
+    if phase_vars is None:
+        lr_factors = trial_lrs["LR"] / float(hparams["LR"])
+    else:
+        lr_factors = {phase: trial_lrs[var] / float(hparams[var])
+                      for phase, var in phase_vars.items()}
+    best_vars, history = _fit_parallel(
+        cfg, trainer, spec, cache, train_idx, val_idx, verbose,
+        checkpoint_dir, resume, lr_factors)
+    if not history:
+        raise RuntimeError(
+            "lr_search_parallel: no epoch history (EPOCHS=0) — no "
+            "per-trial objective to select from")
+    per_trial, best_t, col, goal = select_trial(
+        history, search["METRIC_NAME"], search["METRIC_GOAL"])
+    swept = {k: v for k, v in trial_lrs.items()
+             if phase_vars is None or k in space}
+    rows = [{"trial": t, **{k: float(v[t]) for k, v in swept.items()},
+             "objective": float(per_trial[t])} for t in range(n)]
+    out_dir = cfg["PATHS"]["EXPERIMENTS"]
+    os.makedirs(out_dir, exist_ok=True)
+    write_csv(os.path.join(
+        out_dir, f"lr_sweep_parallel_{time.strftime('%Y%m%d-%H%M%S')}.csv"),
+        rows)
+    try:
+        from ab_line_classifier_torch.viz.visualization import (
+            plot_hparam_search)
+        plot_hparam_search(rows, goal=goal, dir_path=cfg["PATHS"].get(
+            "EXPERIMENT_VISUALIZATIONS", cfg["PATHS"]["IMAGES"]))
+    except Exception as e:
+        print(f"(sweep plot skipped: {e})")
+    best_params = {k: float(v[best_t]) for k, v in swept.items()}
+    if verbose:
+        print(f"best {best_params} ({col}={per_trial[best_t]:.4f})")
+    from ab_line_classifier_torch.parallel.trial_parallel import trial_state
+    return {"best_params": best_params,
+            "best_objective": float(per_trial[best_t]), "trials": rows,
+            "history": history, "best_vars": trial_state(best_vars, best_t)}
+
+
+def cross_validation_parallel(cfg: Config, verbose: bool = True,
+                              checkpoint_dir: Optional[str] = None,
+                              resume: bool = False, device=None,
+                              source: Optional[FoldSource] = None
+                              ) -> List[Dict]:
+    """Every fold at once (JAX ``train/experiment.py:912-1001``): one
+    stacked model, fold t training on its train rows with its own class
+    weights and output bias, early-stopped on its val rows; then each
+    fold's test rows through the port's ``Predictor`` with the fold's
+    best weights (kernel B1 on every test batch), and
+    ``kfold_parallel_<timestamp>.csv``: a row per fold, then ``mean`` and
+    ``std``. Returns those rows. ``source``: the fold source (default
+    :func:`resolve_kfold_tables`'); ``checkpoint_dir`` / ``resume`` as
+    :func:`lr_search_parallel`."""
+    from ab_line_classifier_torch.parallel.trial_parallel import trial_state
+
+    device = resolve_device(device)
+    _check_single_device_mesh(cfg)
+    ensure_output_dirs(cfg)
+    if source is None:
+        source = source_from_kfold_tables(cfg)
+    n_folds = len(source.folds)
+    split = [source.folds.fold(k) for k in range(n_folds)]
+    cache, (train_idx, val_idx) = _union_cache(
+        source.frames, [[s[0] for s in split], [s[1] for s in split]], cfg,
+        device)
+    labels = np.asarray(source.frames.labels)
+    cls_w = np.stack([class_weight_array(labels[s[0]], cfg.n_classes)
+                      for s in split])
+    biases = np.stack([output_bias_array(labels[s[0]], cfg.n_classes)
+                       for s in split])
+    mixed = bool(cfg["TRAIN"].get("MIXED_PRECISION", False))
+    spec = build_model(cfg.model_name, cfg.model_hparams(),
+                       cfg.img_dim + (3,), cfg.n_classes,
+                       mixed_precision=mixed,
+                       total_epochs=int(cfg["TRAIN"]["EPOCHS"]))
+    trainer = _parallel_trainer(cfg, spec, n_folds, cls_w, biases, device,
+                                "folds")
+    best, _ = _fit_parallel(cfg, trainer, spec, cache, train_idx, val_idx,
+                            verbose, checkpoint_dir, resume)
+    del trainer, cache
+
+    rows = []
+    for k in range(n_folds):
+        predictor = Predictor(spec, trial_state(best, k),
+                              batch_size=cfg.batch_size,
+                              compute_dtype=compute_dtype(mixed),
+                              device=device)
+        test = source.frames.take(split[k][2])
+        probs = predictor.predict_dataset(test)
+        lab = np.asarray(test.labels)
+        preds = (probs[:, 1] >= 0.5).astype(int)
+        m = compute_metrics(cfg.classes, lab, preds, probs)
+        rows.append({"fold": k, **{key: v for key, v in m.items()
+                                   if not isinstance(v, list)}})
+    summary = rows + mean_std_rows(rows)
+    out_dir = cfg["PATHS"]["EXPERIMENTS"]
+    os.makedirs(out_dir, exist_ok=True)
+    write_csv(os.path.join(
+        out_dir, f"kfold_parallel_{time.strftime('%Y%m%d-%H%M%S')}.csv"),
+        summary)
+    return summary
+
+
 def default_checkpoint_dir(cfg: Config, experiment: str) -> str:
     """Where per-epoch resume checkpoints live when ``--resume`` names no
     ``--checkpoint-dir``."""
@@ -733,15 +1046,24 @@ def train_experiment(cfg: Config, experiment: Optional[str] = None,
     """Run ``TRAIN.EXPERIMENT_TYPE`` (or ``experiment``) on ``device``
     (``cuda`` unless asked for the CPU; raises at once without a GPU), as
     the JAX package dispatches (``train/experiment.py:1068-1111``).
-    ``single_train`` checkpoints every epoch into ``checkpoint_dir`` and
-    resumes from it; the serial sweeps resume by trial or fold
+    ``single_train`` and the trial-parallel experiments
+    (``trial_parallel``: :func:`lr_search_parallel` for
+    ``hparam_search``, :func:`cross_validation_parallel` for
+    ``cross_validation``) checkpoint every epoch into ``checkpoint_dir``
+    and resume from it; the serial sweeps resume by trial or fold
     (``sweep_id`` names the run, default the latest)."""
     device = resolve_device(device)
     experiment = experiment or cfg["TRAIN"]["EXPERIMENT_TYPE"]
-    if trial_parallel:
-        raise NotImplementedError(f"--trial-parallel {_LATER}")
     if resume and checkpoint_dir is None:
         checkpoint_dir = default_checkpoint_dir(cfg, experiment)
+    if trial_parallel and experiment == "hparam_search":
+        return lr_search_parallel(cfg, verbose=verbose,
+                                  checkpoint_dir=checkpoint_dir,
+                                  resume=resume, device=device)
+    if trial_parallel and experiment == "cross_validation":
+        return cross_validation_parallel(cfg, verbose=verbose,
+                                         checkpoint_dir=checkpoint_dir,
+                                         resume=resume, device=device)
     if experiment == "single_train":
         return perform_single_run(cfg, save_weights=save_weights,
                                   verbose=verbose,

@@ -107,10 +107,32 @@ no result):
    trial: wall and setup seconds, training frames/s, B1 and B2 launches
    (held to the counts the data gives; B2's input copies 0) and
    ``max_memory_allocated``, the last run's peak within 5% of the
-   first's.
+   first's;
+13. trial-parallel cross-validation and LR search — kernel B2's launch
+   over F trials (``torch.func.vmap`` of the depthwise entry point, the
+   trials as F * C channels) at every stride-1 mobilenetv2 shape at batch
+   64, F = 4 and 10, bf16 and f32: one launch, no input copied, each
+   trial ``torch.equal`` to its own one-trial launch and to the plain
+   version, stacked float32 gradients against each trial's grouped conv,
+   and its time per forward beside F one-trial launches, cuDNN's grouped
+   conv over the F * C channels, the plain version and the bound; one
+   stacked float32 step (no augmentation, dropout 0) against F serial
+   ``Trainer`` steps on the card (cutoffvgg16 ``extract`` and
+   ``finetune`` at F = 3, mobilenetv2 at F = 4) by the train-step rule;
+   a profiled stacked step of each model (idle share, top kernels); then
+   on phase 12's data ``cross_validation_parallel`` (cutoffvgg16, its 3
+   folds, cuDNN deterministic: interrupted after the ``extract`` epoch and
+   resumed, then whole, the resumed test rows and weights bit-equal to
+   the whole run's), ``lr_search_parallel`` (mobilenetv2,
+   4 trials over config.yml's LR range, DROPOUT ignored with the JAX
+   package's message) and both again at config.yml's counts (5 folds, 10
+   trials): B1 and B2 launches held to the counts the data gives, no
+   input copied, wall and setup seconds, training frames/s and peak
+   memory beside phase 12's serial numbers.
 
 The last two lines of standard output are a JSON line of per-kernel
-numbers (launches per path, ``training`` included: the wrappers' counts,
+numbers (launches per path, ``training`` and the trial-parallel paths
+included: the wrappers' counts,
 which tick once at a CUDA graph's capture; the kernel's runs in one
 replay of each latency graph, counted by the profiler, and the replays)
 and ``{"ok": true, "device": {...}}``.
@@ -225,6 +247,22 @@ def cuda_ms(fn, iters=ITERS, warmup=WARMUP):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters=ITERS, warmup=WARMUP):
+    """Mean milliseconds per replay of ``fn`` captured once as a CUDA graph
+    (warmed on a side stream first): the device's time for work whose
+    eager launches take longer on the host than on the card."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, iters=iters, warmup=warmup)
 
 
 def device_time_by_kernel(fn, n_iters=3):
@@ -1958,6 +1996,7 @@ def phase_experiments(smi):
             PC.launch_count, DC.launch_count):
         raise AssertionError("launches outside the folds' runs")
     launches["cross_validation"] = (PC.launch_count, DC.launch_count)
+    serial = {"cross_validation": serial_stats(runs, seconds)}
     stats = {r["fold"]: r for r in summary}
     print(f"cross_validation: {EXP_FOLDS} folds of cutoffvgg16 128x128 "
           f"({n} frames, {EXP_PATIENTS} patients) in {seconds:.2f} s, "
@@ -1986,6 +2025,7 @@ def phase_experiments(smi):
     check_runs("hparam_search trial", sweep.runs, [split.fold(0)] * len(
         sweep.runs), ZOO["mobilenetv2"][1], smi)
     launches["hparam_search"] = (PC.launch_count, DC.launch_count)
+    serial["hparam_search"] = serial_stats(sweep.runs, seconds)
     trials = out["trials"]
     replay = make_controller("bayes", space_from_config(MBV2_SEARCH),
                              seed=10001)
@@ -2003,7 +2043,530 @@ def phase_experiments(smi):
                              f"the CPU replay's {gp}")
     if DC.copy_count:
         raise AssertionError(f"{DC.copy_count} depthwise input copies")
-    return launches
+    return launches, serial
+
+
+def serial_stats(runs, seconds):
+    """Phase 12's numbers of one experiment, for phase 13 to print beside
+    its own: wall seconds, runs, training frames/s over all runs, the
+    largest peak memory."""
+    return {"wall": seconds, "runs": len(runs),
+            "fps": sum(r["frames"] for r in runs)
+            / sum(r["train_s"] for r in runs),
+            "peak": max(r["peak"] for r in runs)}
+
+
+# Phase 13 (trial-parallel): phase 12's data; cutoffvgg16 over its 3 folds
+# and mobilenetv2 over 4 LR trials, then config.yml's own counts (N_FOLDS
+# 5, N_EVALS 10). B2's trial launch is held against F one-trial launches
+# and the plain version at F = 4 and 10, batch 64; one stacked float32 step
+# against F serial steps at TP_STEP_TRIALS trials.
+TP_FULL_FOLDS, TP_FULL_TRIALS = 5, 10
+TP_DW_TRIALS = (4, 10)
+TP_STEP_TRIALS = {"cutoffvgg16": 3, "mobilenetv2": 4}
+
+
+def stacked_depthwise_case(shape, k, n_trials, dtype, gen):
+    """F trials' ``[B, H, W, C]`` inputs in the layout vmap's rules leave
+    (memory ``[B, H, W, F, C]``) as the ``[B, F, C, H, W]`` view, and
+    their ``[F, C, 1, K, K]`` weights."""
+    b, h, w, c = shape
+    x = torch.randn((b, h, w, n_trials, c), device="cuda",
+                    generator=gen).to(dtype)
+    wt = (torch.randn((n_trials, c, 1, k, k), device="cuda", generator=gen)
+          / k).to(dtype)
+    return x.permute(0, 3, 4, 1, 2), wt
+
+
+def trial_launch_checks(spec, smi):
+    """B2's launch over F trials (``torch.func.vmap`` of the depthwise
+    entry point: ``depthwise_trials``, trial-major ``F * C`` channels) at
+    every stride-1 shape of ``spec`` (mobilenetv2) at batch TRAIN_BATCH,
+    F in TP_DW_TRIALS, bf16 and f32: one launch, no input copied, each
+    trial ``torch.equal`` to its own one-trial launch and to the plain
+    version; float32 gradients of the stacked call within DW_LAYER_RTOL of
+    each trial's grouped conv; and per forward (the 10 layers) the trial
+    launch's time beside F one-trial launches, cuDNN's grouped conv over
+    the F * C channels, the plain version and the bytes bound, each as
+    CUDA-graph replays (at batch 64 an eager launch takes longer on the
+    host than on the card), and the eager launches' time beside. Returns
+    the timings by F."""
+    from ab_line_classifier_torch.ops import depthwise as DW
+    from ab_line_classifier_torch.ops import depthwise_cuda as DC
+    from ab_line_classifier_torch.predict.benchmark import (
+        depthwise_layer_shapes)
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    shapes = depthwise_layer_shapes(spec)
+    vdw = torch.func.vmap(DW.depthwise_conv, in_dims=(1, 0))
+    n_cases, grad_err = 0, 0.0
+    for n, dtype in itertools.product(TP_DW_TRIALS,
+                                      (torch.float32, torch.bfloat16)):
+        for shape, k in sorted(set(shapes)):
+            x, wt = stacked_depthwise_case((TRAIN_BATCH,) + shape[1:], k, n,
+                                           dtype, gen)
+            launches, copies = DC.launch_count, DC.copy_count
+            y = vdw(x, wt)
+            if (DC.launch_count - launches, DC.copy_count - copies) != (1, 0):
+                raise AssertionError(f"trial launch at {shape} F={n}: "
+                                     f"{DC.launch_count - launches} launches"
+                                     f", {DC.copy_count - copies} copies")
+            for t in range(n):
+                xt = x[:, t].contiguous(memory_format=torch.channels_last)
+                one = DC.cuda_depthwise(xt, DC.pack_weight(wt[t]))
+                if not (torch.equal(y[t], one) and torch.equal(
+                        y[t], DW.depthwise_plain(xt, wt[t]))):
+                    raise AssertionError(f"trial launch {shape} K={k} F={n} "
+                                         f"{dtype}: trial {t} differs")
+            n_cases += 1
+            if n == TP_DW_TRIALS[0] and dtype == torch.float32:
+                xg = x.clone().requires_grad_()
+                wg = wt.clone().requires_grad_()
+                yg = vdw(xg, wg)
+                g = torch.randn(yg.shape, device="cuda", generator=gen)
+                gx, gw = torch.autograd.grad(yg, (xg, wg), g)
+                for t in range(n):
+                    xr = x[:, t].clone().requires_grad_()
+                    wr = wt[t].clone().requires_grad_()
+                    yr = DW.depthwise_reference(xr, wr)
+                    rx, rw = torch.autograd.grad(yr, (xr, wr), g[t])
+                    grad_err = max(grad_err, rel_err(gx[:, t], rx),
+                                   rel_err(gw[t], rw))
+    print(f"B2 trial launch ({smi}): {n_cases} cases ({len(set(shapes))} "
+          f"stride-1 mobilenetv2 shapes at batch {TRAIN_BATCH}, F in "
+          f"{TP_DW_TRIALS}, f32 and bf16) each one launch, no copy, every "
+          f"trial equal to its own launch and to the plain version; "
+          f"stacked float32 gradients vs each trial's grouped conv max "
+          f"relative {grad_err:.2e} (bar {DW_LAYER_RTOL:.0e})", flush=True)
+    if grad_err > DW_LAYER_RTOL:
+        raise AssertionError("stacked depthwise gradients differ from the "
+                             "grouped conv's")
+
+    timings = {}
+    for n in TP_DW_TRIALS:
+        cases = [stacked_depthwise_case((TRAIN_BATCH,) + s[1:], k, n,
+                                        torch.bfloat16, gen)
+                 for s, k in shapes]
+        wide = [(x.reshape(x.shape[0], -1, *x.shape[3:]),
+                 wt.reshape(-1, 1, *wt.shape[-2:])) for x, wt in cases]
+        packed = [DC.pack_weight(w) for _, w in wide]
+        ones = [[(x[:, t].contiguous(memory_format=torch.channels_last),
+                  DC.pack_weight(wt[t])) for t in range(n)]
+                for x, wt in cases]
+        def trial(wide=wide, packed=packed):
+            return [DC.cuda_depthwise(x, p)
+                    for (x, _), p in zip(wide, packed)]
+
+        def one(ones=ones):
+            return [DC.cuda_depthwise(x, p) for layer in ones
+                    for x, p in layer]
+
+        def library(wide=wide):
+            return [F.conv2d(x, w, padding=w.shape[-1] // 2,
+                             groups=x.shape[1]) for x, w in wide]
+
+        def plain(wide=wide):
+            return [DW.depthwise_plain(x, w) for x, w in wide]
+
+        t = {"ms": graph_ms(trial), "one_trial_launches_ms": graph_ms(one),
+             "library_ms": graph_ms(library),
+             "plain_ms": graph_ms(plain, iters=3, warmup=1),
+             "eager_ms": cuda_ms(trial),
+             "one_trial_launches_eager_ms": cuda_ms(one)}
+        bounds = [depthwise_bound((TRAIN_BATCH, s[1], s[2], s[3] * n), k, 2)
+                  for s, k in shapes]
+        t["bound_ms"] = sum(b[0] for b in bounds)
+        t["bound_by"] = ("bytes" if all(b[1] == "bytes" for b in bounds)
+                         else "operations")
+        timings[n] = t
+        print(f"B2 trial launch F={n} per mobilenetv2 forward (10 layers, "
+              f"batch {TRAIN_BATCH}, bf16, {smi}), CUDA-graph replays: "
+              f"{t['ms']:.4f} ms; {n} one-trial launches a layer "
+              f"{t['one_trial_launches_ms']:.4f} ms; cuDNN grouped conv over "
+              f"F*C channels {t['library_ms']:.4f} ms; plain "
+              f"{t['plain_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}; {100 * t['bound_ms'] / t['ms']:.1f}% of "
+              f"it); launched eagerly {t['eager_ms']:.4f} ms, one-trial "
+              f"launches {t['one_trial_launches_eager_ms']:.4f} ms",
+              flush=True)
+    return timings
+
+
+def stacked_vs_serial_step(name, n, smi):
+    """One stacked float32 step (TF32 off, no augmentation, dropout 0) of
+    ``n`` trials of ``name`` at full width, each trial from its own seeded
+    weights with its own class weights and batch, against each trial's
+    serial ``Trainer`` step on the card, for every phase: the updates held
+    by the train-step rule (an element whose float64 gradient, a serial
+    float64 step on the card with the depthwise layers on the grouped
+    conv, is above G_FLAT and above 0.1 of its tensor's RMS, within 1e-2
+    of lr; every element within twice the first step; frozen tensors
+    bit-equal), the gradients within F32_RTOL (relative Frobenius) and the
+    loss within F32_RTOL."""
+    from ab_line_classifier_torch import graph as G
+    from ab_line_classifier_torch.models import build_model
+    from ab_line_classifier_torch.ops import depthwise as DW
+    from ab_line_classifier_torch.ops import depthwise_cuda as DC
+    from ab_line_classifier_torch.ops import metrics as M
+    from ab_line_classifier_torch.parallel.trial_parallel import (
+        ParallelFoldTrainer, _stack)
+    from ab_line_classifier_torch.predict.benchmark import ZOO_HPARAMS
+    from ab_line_classifier_torch.train.loop import Trainer
+
+    spec = build_model(name, dict(ZOO_HPARAMS[name], DROPOUT=0.0),
+                       OUT_HW + (3,), 2)
+    images, labels = labelled_frames(n * TRAIN_BATCH, seed=13)
+    images = torch.as_tensor(images).view(n, TRAIN_BATCH, *OUT_HW, 3).cuda()
+    labels = torch.as_tensor(labels).view(n, TRAIN_BATCH).cuda()
+    mask = torch.ones((n, TRAIN_BATCH), device="cuda")
+    mask[-1, -8:] = 0.0
+    cw = np.stack([np.array([1.0 + 0.1 * t, 1.0 - 0.05 * t], np.float32)
+                   for t in range(n)])
+    states = [Trainer(spec, seed=t, device="cpu").state() for t in range(n)]
+
+    def serial(t, phase_idx, dtype):
+        tr = Trainer(spec, class_weight=dict(enumerate(cw[t].tolist())),
+                     compute_dtype=dtype, device="cuda")
+        if dtype == torch.float64:
+            for m in tr.module.modules():
+                if isinstance(m, G.BatchNorm):
+                    for p_ in m.parameters(recurse=False):
+                        p_.data = p_.data.double()
+                    for bn, b_ in list(m.named_buffers(recurse=False)):
+                        setattr(m, bn, b_.double())
+        tr.begin_phase(phase_idx, spec.phases[phase_idx], states[t])
+        metrics = M.init_metrics(2, device="cuda")
+        loss = tr.train_step(images[t], labels[t], mask[t], metrics)
+        grads = {k: p_.grad.detach().double()
+                 for k, p_ in tr.module.named_parameters()
+                 if p_.grad is not None}
+        return float(loss), grads, tr.state()
+
+    for phase_idx, phase in enumerate(spec.phases):
+        pt = ParallelFoldTrainer(spec, n, class_weights=cw, device="cuda")
+        pnames = {k for k, _ in pt.module.named_parameters()}
+        params = {k: _stack([s[k] for s in states], "cuda")
+                  for k in states[0] if k in pnames}
+        buffers = {k: _stack([s[k] for s in states], "cuda")
+                   for k in states[0] if k not in pnames}
+        opt = pt.begin_phase(phase_idx, phase, params)
+        dc0 = (DC.launch_count, DC.copy_count)
+        losses = pt.train_step(params, buffers, opt, images, labels, mask,
+                               np.ones(n), np.ones(n),
+                               M.init_metrics(2, device="cuda", trials=n))
+        dw = DC.launch_count - dc0[0]
+        step = 1.0 if phase.optimizer == "adam" else 1.0 / np.sqrt(0.1)
+        upd_err, grad_err, loss_err, n_held, n_all = 0.0, 0.0, 0.0, 0, 0
+        for t in range(n):
+            loss, grads, sd = serial(t, phase_idx, torch.float32)
+            supported = DW._supported
+            DW._supported = lambda *a: False
+            try:
+                _, g64, _ = serial(t, phase_idx, torch.float64)
+            finally:
+                DW._supported = supported
+            loss_err = max(loss_err, abs(float(losses[t]) - loss) / abs(loss))
+            for k, w0 in states[t].items():
+                got = (params[k] if k in params else buffers[k])[t].detach()
+                got = got.cpu()
+                if k not in grads:
+                    if not (torch.equal(got, w0) and torch.equal(sd[k], w0)):
+                        raise AssertionError(f"{name} [{phase.name}] trial "
+                                             f"{t}: frozen {k} moved")
+                    continue
+                grad_err = max(grad_err, rel_err(
+                    params[k].grad[t].double(), grads[k]))
+                g = g64[k].abs().cpu()
+                held = (g > G_FLAT) & (g > 0.1 * g.square().mean().sqrt())
+                d = (got - sd[k]).abs()
+                n_held += int(held.sum())
+                n_all += held.numel()
+                if held.any():
+                    upd_err = max(upd_err, float(d[held].max()) / phase.lr)
+                if float(d.max()) > 2 * step * phase.lr + 1e-7:
+                    raise AssertionError(f"{name} [{phase.name}] trial {t}: "
+                                         f"{k} apart by {float(d.max())}")
+        print(f"{name} [{phase.name}] one stacked float32 step of {n} trials "
+              f"vs {n} serial steps on {smi}: loss max relative "
+              f"{loss_err:.2e}, gradients max relative {grad_err:.2e} (bar "
+              f"{F32_RTOL:.0e}); updates of the {n_held} of {n_all} "
+              f"elements held (float64 gradient over {G_FLAT:.0e} and 0.1 "
+              f"of its tensor's RMS) within {upd_err:.2e} of lr (bar 1e-2); "
+              f"B2 launches in the stacked step {dw}", flush=True)
+        if not (loss_err <= F32_RTOL and grad_err <= F32_RTOL
+                and upd_err <= 1e-2 and n_held > 0):
+            raise AssertionError(f"{name} [{phase.name}]: stacked step out "
+                                 f"of the bars")
+        want_dw = 10 if name == "mobilenetv2" else 0
+        if dw != want_dw or DC.copy_count != dc0[1]:
+            raise AssertionError(f"{name}: {dw} B2 launches in a stacked "
+                                 f"step, want {want_dw}")
+
+
+class TrialMeter:
+    """Per trial-parallel experiment (the port's functions wrapped, not
+    copied): setup seconds (to ``ParallelFoldTrainer.fit``'s first epoch:
+    model build, the frame table's upload, the stacked initialization),
+    training frames/s (every trial's rows over the training epochs' time,
+    synchronized), the fit's returned weights, and with ``stop_after`` an
+    :class:`Interrupted` raised once that many epoch checkpoints are
+    saved."""
+
+    def __init__(self, stop_after=None):
+        self.stop_after, self.saves = stop_after, 0
+        self.rec = {"train_s": 0.0, "frames": 0, "setup": None,
+                    "t0": time.perf_counter()}
+
+    def __enter__(self):
+        from ab_line_classifier_torch.parallel.trial_parallel import (
+            ParallelFoldTrainer as P)
+
+        self.saved = (P.fit, P.run_epoch, P._save_resume)
+        fit, run_epoch, save = self.saved
+        meter = self
+
+        def timed_fit(trainer, *a, **kw):
+            out = fit(trainer, *a, **kw)
+            meter.rec["best"] = out[0]
+            meter.rec["history"] = out[1]
+            return out
+
+        def timed_epoch(trainer, params, buffers, opt, cache, idx_tab,
+                        mask_tab, *, train, **kw):
+            if meter.rec["setup"] is None:
+                meter.rec["setup"] = time.perf_counter() - meter.rec["t0"]
+            if not train:
+                return run_epoch(trainer, params, buffers, opt, cache,
+                                 idx_tab, mask_tab, train=train, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run_epoch(trainer, params, buffers, opt, cache, idx_tab,
+                            mask_tab, train=train, **kw)
+            torch.cuda.synchronize()
+            meter.rec["train_s"] += time.perf_counter() - t0
+            meter.rec["frames"] += int(mask_tab.sum())
+            return out
+
+        def counted_save(trainer, *a, **kw):
+            save(trainer, *a, **kw)
+            meter.saves += 1
+            if meter.stop_after is not None and meter.saves >= \
+                    meter.stop_after:
+                raise Interrupted
+
+        P.fit, P.run_epoch, P._save_resume = (timed_fit, timed_epoch,
+                                              counted_save)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        return self
+
+    def __exit__(self, *exc):
+        from ab_line_classifier_torch.parallel.trial_parallel import (
+            ParallelFoldTrainer as P)
+
+        torch.cuda.synchronize()
+        self.rec["wall"] = time.perf_counter() - self.rec["t0"]
+        self.rec["peak"] = torch.cuda.max_memory_allocated()
+        P.fit, P.run_epoch, P._save_resume = self.saved
+        return False
+
+
+def run_trial_parallel(label, fn, want, smi, serial=None, **kw):
+    """Run one trial-parallel experiment with the launch counts set to 0
+    just before and read just after; hold them to ``want`` (B1, B2) and no
+    input copied; print its wall, setup, training frames/s and peak memory
+    beside ``serial``'s (phase 12's). Returns (result, meter record,
+    launches)."""
+    import contextlib
+    import io
+
+    from ab_line_classifier_torch.ops import depthwise_cuda as DC
+    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+
+    PC.reset_launch_count()
+    DC.reset_launch_count()
+    out = io.StringIO()
+    with TrialMeter() as meter, contextlib.redirect_stdout(out):
+        result = fn(device="cuda", verbose=False, **kw)
+    got = (PC.launch_count, DC.launch_count)
+    rec = meter.rec
+    text = out.getvalue()
+    print(f"{label} on {smi}: wall {rec['wall']:.3f} s, setup "
+          f"{rec['setup']:.3f} s, training "
+          f"{rec['frames'] / rec['train_s']:.1f} frames/s ({rec['frames']} "
+          f"frames of every trial in {rec['train_s']:.3f} s), "
+          f"max_memory_allocated {rec['peak']} bytes; launches B1 {got[0]} "
+          f"B2 {got[1]} (want {want}), input copies {DC.copy_count}",
+          flush=True)
+    if serial is not None:
+        print(f"  phase 12's serial run of the same model and data: wall "
+              f"{serial['wall']:.3f} s for {serial['runs']} runs, training "
+              f"{serial['fps']:.1f} frames/s, peak {serial['peak']} bytes",
+              flush=True)
+    if got != tuple(want) or DC.copy_count:
+        raise AssertionError(f"{label}: launches {got}, want {want}, copies "
+                             f"{DC.copy_count}")
+    return result, rec, got, text
+
+
+def profile_stacked_step(name, n, smi):
+    """A profiled stacked training step (bf16, the config's augmentation
+    and dropout) of ``n`` trials of ``name`` at batch TRAIN_BATCH: device
+    idle share and top kernels."""
+    from ab_line_classifier_torch.models import build_model
+    from ab_line_classifier_torch.ops import metrics as M
+    from ab_line_classifier_torch.parallel.trial_parallel import (
+        ParallelFoldTrainer)
+    from ab_line_classifier_torch.predict.benchmark import (TRAIN_AUG,
+                                                            ZOO_HPARAMS)
+
+    spec = build_model(name, ZOO_HPARAMS[name], OUT_HW + (3,), 2,
+                       mixed_precision=True)
+    pt = ParallelFoldTrainer(spec, n, class_weights=np.ones((n, 2)),
+                             aug_config=TRAIN_AUG, seed=0,
+                             compute_dtype=torch.bfloat16, device="cuda")
+    params, buffers = pt.init_stacked()
+    opt = pt.begin_phase(0, spec.phases[0], params)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    images = torch.randint(0, 256, (n, TRAIN_BATCH, *OUT_HW, 3),
+                           dtype=torch.uint8, device="cuda", generator=gen)
+    labels = torch.randint(0, 2, (n, TRAIN_BATCH), device="cuda",
+                           generator=gen)
+    mask = torch.ones((n, TRAIN_BATCH), device="cuda")
+    metrics = M.init_metrics(2, device="cuda", trials=n)
+    prof = device_time_by_kernel(lambda: pt.train_step(
+        params, buffers, opt, images, labels, mask, np.ones(n), np.ones(n),
+        metrics))
+    wall, busy = prof["wall_ms"], prof["busy_ms"]
+    print(f"profiled stacked step on {smi}: {name} [{spec.phases[0].name}] "
+          f"{n} trials x batch {TRAIN_BATCH}: wall {wall:.3f} ms, device "
+          f"busy {busy:.3f} ms (idle share {1 - busy / wall:.4f}), "
+          f"{n * TRAIN_BATCH / wall * 1e3:.1f} frames/s", flush=True)
+    for kname, ms in prof["kernels"][:8]:
+        print(f"  {ms:9.3f} ms {100 * ms / wall:6.2f}%  {kname[:110]}")
+
+
+def phase_trial_parallel(smi, serial):
+    """Phase 13: the trial-parallel experiments (module docstring).
+    Returns each path's (B1, B2) launches and B2's trial-launch
+    timings."""
+    import shutil
+
+    from ab_line_classifier_torch.data.pipeline import FrameArrays
+    from ab_line_classifier_torch.data.splits import FoldSet
+    from ab_line_classifier_torch.predict.benchmark import build_zoo
+    from ab_line_classifier_torch.train import experiment as E
+
+    timings = trial_launch_checks(build_zoo("mobilenetv2"), smi)
+    for name, n in TP_STEP_TRIALS.items():
+        stacked_vs_serial_step(name, n, smi)
+
+    root = os.path.join(REPO, "build", "phase13")
+    shutil.rmtree(root, ignore_errors=True)
+    n = EXP_PATIENTS * EXP_FRAMES_PER_PATIENT
+    images, labels = labelled_frames(n, seed=12)
+    patients = np.repeat(np.arange(EXP_PATIENTS), EXP_FRAMES_PER_PATIENT)
+    frames = FrameArrays(images, labels, [f"frame{i:04d}.png"
+                                          for i in range(n)])
+
+    def nb(rows):
+        return -(-len(rows) // TRAIN_BATCH)
+
+    def cv_launches(folds, epochs):
+        return (epochs * max(nb(v) for v in folds.val)
+                + sum(nb(t) for t in folds.test), 0)
+
+    # A profiled stacked step of each model first: it warms cuDNN's
+    # grouped-conv plans for the metered runs after it.
+    profile_stacked_step("cutoffvgg16", EXP_FOLDS, smi)
+    profile_stacked_step("mobilenetv2", EXP_TRIALS, smi)
+    profile_stacked_step("mobilenetv2", TP_FULL_TRIALS, smi)
+
+    launches = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        folds = grouped_folds(patients, EXP_FOLDS, 0.1, seed=42)
+        source = E.FoldSource(frames, folds)
+        cfg = experiment_config(os.path.join(root, "kfold"), "cutoffvgg16",
+                                "cross_validation")
+        ck = os.path.join(root, "kfold_resume")
+        try:
+            with TrialMeter(stop_after=1):
+                E.cross_validation_parallel(cfg, verbose=False,
+                                            device="cuda", source=source,
+                                            checkpoint_dir=ck)
+            raise AssertionError("the interrupted run went on")
+        except Interrupted:
+            pass
+        with TrialMeter() as resumed:
+            resumed_rows = E.cross_validation_parallel(
+                cfg, verbose=False, device="cuda", source=source,
+                checkpoint_dir=ck, resume=True)
+        summary, rec, launches["cross_validation_parallel"], _ = \
+            run_trial_parallel(
+                f"cross_validation_parallel ({EXP_FOLDS} folds of "
+                f"cutoffvgg16)", E.cross_validation_parallel,
+                cv_launches(folds, 2), smi, serial["cross_validation"],
+                cfg=cfg, source=source)
+        same = str(resumed_rows) == str(summary) and all(
+            torch.equal(v, resumed.rec["best"][part][k])
+            for part in ("params", "buffers")
+            for k, v in rec["best"][part].items())
+        print(f"cross_validation_parallel interrupted after the extract "
+              f"epoch and resumed: {len(resumed.rec['history'])} epochs in "
+              f"the history, test rows and final weights "
+              f"{'bit-equal' if same else 'DIFFERENT'} to the uninterrupted "
+              f"run's; accuracy mean {summary[-2]['accuracy']:.4f}",
+              flush=True)
+        if not same or [h["epoch"] for h in resumed.rec["history"]] != [0, 1]:
+            raise AssertionError("the resumed trial-parallel run differs "
+                                 "from the uninterrupted one")
+
+        split = FoldSet(*([part] for part in folds.fold(0)))
+        tr, va, _ = split.fold(0)
+        cfg = experiment_config(os.path.join(root, "sweep"), "mobilenetv2",
+                                "hparam_search")
+        sweep_want = (nb(va), ZOO["mobilenetv2"][1] * (nb(tr) + nb(va)))
+        out, _, launches["lr_search_parallel"], text = run_trial_parallel(
+            f"lr_search_parallel ({EXP_TRIALS} LR trials of mobilenetv2)",
+            E.lr_search_parallel, sweep_want, smi, serial["hparam_search"],
+            cfg=cfg, source=E.FoldSource(frames, split))
+        lrs = [t["LR"] for t in out["trials"]]
+        print(f"lr_search_parallel: LRs {lrs}, objectives (val loss at each "
+              f"trial's best epoch) "
+              f"{[round(t['objective'], 6) for t in out['trials']]}, best "
+              f"{out['best_params']}", flush=True)
+        if ("ignoring search variables ['DROPOUT']" not in text
+                or len(lrs) != EXP_TRIALS
+                or not np.allclose([lrs[0], lrs[-1]], [1e-5, 1e-3])
+                or not np.isfinite(out["best_objective"])):
+            raise AssertionError(f"lr_search_parallel: {out['trials']}")
+
+        full = grouped_folds(patients, TP_FULL_FOLDS, 0.1, seed=42)
+        cfg = experiment_config(os.path.join(root, "kfold_full"),
+                                "cutoffvgg16", "cross_validation")
+        summary, _, launches["cross_validation_parallel_full"], _ = \
+            run_trial_parallel(
+                f"cross_validation_parallel ({TP_FULL_FOLDS} folds, "
+                f"config.yml's N_FOLDS)", E.cross_validation_parallel,
+                cv_launches(full, 2), smi, cfg=cfg,
+                source=E.FoldSource(frames, full))
+        if len(summary) != TP_FULL_FOLDS + 2 or not all(
+                np.isfinite(r["accuracy"]) for r in summary):
+            raise AssertionError(f"5-fold summary: {summary}")
+        cfg = experiment_config(os.path.join(root, "sweep_full"),
+                                "mobilenetv2", "hparam_search").replace(
+            TRAIN={"HPARAM_SEARCH": {"N_EVALS": TP_FULL_TRIALS}})
+        out, _, launches["lr_search_parallel_full"], _ = run_trial_parallel(
+            f"lr_search_parallel ({TP_FULL_TRIALS} trials, config.yml's "
+            f"N_EVALS)", E.lr_search_parallel, sweep_want, smi, cfg=cfg,
+            source=E.FoldSource(frames, split))
+        if len(out["trials"]) != TP_FULL_TRIALS:
+            raise AssertionError(f"10-trial search: {out['trials']}")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return launches, timings
 
 
 def main():
@@ -2120,7 +2683,13 @@ def main():
     torch.cuda.synchronize()
 
     phase("12 cross-validation and hyperparameter search")
-    launches.update(phase_experiments(smi))
+    paths, serial = phase_experiments(smi)
+    launches.update(paths)
+    torch.cuda.synchronize()
+
+    phase("13 trial-parallel cross-validation and LR search")
+    paths, trial_timings = phase_trial_parallel(smi, serial)
+    launches.update(paths)
 
     def graph_runs(kernel):
         """Runs on the card of ``kernel`` in one replay of each model's
@@ -2161,7 +2730,9 @@ def main():
              for name, t in b2_models.items()},
          "efficientnetb7_largest_5x5": {
              key: b2_b7[key] for key in ("ms", "plain_ms", "library_ms",
-                                         "bound_ms")}},
+                                         "bound_ms")},
+         "trial_launch_per_mobilenetv2_forward_batch_64": {
+             f"F={n}": t for n, t in trial_timings.items()}},
     ]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

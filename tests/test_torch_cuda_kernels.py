@@ -155,6 +155,41 @@ def test_depthwise_kernel_at_every_zoo_shape():
 
 
 @pytest.mark.cuda
+def test_depthwise_trial_launch_matches_plain_version():
+    """B2's launch over F trials (``depthwise_trials``: trial-major
+    ``F * C`` channels, per-trial weights), as ``torch.func.vmap`` reaches
+    it, at every stride-1 mobilenetv2 shape at 128x128 (4 frames, F = 4),
+    in both dtypes: one launch, no input copied, each trial equal to its
+    own one-trial launch and to the plain version."""
+    _need_cuda()
+    from ab_line_classifier_torch.predict.benchmark import (
+        build_zoo, depthwise_layer_shapes)
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    n = 4
+    for (shape, k), dtype in itertools.product(
+            depthwise_layer_shapes(build_zoo("mobilenetv2")),
+            (torch.float32, torch.bfloat16)):
+        _, h, w, c = shape
+        x = torch.randn((4, h, w, n, c), device="cuda",
+                        generator=gen).to(dtype).permute(0, 3, 4, 1, 2)
+        wt = (0.2 * torch.randn((n, c, 1, k, k), device="cuda",
+                                generator=gen)).to(dtype)
+        depthwise_cuda.reset_launch_count()
+        y = torch.func.vmap(torch_depthwise.depthwise_conv,
+                            in_dims=(1, 0))(x, wt)
+        assert (depthwise_cuda.launch_count,
+                depthwise_cuda.copy_count) == (1, 0)
+        for t in range(n):
+            xt = x[:, t].contiguous(memory_format=torch.channels_last)
+            one = depthwise_cuda.cuda_depthwise(
+                xt, depthwise_cuda.pack_weight(wt[t]))
+            assert torch.equal(y[t], one)
+            assert torch.equal(y[t], torch_depthwise.depthwise_plain(
+                xt, wt[t]))
+
+
+@pytest.mark.cuda
 def test_gradcam_through_the_depthwise_kernel():
     """Grad-CAM of mobilenetv2 on the card: its forward launches the
     depthwise kernel 10 times, the tap gradient is taken after them, and

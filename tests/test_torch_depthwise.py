@@ -234,3 +234,131 @@ def test_launch_geometry_rejects_what_the_kernel_lacks():
         with pytest.raises(ValueError):
             depthwise_cuda.launch_geometry(
                 1, 8, 8, 8, kw.pop("k", 3), 2, True, **kw)
+
+
+def _stacked_case(shape, k, n_trials, dtype, seed):
+    """F trials' NHWC inputs laid out as vmap's conv rules leave them
+    (memory ``[B, H, W, F, C]``), as the ``[B, F, C, H, W]`` view, and
+    their weights ``[F, C, 1, K, K]``."""
+    b, h, w, c = shape
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((b, h, w, n_trials, c), generator=gen).to(dtype)
+    wt = (0.2 * torch.randn((n_trials, c, 1, k, k), generator=gen)).to(dtype)
+    return x.permute(0, 3, 4, 1, 2), wt
+
+
+def _mobilenetv2_slice():
+    from ab_line_classifier_torch.models import build_model
+    from ab_line_classifier_torch.predict.benchmark import ZOO_HPARAMS
+
+    hp = dict(ZOO_HPARAMS["mobilenetv2"], DROPOUT=0.0, CUTOFF_IDX=53,
+              FREEZE_IDX=-1)
+    return build_model("mobilenetv2", hp, (32, 32, 3), 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stacked_trials_equal_per_trial_plain(dtype):
+    """Under ``torch.func.vmap`` with per-trial weights, the depthwise
+    entry point runs once over all trials (``depthwise_trials``: the
+    trials as ``F * C`` channels of one tensor, a view of vmap's layout);
+    on the CPU that is the plain version, and each trial's output equals
+    ``depthwise_plain`` of that trial alone, bit for bit, at every
+    stride-1 shape of a mobilenetv2 slice (32x32, 3 trials); the weight
+    and input gradients (one grouped conv over the ``F * C`` channels)
+    are each trial's grouped-conv gradients within 1e-5 of the tensor's
+    largest in float32 (other summation orders), 2e-2 in bfloat16."""
+    from ab_line_classifier_torch.predict.benchmark import (
+        depthwise_layer_shapes)
+
+    shapes = depthwise_layer_shapes(_mobilenetv2_slice())
+    assert len(shapes) == 4
+    for i, (shape, k) in enumerate(shapes):
+        x, wt = _stacked_case((2,) + shape[1:], k, 3, dtype, i)
+        x.requires_grad_(True)
+        wt.requires_grad_(True)
+        y = torch.func.vmap(D.depthwise_conv, in_dims=(1, 0))(x, wt)
+        assert y.shape == (3, 2) + x.shape[2:]
+        g = torch.randn(y.shape, generator=torch.Generator().manual_seed(i))
+        (y.float() * g).sum().backward()
+        for t in range(3):
+            xt = x[:, t].detach()
+            assert torch.equal(y[t], D.depthwise_plain(xt, wt[t].detach()))
+            xr = xt.clone().requires_grad_(True)
+            wr = wt[t].detach().clone().requires_grad_(True)
+            (D.depthwise_reference(xr, wr).float() * g[t]).sum().backward()
+            share = 1e-5 if dtype == torch.float32 else 2e-2
+            for got, want in ((x.grad[:, t], xr.grad), (wt.grad[t], wr.grad)):
+                torch.testing.assert_close(
+                    got.float(), want.float(), rtol=0,
+                    atol=share * float(want.abs().max()))
+
+
+def test_stacked_mobilenetv2_slice_forward_equals_per_trial():
+    """A mobilenetv2 slice's stacked forward (``functional_call`` under
+    ``vmap``, the trial-parallel trainer's form, batch norms in their
+    stacked form) equals each trial's own module forward, in float32."""
+    from torch.func import functional_call, vmap
+
+    from ab_line_classifier_torch.parallel.trial_parallel import _stack
+
+    spec = _mobilenetv2_slice()
+    mods = [spec.logits_module(generator=torch.Generator().manual_seed(s))
+            for s in range(3)]
+    x = torch.rand((3, 4, 32, 32, 3), generator=torch.Generator()
+                   .manual_seed(9))
+    for m in mods:
+        G.adapt_batch_norm(m.eval(), x[0])
+    states = [m.state_dict() for m in mods]
+    stacked = {k: _stack([s[k] for s in states], "cpu") for k in states[0]}
+    template = mods[0].to(memory_format=torch.channels_last).eval()
+    got = vmap(lambda s, xx: functional_call(
+        template, s, (xx,), {"bn_stats": {}}))(stacked, x)
+    for t, m in enumerate(mods):
+        m.load_state_dict(states[t])
+        with torch.no_grad():
+            want = m.eval()(x[t])
+        torch.testing.assert_close(got[t].detach(), want, rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_stacked_step_keeps_the_trials_channels_last(monkeypatch):
+    """In a stacked mixed-precision mobilenetv2 training step and
+    evaluation (the trial-parallel trainer's), every input that reaches the
+    trial launch lies in memory as ``[B, H, W, F, C]``: the ``F * C``-wide
+    tensor B2 takes is then a view, and the kernel copies nothing
+    (``copy_count`` 0 on the card). The zero pads before the stride-2
+    layers keep that layout (``ops/padding.py::pad_hw``)."""
+    import numpy as np
+
+    from ab_line_classifier_torch.models import build_model
+    from ab_line_classifier_torch.ops import metrics as M
+    from ab_line_classifier_torch.parallel.trial_parallel import (
+        ParallelFoldTrainer)
+    from ab_line_classifier_torch.predict.benchmark import (TRAIN_AUG,
+                                                            ZOO_HPARAMS)
+
+    layouts = []
+    trials = D.depthwise_trials
+
+    def spy(x, w):
+        layouts.append(x.permute(0, 3, 4, 1, 2).is_contiguous())
+        return trials(x, w)
+
+    monkeypatch.setattr(D, "depthwise_trials", spy)
+    spec = build_model("mobilenetv2", ZOO_HPARAMS["mobilenetv2"],
+                       (64, 64, 3), 2, mixed_precision=True)
+    n, b = 2, 4
+    pt = ParallelFoldTrainer(spec, n, class_weights=np.ones((n, 2)),
+                             aug_config=TRAIN_AUG,
+                             compute_dtype=torch.bfloat16, device="cpu")
+    params, buffers = pt.init_stacked()
+    opt = pt.begin_phase(0, spec.phases[0], params)
+    images = torch.randint(0, 256, (n, b, 64, 64, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(0))
+    labels = torch.zeros((n, b), dtype=torch.int64)
+    mask = torch.ones((n, b))
+    pt.train_step(params, buffers, opt, images, labels, mask, np.ones(n),
+                  np.ones(n), M.init_metrics(2, trials=n))
+    pt.eval_step(params, buffers, images, labels, mask,
+                 M.init_metrics(2, trials=n))
+    assert layouts == [True] * 20

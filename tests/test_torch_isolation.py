@@ -56,3 +56,23 @@ def test_port_sources_never_name_the_jax_package():
                             for m in ("jax", "flax", "optax", "orbax")):
                         hits.append(f"{os.path.relpath(path, REPO_ROOT)}:{i}")
     assert not hits, hits
+
+
+def test_trial_parallel_modules_are_covered():
+    """The trial-parallel modules are among the modules the probe above
+    imports, and alone they load no JAX, pandas or the JAX package."""
+    probe = (
+        "import pkgutil, sys, ab_line_classifier_torch as p\n"
+        "names = {m.name for m in pkgutil.walk_packages(p.__path__, "
+        "'ab_line_classifier_torch.')}\n"
+        "print(sorted(n for n in names if 'parallel' in n))\n"
+        "import ab_line_classifier_torch.parallel.trial_parallel\n"
+        "import ab_line_classifier_torch.train.experiment\n"
+        "print(sorted({m.split('.')[0] for m in sys.modules}))\n")
+    r = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                       text=True, timeout=120, cwd=REPO_ROOT, env=cli_env())
+    assert r.returncode == 0, r.stderr[-2000:]
+    listed, roots = r.stdout.splitlines()[:2]
+    assert "ab_line_classifier_torch.parallel.trial_parallel" in listed
+    assert not {"jax", "pandas", "ab_line_classifier_tpu"} & set(
+        eval(roots))

@@ -6,9 +6,10 @@ validation prediction tables locally, and saves a port checkpoint that
 ``python -m ab_line_classifier_torch.predict --device cpu`` serves. Without
 ``--device cpu`` and without a GPU the command raises. Cross-validation
 and hyperparameter search run on the same workspace, and the local
-artifact store is read as the JAX package reads it; what waits for later
-slices (``--trial-parallel``, fetching a pinned W&B artifact, the W&B
-sweep backend) raises ``NotImplementedError``.
+artifact store is read as the JAX package reads it; ``--trial-parallel``
+runs both experiments with every fold or trial at once; what waits for
+later slices (a device mesh with a trial axis, fetching a pinned W&B
+artifact, the W&B sweep backend) raises ``NotImplementedError``.
 """
 
 import glob
@@ -112,17 +113,18 @@ def test_train_cli_raises_without_a_gpu(workspace):
 
 
 def test_later_slices_raise(workspace, tmp_path):
-    """What still waits for a later slice raises: ``--trial-parallel``
-    (for every experiment), a W&B artifact version pinned for the split
-    or the folds that the store does not hold, and the W&B sweep backend
-    where wandb is importable (without it the sweep says so and runs the
-    native controller)."""
+    """What still waits for a later slice raises: trial-parallel
+    experiments on a mesh with a trial axis (multi-device training), a
+    W&B artifact version pinned for the split or the folds that the store
+    does not hold, and the W&B sweep backend where wandb is importable
+    (without it the sweep says so and runs the native controller)."""
     ws, cfg_path = workspace
     cfg = load_config(cfg_path)
-    for experiment in ("single_train", "cross_validation", "hparam_search"):
-        with pytest.raises(NotImplementedError, match="trial-parallel"):
-            train_experiment(cfg, experiment=experiment, trial_parallel=True,
-                             device="cpu")
+    meshed = cfg.replace(PARALLEL={"MESH": {"DATA": 1, "TRIAL": 2}})
+    for experiment in ("cross_validation", "hparam_search"):
+        with pytest.raises(NotImplementedError, match="multi-device"):
+            train_experiment(meshed, experiment=experiment,
+                             trial_parallel=True, device="cpu")
     pinned = cfg.replace_path("WANDB.TRAIN_VAL_TEST_ARTIFACT_VERSION", "v3")
     with pytest.raises(NotImplementedError, match="W&B"):
         resolve_datasets(pinned)
@@ -228,6 +230,52 @@ def test_cross_validation_and_hparam_search_run(workspace, capsys):
         for experiment in ("cross_validation", "hparam_search"):
             with pytest.raises(RuntimeError, match="CUDA is not available"):
                 train_experiment(cfg, experiment=experiment)
+
+
+def test_trial_parallel_cli_runs_both_experiments(workspace):
+    """``--trial-parallel --device cpu`` trains every fold (3) and every
+    LR trial (3, a log grid over LR_EXTRACT's box and the seeded draws of
+    JAX's two-phase search) of the workspace's cutoffvgg16 at once and
+    writes ``kfold_parallel_*.csv`` / ``lr_sweep_parallel_*.csv`` with the
+    JAX package's columns; without ``--device cpu`` and without a GPU it
+    raises."""
+    ws, cfg_path = workspace
+    d = yaml.safe_load(open(cfg_path))
+    d["DATA"]["K_FOLD_VALIDATION_SPLIT"] = 0.3
+    d["TRAIN"].update({"N_FOLDS": 3, "EPOCHS": 1, "MIXED_PRECISION": False})
+    d["TRAIN"]["HPARAM_SEARCH"]["N_EVALS"] = 3
+    d["HPARAM_SEARCH"]["CUTOFFVGG16"] = {
+        "LR_EXTRACT": {"TYPE": "float_log", "RANGE": [1e-5, 1e-3]},
+        "DROPOUT": {"TYPE": "float_uniform", "RANGE": [0.2, 0.5]}}
+    exp = os.path.join(ws, "experiments_parallel")
+    d["PATHS"]["EXPERIMENTS"] = exp
+    path = os.path.join(ws, "config_parallel.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(d, f)
+    for experiment, pattern, columns in (
+            ("cross_validation", "kfold_parallel_*.csv", None),
+            ("hparam_search", "lr_sweep_parallel_*.csv",
+             ["trial", "LR_EXTRACT", "objective"])):
+        r = _run("ab_line_classifier_torch.train", path, "--device", "cpu",
+                 "--experiment", experiment, "--trial-parallel",
+                 "--no-save-weights")
+        assert r.returncode == 0, r.stderr[-3000:]
+        out = glob.glob(os.path.join(exp, pattern))
+        assert len(out) == 1, out
+        table = pd.read_csv(out[0])
+        if columns is None:
+            assert list(table["fold"].astype(str)) == ["0", "1", "2",
+                                                       "mean", "std"]
+            assert np.isfinite(table["accuracy"]).all()
+        else:
+            assert list(table.columns) == columns
+            assert list(table["trial"]) == [0, 1, 2]
+            assert "ignoring search variables ['DROPOUT']" in r.stdout
+    if not torch.cuda.is_available():
+        r = _run("ab_line_classifier_torch.train", path, "--experiment",
+                 "cross_validation", "--trial-parallel")
+        assert r.returncode != 0
+        assert "CUDA is not available" in r.stderr
 
 
 @pytest.mark.parametrize("shuffle,drop_remainder",
