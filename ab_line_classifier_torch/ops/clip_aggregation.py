@@ -12,7 +12,10 @@ dataset's clips aggregate in a few tensor ops:
   the classification threshold, from a cumsum/cummax run-length identity.
 
 Results are ``[..., C]`` clip probabilities (binary: column 1 is B-lines).
-Sums and counts accumulate in float32 whatever the probability dtype.
+Sums and counts accumulate in float32 whatever the probability dtype. The
+sliding window's float32 prefix sum is added in the JAX package's order
+(:func:`prefix_sum`), so its clip probabilities are the JAX package's bit
+for bit, on the CPU and on the card alike.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 
 def _default_mask(probs: torch.Tensor,
@@ -38,6 +42,35 @@ def average_clip_probs(probs: torch.Tensor,
     total = (probs.to(torch.float32) * m[..., None]).sum(dim=-2)
     count = m.sum(dim=-1, keepdim=True).clamp_min(1.0)
     return (total / count).to(probs.dtype)
+
+
+# XLA (the JAX package's CPU backend) rewrites a cumulative sum into tiles
+# of this many elements.
+SCAN_TILE = 16
+
+
+def prefix_sum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive float32 prefix sum over the last axis, added in the order
+    XLA's CPU backend adds ``jnp.cumsum``: tiles of 16 each summed left to
+    right, the tiles' totals prefix-summed the same way (recursively), and
+    each tile's exclusive carry added to its elements. Each step is an
+    elementwise add, so every device rounds alike; ``torch.cumsum``'s order
+    differs by device and from XLA's."""
+    x = x.to(torch.float32)
+    t = x.shape[-1]
+    if t == 0:
+        return x
+    n = -(-t // SCAN_TILE)
+    tiles = F.pad(x, (0, n * SCAN_TILE - t)).unflatten(-1, (n, SCAN_TILE))
+    cols = [tiles[..., 0]]
+    for j in range(1, SCAN_TILE):
+        cols.append(cols[-1] + tiles[..., j])
+    local = torch.stack(cols, dim=-1)
+    if n > 1:
+        inclusive = prefix_sum(local[..., -1])
+        carry = F.pad(inclusive[..., :-1], (1, 0))
+        local = local + carry[..., None]
+    return local.flatten(-2)[..., :t]
 
 
 def max_contiguous_positive(preds: torch.Tensor,
@@ -83,8 +116,7 @@ def sliding_window_clip_probs(probs: torch.Tensor, window: int,
         max_b = torch.zeros(probs.shape[:-2], dtype=probs.dtype,
                             device=probs.device)
         return torch.stack([1.0 - max_b, max_b], dim=-1)
-    s = torch.cumsum(b, dim=-1)
-    s = torch.cat([torch.zeros_like(s[..., :1]), s], dim=-1)
+    s = F.pad(prefix_sum(b), (1, 0))
     win_means = (s[..., window:] - s[..., :-window]) / float(window)
     # A window is valid only if it lies within the clip's valid frames;
     # validity arithmetic in int32.

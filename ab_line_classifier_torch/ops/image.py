@@ -1,6 +1,7 @@
-"""Image ops: nearest-neighbour resize semantics and the plain PyTorch
-frame -> model-input preprocessing (port of
-the JAX package's ``ops/image.py``).
+"""Image ops: nearest-neighbour resize semantics, the plain PyTorch
+frame -> model-input preprocessing, and the auto-masking path's
+anti-aliased downsample and bilinear resize (port of the JAX package's
+``ops/image.py``).
 
 Two index maps are supported, as in the reference:
 
@@ -20,6 +21,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ab_line_classifier_torch.models.preprocess import (PREPROCESS_FNS,
                                                         preprocess_affine_params)
@@ -60,6 +62,99 @@ def nearest_resize(x: torch.Tensor, out_hw: Tuple[int, int],
         x = (x.index_select(1, _index(h, oh, mode, x.device))
              .index_select(2, _index(w, ow, mode, x.device)))
     return x[0] if squeeze else x
+
+
+def antialias_sigma(src_hw: Tuple[int, int],
+                    dst_hw: Tuple[int, int]) -> Tuple[float, float]:
+    """skimage.transform.resize's default anti-aliasing sigma per axis:
+    ``max(0, (downscale_factor - 1) / 2)`` (scikit-image 0.19.1, the
+    reference's pin)."""
+    return tuple(max(0.0, (s / d - 1.0) / 2.0)
+                 for s, d in zip(src_hw, dst_hw))
+
+
+def _gaussian_kernel1d(sigma: float, truncate: float = 4.0) -> np.ndarray:
+    """scipy.ndimage.gaussian_filter1d's kernel: radius
+    ``int(truncate * sigma + 0.5)``, normalized Gaussian weights, computed
+    in float64 and stored as float32."""
+    radius = int(truncate * sigma + 0.5)
+    x = np.arange(-radius, radius + 1, dtype=np.float64)
+    k = np.exp(-0.5 * (x / sigma) ** 2)
+    return (k / k.sum()).astype(np.float32)
+
+
+def gaussian_blur(x: torch.Tensor, sigma_hw: Tuple[float, float],
+                  truncate: float = 4.0) -> torch.Tensor:
+    """Separable zero-padded Gaussian blur of ``[B, H, W]`` images:
+    ``scipy.ndimage.gaussian_filter(..., mode='grid-constant', cval=0)``,
+    rows first, then columns, each pass a float32 convolution."""
+    out = x.to(torch.float32)[:, None]
+    for axis, sigma in ((0, float(sigma_hw[0])), (1, float(sigma_hw[1]))):
+        if sigma <= 0.0:
+            continue
+        k = torch.as_tensor(_gaussian_kernel1d(sigma, truncate),
+                            device=x.device)
+        r = (len(k) - 1) // 2
+        if axis == 0:
+            out = F.conv2d(out, k.view(1, 1, -1, 1), padding=(r, 0))
+        else:
+            out = F.conv2d(out, k.view(1, 1, 1, -1), padding=(0, r))
+    return out[:, 0]
+
+
+def linear_resize_weights(src: int, dst: int,
+                          antialias: bool = True) -> np.ndarray:
+    """``[src, dst]`` float32 weights of ``jax.image.resize(method=
+    "linear")`` along one axis: half-pixel sample positions, a triangle
+    kernel (widened by the downscale factor when ``antialias``), each
+    column normalized to sum 1, and columns whose sample lies outside the
+    source zeroed. Computed with JAX's float32 operations in JAX's order,
+    so the weights that are exactly 0 are the same ones: a bilinear
+    upsample's support (output > 0) depends only on those. For an odd
+    multiple of 128 (640, 1920) half the outer taps are 0 only in exact
+    arithmetic; ``F.interpolate`` rounds them otherwise."""
+    scale = dst / src
+    f32 = np.float32
+    inv = f32(1.0 / scale)
+    kscale = f32(max(1.0 / scale, 1.0)) if antialias else f32(1.0)
+    sample = (np.arange(dst, dtype=f32) + f32(0.5)) * inv - f32(0.5)
+    x = np.abs(sample[None, :] - np.arange(src, dtype=f32)[:, None]) / kscale
+    w = np.maximum(f32(0.0), f32(1.0) - np.abs(x))
+    total = w.sum(axis=0, keepdims=True, dtype=f32)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(f32).eps,
+                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample >= -0.5) & (sample <= src - 0.5)
+    return np.where(inside[None, :], w, f32(0.0)).astype(f32)
+
+
+def linear_resize(x: torch.Tensor, out_hw: Tuple[int, int],
+                  antialias: bool = True) -> torch.Tensor:
+    """``jax.image.resize(x, (B,) + out_hw, method="linear", antialias=)``
+    of ``[B, H, W]`` float32 images: one float32 product with each axis's
+    :func:`linear_resize_weights` (an axis of equal size is left alone)."""
+    x = x.to(torch.float32)
+    h, w = x.shape[1:]
+    if h != out_hw[0]:
+        wh = torch.as_tensor(linear_resize_weights(h, out_hw[0], antialias),
+                             device=x.device)
+        x = torch.einsum("bhw,hi->biw", x, wh)
+    if w != out_hw[1]:
+        ww = torch.as_tensor(linear_resize_weights(w, out_hw[1], antialias),
+                             device=x.device)
+        x = torch.einsum("bhw,wj->bhj", x, ww)
+    return x
+
+
+def skimage_downsample(x: torch.Tensor,
+                       out_hw: Tuple[int, int]) -> torch.Tensor:
+    """``skimage.transform.resize(..., mode='constant', preserve_range=True)``
+    (scikit-image 0.19.1) of ``[B, H, W]`` float images: Gaussian
+    anti-aliasing at the default sigma, then half-pixel point-bilinear
+    interpolation with no second anti-aliasing."""
+    sigma = antialias_sigma(tuple(x.shape[1:]), out_hw)
+    if max(sigma) > 0.0:
+        x = gaussian_blur(x, sigma)
+    return linear_resize(x, out_hw, antialias=False)
 
 
 def source_mask(src_hw: Tuple[int, int], mask=None,

@@ -33,7 +33,6 @@ they come with later slices of the port.
 
 from __future__ import annotations
 
-import csv
 import dataclasses
 import glob
 import json
@@ -68,6 +67,7 @@ from ab_line_classifier_torch.train.sweep import (SweepExhausted,
                                                   space_from_config)
 from ab_line_classifier_torch.train.tracker import make_tracker
 from ab_line_classifier_torch.utils import checkpoint as ckpt
+from ab_line_classifier_torch.utils.tables import write_csv
 
 _LATER = "waits for a later slice of the port (ROADMAP Queue A)"
 
@@ -543,28 +543,6 @@ def _read_trial_records(path: str, verbose: bool) -> list:
 def _append_record(path: str, record: Dict) -> None:
     with open(path, "a") as f:
         f.write(json.dumps(record) + "\n")
-
-
-def _csv_cell(v) -> str:
-    """A value as pandas' ``to_csv`` writes it: floats by their shortest
-    repr, NaN and missing as empty."""
-    if v is None or (isinstance(v, float) and math.isnan(v)):
-        return ""
-    return repr(v) if isinstance(v, float) else str(v)
-
-
-def write_csv(path: str, rows: Sequence[Dict]) -> None:
-    """``rows`` as ``pd.DataFrame(rows).to_csv(path, index=False)`` writes
-    them: the columns in order of first appearance, a missing cell
-    empty."""
-    columns: List[str] = []
-    for row in rows:
-        columns += [k for k in row if k not in columns]
-    with open(path, "w", newline="") as f:
-        writer = csv.writer(f, lineterminator="\n")
-        writer.writerow(columns)
-        writer.writerows([_csv_cell(row.get(c)) for c in columns]
-                         for row in rows)
 
 
 def mean_std_rows(rows: Sequence[Dict], key: str = "fold") -> List[Dict]:

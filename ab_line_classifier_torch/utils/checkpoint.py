@@ -11,7 +11,7 @@ A checkpoint is a directory ``results/models/model{timestamp}/`` holding
 ``meta.json`` is written last and is the commit marker. A path that is not
 a checkpoint but a directory of them (or ``.../latest``) resolves to the
 newest. The JAX package's Orbax directories are not readable here without
-Orbax; converting one is queued in ROADMAP.md.
+Orbax: ``scripts/orbax_to_torch.py`` converts one, where JAX is installed.
 """
 
 from __future__ import annotations

@@ -8,6 +8,11 @@ arrays, keyed by Keras layer name (convert device arrays with
 * conv ``kernel`` HWIO ``[kh, kw, in, out]`` -> ``<layer>.weight`` OIHW; a
   depthwise ``kernel [K, K, 1, C]`` is the same transpose, to the grouped
   conv's ``[C, 1, K, K]``;
+* a transposed conv's ``kernel`` (flax ``ConvTranspose`` with
+  ``transpose_kernel=True``, the U-Net's ``dec*_up``), stored as Keras's
+  ``(kh, kw, out, in)``, takes the same transpose to
+  ``ConvTranspose2d.weight`` ``(in, out, kh, kw)``, with no spatial flip:
+  both are the gradient of a convolution;
 * dense ``kernel`` ``[in, out]`` -> ``<layer>.weight`` ``[out, in]``;
 * batch-norm ``scale`` -> ``<layer>.weight``; every ``bias`` ->
   ``<layer>.bias``;

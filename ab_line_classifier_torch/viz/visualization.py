@@ -1,13 +1,13 @@
-"""Figures (port of the JAX package's ``viz/visualization.py:34-178``):
-the test set's ROC curves and confusion matrix, the Grad-CAM heatmap
-panel, and the sweep plots (progress of a grid or random sweep, the GP's
-partial dependence of a Bayesian one), written as timestamped PNGs with
+"""Figures (port of the JAX package's ``viz/visualization.py``): the test
+set's ROC curves and confusion matrix, the Grad-CAM heatmap panel, the
+sweep plots (progress of a grid or random sweep, the GP's partial
+dependence of a Bayesian one) and the clip-rule threshold experiments'
+metric curves and ROC, written as timestamped PNGs with
 the reference's file contract. Curves and matrices come from
 ``predict/metrics.py`` (numpy), not sklearn.
 
 matplotlib is imported by the function that draws, with the ``Agg``
-backend, so the package imports where matplotlib is not installed. The
-threshold-experiment plots come with the deploy slice of the port.
+backend, so the package imports where matplotlib is not installed.
 """
 
 from __future__ import annotations
@@ -163,3 +163,46 @@ def plot_bayesian_hparam_opt(controller, dir_path: Optional[str] = None):
     fig.suptitle("Bayesian hyperparameter search — GP partial dependence")
     fig.tight_layout()
     return _save(fig, dir_path, "bayes_opt")
+
+
+def plot_b_line_threshold_experiment(metrics_rows: Sequence[Dict], min_t: int,
+                                     max_t: int, threshold_col: str,
+                                     class_thresh: float,
+                                     dir_path: Optional[str] = None):
+    """Clip metrics across B-line count thresholds or window lengths (JAX
+    ``viz/visualization.py:179-202``); ``metrics_rows`` are
+    ``predict/experiments.py``'s table rows;
+    ``threshold_exp_<timestamp>.png``."""
+    plt = _pyplot()
+    fig, ax = plt.subplots(figsize=(8, 5))
+    xs = [row[threshold_col] for row in metrics_rows]
+    for col in ("precision", "recall", "specificity", "f1", "accuracy"):
+        if metrics_rows and col in metrics_rows[0]:
+            ax.plot(xs, [row[col] for row in metrics_rows], "o-", label=col)
+    ax.set_xlabel(threshold_col)
+    ax.set_ylabel("Metric value")
+    ax.set_title(f"Clip metrics vs {threshold_col} "
+                 f"(frame threshold {class_thresh})")
+    ax.legend()
+    fig.tight_layout()
+    return _save(fig, dir_path, "threshold_exp")
+
+
+def plot_b_line_threshold_roc_curve(tprs: Sequence[float],
+                                    fprs: Sequence[float],
+                                    dir_path: Optional[str] = None):
+    """ROC over count thresholds with its trapezoid AUC (JAX
+    ``viz/visualization.py:205-228``); ``threshold_roc_<timestamp>.png``."""
+    plt = _pyplot()
+    order = np.argsort(fprs)
+    f = np.asarray(fprs)[order]
+    t = np.asarray(tprs)[order]
+    area = float(np.trapezoid(t, f)) if len(f) > 1 else 0.0
+    fig, ax = plt.subplots(figsize=(6, 5.5))
+    ax.plot(f, t, "o-", label=f"AUC = {area:.3f}")
+    ax.plot([0, 1], [0, 1], "k--", lw=0.8)
+    ax.set_xlabel("False positive rate")
+    ax.set_ylabel("True positive rate")
+    ax.legend()
+    fig.tight_layout()
+    return _save(fig, dir_path, "threshold_roc")

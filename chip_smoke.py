@@ -128,11 +128,34 @@ no result):
    package's message) and both again at config.yml's counts (5 folds, 10
    trials): B1 and B2 launches held to the counts the data gives, no
    input copied, wall and setup seconds, training frames/s and peak
-   memory beside phase 12's serial numbers.
+   memory beside phase 12's serial numbers;
+14. the raw-clip path — deploy serving: full-width cutoffvgg16 and
+   mobilenetv2 (phases 5-6's weights, saved as port checkpoints) served by
+   ``predict_wavebase_mp4`` over a 256-frame 480x640 clip and a 64-frame
+   1080x1440 clip (graded brightness, odd content in the UI box), counts
+   reset just before each call: B1 once a clip, B2 10 a mobilenetv2 clip,
+   no input copied; the CSV's rows and values; 8 frames against the port
+   on the CPU by the serving bar; a clip that differs only in the 50x160
+   UI box gives equal probabilities; B1 against its plain version at the
+   deploy settings (cv2 map, UI blank, f32 out) within 1 ulp;
+   ``check_preprocess_parity`` of cutoffvgg16, mobilenetv2 and
+   efficientnetb7 on the card below 1e-5; per clip the pageable upload
+   (and a pinned one beside it), B1's time beside its plain version's and
+   its bytes bound, the forward, frames/s. Auto-masking: a U-Net of width
+   16 (random weights from a numpy seed) on 11 frames sampled from a
+   110-frame clip at 480x640 and 1080x1440, with PyTorch's TF32 default
+   back on for the path: probabilities against the CPU within 1e-5 (and
+   the U-Net called outside the path's IEEE float32 scope, reported),
+   ``clip_mask`` equal to the CPU chain on the same probabilities, erode,
+   dilate and vote (24x24 and 54x54 ellipses) on noisy fan masks equal to
+   the CPU's, ``mask_frames`` with and without the crop; per-step times
+   and a profile of the 54x54 dilate. The clip-rule experiments
+   (contiguous, total, sliding window) on a frame table made from the
+   deploy probabilities: rows and CSVs on the card equal to the CPU's.
 
 The last two lines of standard output are a JSON line of per-kernel
-numbers (launches per path, ``training`` and the trial-parallel paths
-included: the wrappers' counts,
+numbers (launches per path, ``training``, the trial-parallel, ``deploy``
+and ``automask`` paths included: the wrappers' counts,
 which tick once at a CUDA graph's capture; the kernel's runs in one
 replay of each latency graph, counted by the profiler, and the replays)
 and ``{"ok": true, "device": {...}}``.
@@ -325,19 +348,27 @@ def beam_mask(hs, ws):
     return ((ang.abs() < np.deg2rad(35)) & (r < 0.95 * hs)).float()
 
 
-def preprocess_bytes(b, src_hw, out_hw, mode, out_itemsize, with_mask):
+def preprocess_bytes(b, src_hw, out_hw, mode, out_itemsize, with_mask,
+                     blank=False):
     """Bytes the preprocess must move: the 32-byte sectors of the source
     rows its index map selects (computed for one frame and scaled by b,
-    exact when a frame is a whole number of sectors), its index vectors
-    and mask reads, and one write of the output."""
-    from ab_line_classifier_torch.ops.image import nearest_indices
+    exact when a frame is a whole number of sectors; with ``blank``, not
+    the pixels of the UI box, which need no read), its index vectors and
+    mask reads, and one write of the output."""
+    from ab_line_classifier_torch.ops.image import UI_BLANK_HW, nearest_indices
 
     hs, ws = src_hw
     hd, wd = out_hw
     rows = np.unique(nearest_indices(hs, hd, mode))
     cidx = nearest_indices(ws, wd, mode).astype(np.int64)
-    cols = (cidx[:, None] * 3 + np.arange(3)).ravel()
-    px = sum(np.unique((r * ws * 3 + cols) // 32).size for r in rows) * 32
+
+    def row_cols(r):
+        c = cidx[cidx >= UI_BLANK_HW[1]] if blank and r < UI_BLANK_HW[0] \
+            else cidx
+        return (c[:, None] * 3 + np.arange(3)).ravel()
+
+    px = sum(np.unique((r * ws * 3 + row_cols(r)) // 32).size
+             for r in rows) * 32
     extra = (hd + wd) * 4
     if with_mask:
         extra += sum(np.unique((r * ws + cidx) * 4 // 32).size
@@ -2569,6 +2600,509 @@ def phase_trial_parallel(smi, serial):
     return launches, timings
 
 
+# Phase 14 (the raw-clip path). Deploy serving: each clip goes up once, B1
+# runs once over it at its source size, the model once over its frames.
+DEPLOY_CLIPS = ((256, (480, 640)), (64, (1080, 1440)))
+DEPLOY_MODELS = ("cutoffvgg16", "mobilenetv2")
+# Frames of each clip held against the port on the CPU.
+DEPLOY_CHECK = 8
+# Auto-masking: 11 frames sampled (every 10th, as the reference's 10%) of
+# a 110-frame clip; U-Net probabilities GPU vs CPU in IEEE float32.
+AUTOMASK_FRAMES, AUTOMASK_STEP = 110, 10
+AUTOMASK_SIZES = ((480, 640), (1080, 1440))
+MASK_PROB_ATOL = 1e-5
+# Frames per clip of the threshold experiments' frame table.
+EXP_CLIP_FRAMES = 32
+
+
+def deploy_clip(n, hw, seed):
+    """uint8 RGB frames of graded brightness (so the served logits differ
+    from frame to frame) with odd content in the 50x160 UI box (bright
+    stripes, which a path without the blank would see)."""
+    rng = np.random.default_rng(seed)
+    clip = rng.integers(0, 256, (n, *hw, 3), dtype=np.uint8)
+    for i, scale in enumerate(np.linspace(0.15, 1.0, n, dtype=np.float32)):
+        clip[i] = (clip[i] * scale).astype(np.uint8)
+    clip[:, :50, :160] = 0
+    clip[:, 8:44:4, 4:156] = 255
+    return clip
+
+
+def save_deploy_checkpoint(root, name, spec, state_dict):
+    from ab_line_classifier_torch.predict.benchmark import ZOO_HPARAMS
+    from ab_line_classifier_torch.utils import checkpoint as ckpt
+
+    return ckpt.save_model(os.path.join(root, name), state_dict, {
+        "model_name": name, "hparams": ZOO_HPARAMS[name],
+        "input_shape": list(spec.input_shape), "n_classes": spec.n_classes,
+        "classes": ["a_lines", "b_lines"],
+        "preprocess_mode": spec.preprocess_mode, "mixed_precision": True})
+
+
+def read_preds_csv(path, probs):
+    """The deploy CSV's header, rows and values against ``probs``."""
+    import csv
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    if rows[0] != ["Frame", "A lines", "B lines"]:
+        raise AssertionError(f"CSV header {rows[0]}")
+    body = rows[1:]
+    if [int(r[0]) for r in body] != list(range(len(probs))):
+        raise AssertionError(f"CSV has {len(body)} rows for {len(probs)} "
+                             f"frames")
+    vals = np.array([[np.float32(r[1]), np.float32(r[2])] for r in body])
+    if not np.array_equal(vals, probs[:, :2]):
+        raise AssertionError("CSV probabilities differ from the returned ones")
+
+
+def deploy_gpu_vs_cpu(name, ckpt_dir, clip, gpu_probs, smi):
+    """DEPLOY_CHECK frames spread over the clip (so over its brightness)
+    served by the port on the CPU (the same bf16 model) against the card's
+    probabilities, by the serving bar of phases 5-6: max(BF16_PROB_ATOL,
+    2 x the CPU's bf16-vs-float32 difference). The probabilities must
+    spread wider than the bar across those frames, or a frame-order fault
+    would pass. Returns (error, bar)."""
+    from ab_line_classifier_torch.predict import deploy as D
+    from ab_line_classifier_torch.predict.predict import load_module
+    from ab_line_classifier_torch.utils import checkpoint as ckpt
+
+    pick = np.linspace(0, len(clip) - 1, DEPLOY_CHECK).astype(int)
+    x = torch.from_numpy(np.ascontiguousarray(clip[pick]))
+    spec, module = D.load_deploy_model(ckpt_dir, device="cpu")
+    cpu = D.deploy_forward(spec, module, x).numpy()
+    spec32 = dataclasses.replace(spec, dtype=torch.float32)
+    f32 = D.deploy_forward(spec32, load_module(
+        spec32, ckpt.load_model(ckpt_dir)[0], torch.device("cpu")), x).numpy()
+    err = float(np.abs(gpu_probs[pick] - cpu).max())
+    floor = float(np.abs(cpu - f32).max())
+    bar = max(BF16_PROB_ATOL, 2 * floor)
+    spread = float(np.ptp(cpu[:, 1]))
+    print(f"{name} deploy GPU vs CPU on {DEPLOY_CHECK} frames ({smi}): max "
+          f"|dp| {err:.3e} (bar {bar:.3e}; CPU bf16 vs float32 "
+          f"{floor:.3e}); P(b_lines) spread {spread:.4f}", flush=True)
+    if spread < bar:
+        raise AssertionError(f"{name}: probabilities too flat to compare "
+                             f"({spread} across the check frames)")
+    if err > bar:
+        raise AssertionError(f"{name}: deploy GPU vs CPU differ by {err}")
+    return err, bar
+
+
+def serve_deploy_clip(name, ckpt_dir, clip, smi):
+    """``predict_wavebase_mp4`` over one clip with the counts reset just
+    before: B1 once, B2 ``ZOO``'s count per forward, no input copy; the
+    CSV; GPU vs CPU; a clip that differs only in the UI box; then B1
+    against its plain version at the deploy settings and the per-clip
+    times (upload, B1, forward). Returns (B1, B2 launches, timing)."""
+    import tempfile
+
+    from ab_line_classifier_torch.ops import depthwise_cuda as DC
+    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+    from ab_line_classifier_torch.ops.image import (fused_preprocess,
+                                                    max_ulp_error)
+    from ab_line_classifier_torch.predict import deploy as D
+
+    n, hs, ws = clip.shape[:3]
+    with tempfile.TemporaryDirectory() as tmp:
+        csv_path = os.path.join(tmp, "preds.csv")
+        torch.cuda.synchronize()
+        PC.reset_launch_count()
+        DC.reset_launch_count()
+        t0 = time.perf_counter()
+        probs = D.predict_wavebase_mp4(ckpt_dir, "", csv_path, frames=clip,
+                                       device="cuda")
+        wall = time.perf_counter() - t0
+        b1, b2, copies = PC.launch_count, DC.launch_count, DC.copy_count
+        read_preds_csv(csv_path, probs)
+    want_b2 = ZOO[name][1] if name in ZOO else 0
+    if (b1, b2, copies) != (1, want_b2, 0):
+        raise AssertionError(f"{name} deploy {n}x{hs}x{ws}: B1 {b1}, B2 "
+                             f"{b2}, copies {copies}; want 1, {want_b2}, 0")
+    if probs.shape != (n, 2) or not np.isfinite(probs).all():
+        raise AssertionError(f"{name} deploy: probabilities {probs.shape}")
+    err, bar = deploy_gpu_vs_cpu(name, ckpt_dir, clip, probs, smi)
+
+    spec, module = D.load_deploy_model(ckpt_dir, device="cuda")
+    uploads = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        dev = torch.from_numpy(clip).to("cuda")
+        torch.cuda.synchronize()
+        uploads.append((time.perf_counter() - t) * 1e3)
+    pinned = torch.from_numpy(clip).pin_memory()
+    pinned_ms = cuda_ms(lambda: pinned.to("cuda", non_blocking=True),
+                        iters=3, warmup=1)
+    del pinned
+    other = dev.clone()
+    other[:, :50, :160] = torch.randint(
+        0, 256, (n, 50, 160, 3), dtype=torch.uint8, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(14))
+    if not torch.equal(D.deploy_forward(spec, module, dev),
+                       D.deploy_forward(spec, module, other)):
+        raise AssertionError(f"{name}: the UI box reaches the model")
+    del other
+    kw = dict(out_hw=tuple(spec.input_shape[:2]),
+              preprocess_mode=spec.preprocess_mode, resize_mode="cv2",
+              blank_ui_region=True, out_dtype=torch.float32)
+    x = D.deploy_preprocess(spec, dev)
+    b1_err = max_ulp_error(x, fused_preprocess(dev, **kw), torch.float32,
+                           spec.preprocess_mode)
+    b1_ms = cuda_ms(lambda: D.deploy_preprocess(spec, dev))
+    plain_ms = cuda_ms(lambda: fused_preprocess(dev, **kw), iters=5)
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(lambda: module(x.to(spec.dtype)), iters=5)
+    nbytes = preprocess_bytes(n, (hs, ws), kw["out_hw"], "cv2", 4, False,
+                              blank=True)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    upload_ms = float(np.median(uploads))
+    timing = dict(frames=n, upload_ms=upload_ms, pinned_upload_ms=pinned_ms,
+                  b1_ms=b1_ms, b1_plain_ms=plain_ms, b1_bound_ms=bound_ms,
+                  b1_max_abs_err=b1_err, forward_ms=fwd_ms,
+                  device_frames_per_s=n / ((b1_ms + fwd_ms) / 1e3),
+                  with_upload_frames_per_s=n / ((upload_ms + b1_ms + fwd_ms)
+                                                / 1e3),
+                  call_wall_s=wall, prob_err=err, prob_bar=bar)
+    print(f"{name} deploy {n} x {hs}x{ws} ({smi}): B1 {b1}, B2 {b2}, copies "
+          f"{copies}; upload {upload_ms:.3f} ms (pageable; pinned "
+          f"{pinned_ms:.3f}), B1 {b1_ms:.4f} ms (plain {plain_ms:.4f}, bytes "
+          f"bound {bound_ms:.4f}; max abs err {b1_err}), forward "
+          f"{fwd_ms:.3f} ms; {timing['device_frames_per_s']:.1f} frames/s on "
+          f"the card, {timing['with_upload_frames_per_s']:.1f} with the "
+          f"upload; predict_wavebase_mp4 call {wall:.3f} s (restore, CSV "
+          f"included); UI box blanked (probabilities equal)", flush=True)
+    del dev, x
+    torch.cuda.empty_cache()
+    return b1, b2, timing, probs
+
+
+def beam_masks(n, hw, seed, flip=2e-4):
+    """0/1 float32 masks of an ultrasound fan with a ``flip`` share of the
+    pixels flipped in each frame: holes that the erode widens and the vote
+    closes, specks outside that the dilate grows and the vote drops."""
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    yy, xx = np.mgrid[:h, :w]
+    ang = np.arctan2(xx - w / 2, yy + 0.1 * h)
+    r = np.hypot(xx - w / 2, yy + 0.1 * h)
+    fan = (np.abs(ang) < 0.6) & (r < h) & (r > 0.15 * h)
+    return (fan[None] ^ (rng.random((n, h, w)) < flip)).astype(np.float32)
+
+
+def beam_frames(n, hw, seed):
+    """uint8 RGB frames of a noisy fan on a dark background."""
+    m = beam_masks(1, hw, seed)[0] > 0
+    rng = np.random.default_rng(seed + 1)
+    f = rng.integers(0, 30, (n, *hw, 3), dtype=np.uint8)
+    f[:, m] = rng.integers(60, 256, (n, int(m.sum()), 3), dtype=np.uint8)
+    return f
+
+
+def automask_steps(seg, sampled, hw):
+    """Per-step card times (CUDA events) of one clip's mask, in IEEE
+    float32 as ``clip_mask`` runs them."""
+    from ab_line_classifier_torch.data.auto_masking import (
+        PROB_THRESHOLD, UNET_INPUT, ieee_float32)
+    from ab_line_classifier_torch.ops import morphology as M
+    from ab_line_classifier_torch.ops.image import (linear_resize,
+                                                    skimage_downsample)
+
+    h = hw[0]
+    erode, dilate = max(int(h * (1 - 0.95)), 3), max(int(h * 0.05), 3)
+    with ieee_float32(), torch.inference_mode():
+        u8 = torch.from_numpy(sampled).to("cuda")
+
+        def gray():
+            x = u8.to(torch.float64)
+            return (0.299 * x[..., 0] + 0.587 * x[..., 1]
+                    + 0.114 * x[..., 2]).to(torch.float32)
+
+        g = gray()
+        small = skimage_downsample(g, UNET_INPUT) / 255.0
+        probs = seg.model(small[..., None])[..., 0]
+        b128 = (probs > PROB_THRESHOLD).to(torch.float32)
+        support = (linear_resize(b128, hw) > 0).to(torch.float32)
+        ek = torch.as_tensor(M.ellipse_kernel(erode), device="cuda")
+        dk = torch.as_tensor(M.ellipse_kernel(dilate), device="cuda")
+        eroded = M.binary_erode(support, ek)
+        cleaned = M.binary_dilate(eroded, dk)
+        steps = {
+            "grayscale": cuda_ms(gray, iters=5),
+            "downsample": cuda_ms(
+                lambda: skimage_downsample(g, UNET_INPUT), iters=5),
+            "unet": cuda_ms(lambda: seg.model(small[..., None]), iters=5),
+            "upsample": cuda_ms(
+                lambda: linear_resize(b128, hw) > 0, iters=5),
+            "erode": cuda_ms(lambda: M.binary_erode(support, ek), iters=5),
+            "dilate": cuda_ms(lambda: M.binary_dilate(eroded, dk), iters=5),
+            "vote": cuda_ms(lambda: M.majority_average_mask(cleaned),
+                            iters=5)}
+    return steps, (erode, dilate)
+
+
+def morphology_profile(hw, size, n=AUTOMASK_FRAMES // AUTOMASK_STEP):
+    """``device_time_by_kernel`` of one ``size`` x ``size`` elliptical
+    dilate of ``n`` fan masks of ``hw``, in a fresh process (in the
+    smoke's own process, after phases 5-13, the profiler has been seen to
+    record no device time here). Returns its dict."""
+    code = (
+        "import json, sys, torch\n"
+        f"sys.path.insert(0, {REPO!r})\n"
+        "import chip_smoke as cs\n"
+        "from ab_line_classifier_torch.data.auto_masking import "
+        "ieee_float32\n"
+        "from ab_line_classifier_torch.ops import morphology as M\n"
+        f"x = torch.from_numpy(cs.beam_masks({n}, {tuple(hw)!r}, 0)).cuda()\n"
+        f"k = torch.as_tensor(M.ellipse_kernel({size}), device='cuda')\n"
+        "with ieee_float32():\n"
+        "    p = cs.device_time_by_kernel(lambda: M.binary_dilate(x, k), 2)\n"
+        "print(json.dumps({'busy_ms': p['busy_ms'], "
+        "'kernels': p['kernels'][:4]}))\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300, check=True)
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def phase_automask(smi):
+    """Auto-masking on the card against the port on the CPU: the U-Net's
+    probabilities, the morphology and vote on noisy fan masks, ``clip_mask``
+    end to end (once with PyTorch's TF32 default back on), ``mask_frames``
+    with and without the crop; per-step times and a profile of the
+    morphology. Returns (B1, B2 launches of the path, timings)."""
+    from ab_line_classifier_torch.data.auto_masking import (
+        UNET_INPUT, UnetSegmentation, ieee_float32)
+    from ab_line_classifier_torch.models.unet import seeded_unet_state
+    from ab_line_classifier_torch.ops import depthwise_cuda as DC
+    from ab_line_classifier_torch.ops import morphology as M
+    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+    from ab_line_classifier_torch.ops.image import skimage_downsample
+
+    state = seeded_unet_state(16, 8)
+    gpu = UnetSegmentation(base_filters=16, device="cuda")
+    cpu = UnetSegmentation(base_filters=16, device="cpu")
+    gpu.model.load_state_dict(state)
+    cpu.model.load_state_dict(state)
+    timings = {}
+    b1 = b2 = 0
+    tf32_default = (True, False)   # cudnn.allow_tf32, matmul.allow_tf32
+    for hw in AUTOMASK_SIZES:
+        label = f"{hw[0]}x{hw[1]}"
+        sampled = beam_frames(AUTOMASK_FRAMES, hw, hw[0])[::AUTOMASK_STEP]
+        # The main path, with PyTorch's TF32 default back on.
+        saved = (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32)
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32_default
+        try:
+            torch.cuda.synchronize()
+            PC.reset_launch_count()
+            DC.reset_launch_count()
+            t0 = time.perf_counter()
+            probs = gpu.predict_masks(sampled)
+            mask, bbox = gpu.clip_mask(sampled, hw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            b1 += PC.launch_count
+            b2 += DC.launch_count
+            t0 = time.perf_counter()
+            gpu.clip_mask(sampled, hw)
+            torch.cuda.synchronize()
+            warm = time.perf_counter() - t0
+            if (torch.backends.cudnn.allow_tf32,
+                    torch.backends.cuda.matmul.allow_tf32) != tf32_default:
+                raise AssertionError("clip_mask left the TF32 flags changed")
+            # What the IEEE scope saves: the U-Net called directly, under
+            # the TF32 default, on the same 128x128 inputs.
+            with ieee_float32():
+                small = skimage_downsample(torch.from_numpy(
+                    sampled @ np.array([0.299, 0.587, 0.114])).to(
+                        "cuda", torch.float32), UNET_INPUT) / 255.0
+            with torch.inference_mode():
+                tf32_probs = gpu.model(small[..., None])[..., 0].cpu()
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = saved
+        want = cpu.predict_masks(sampled)
+        err = float((probs.cpu() - want).abs().max())
+        tf32_err = float((tf32_probs - want).abs().max())
+        band = (want - 0.4).abs() < MASK_PROB_ATOL
+        flips = (probs.cpu() > 0.4) != (want > 0.4)
+        if err > MASK_PROB_ATOL or (flips & ~band).any():
+            raise AssertionError(f"U-Net GPU vs CPU {label}: {err}")
+        cpu_mask = cpu.mask_from_probs(probs.cpu(), hw)
+        if not torch.equal(mask.cpu(), cpu_mask):
+            raise AssertionError(f"clip_mask GPU vs CPU {label} differ in "
+                                 f"{int((mask.cpu() != cpu_mask).sum())} px")
+        if list(M.bounding_box(cpu_mask)) != bbox:
+            raise AssertionError(f"bounding box {label}")
+
+        fans = beam_masks(len(sampled), hw, hw[1])
+        erode = max(int(hw[0] * (1 - 0.95)), 3)
+        dilate = max(int(hw[0] * 0.05), 3)
+        clean_g = M.clean_binary_masks(torch.from_numpy(fans).cuda(),
+                                       erode_size=erode, dilate_size=dilate)
+        clean_c = M.clean_binary_masks(torch.from_numpy(fans),
+                                       erode_size=erode, dilate_size=dilate)
+        vote_g = M.majority_average_mask(clean_g)
+        vote_c = M.majority_average_mask(clean_c)
+        if not (torch.equal(clean_g.cpu(), clean_c)
+                and torch.equal(vote_g.cpu(), vote_c)):
+            raise AssertionError(f"morphology GPU vs CPU {label}")
+        kept = float(vote_c.mean())
+        if not 0.05 < kept < 0.95:
+            raise AssertionError(f"fan masks {label}: the chain keeps a "
+                                 f"{kept} share: trivial")
+
+        gen = torch.Generator(device="cuda").manual_seed(hw[0])
+        clip = torch.randint(0, 256, (AUTOMASK_FRAMES, *hw, 3),
+                             dtype=torch.uint8, device="cuda", generator=gen)
+        for box in (None, bbox):
+            out = gpu.mask_frames(clip, mask, box)
+            want_out = cpu.mask_frames(clip[:4].cpu(), mask.cpu(), box)
+            if not torch.equal(out[:4].cpu(), want_out):
+                raise AssertionError(f"mask_frames {label} crop {box}")
+        mask_frames_ms = cuda_ms(lambda: gpu.mask_frames(clip, mask), iters=5)
+        steps, sizes = automask_steps(gpu, sampled, hw)
+        profile = morphology_profile(hw, sizes[1])
+        del clip
+        torch.cuda.empty_cache()
+        timings[label] = dict(first_call_wall_ms=wall * 1e3,
+                              clip_mask_wall_ms=warm * 1e3,
+                              mask_frames_ms=mask_frames_ms,
+                              unet_max_abs_err=err,
+                              unet_tf32_max_abs_err=tf32_err, **steps)
+        print(f"automask {label} ({smi}): {len(sampled)} sampled of "
+              f"{AUTOMASK_FRAMES}; U-Net GPU vs CPU max |dp| {err:.2e} (bar "
+              f"{MASK_PROB_ATOL}, {int(band.sum())} within it of 0.4, "
+              f"{int(flips.sum())} flipped; the U-Net called outside the "
+              f"IEEE scope under TF32 {tf32_err:.2e}); clip_mask equal to "
+              f"the CPU chain on the same probabilities, bbox {bbox}, mask "
+              f"share "
+              f"{float(mask.mean()):.4f}; fan masks: erode/dilate "
+              f"{erode}x{erode} / {dilate}x{dilate} and vote equal "
+              f"(kept share {kept:.4f}); mask_frames equal with and without "
+              f"the crop; predict_masks + clip_mask first call "
+              f"{wall * 1e3:.2f} ms, clip_mask again {warm * 1e3:.2f} ms "
+              f"(host clock, TF32 default on); ms per step " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in steps.items())
+              + f"; mask_frames of {AUTOMASK_FRAMES} frames "
+              f"{mask_frames_ms:.4f} ms", flush=True)
+        print(f"automask {label} dilate {sizes[1]}x{sizes[1]} profile: busy "
+              f"{profile['busy_ms']:.4f} ms, kernels "
+              + "; ".join(f"{k[:120]} {v:.4f} ms" for k, v in
+                          profile["kernels"][:4]), flush=True)
+        timings[label]["dilate_profile"] = (profile["kernels"][:2]
+                                            if profile["busy_ms"]
+                                            else "not measured")
+    if (b1, b2) != (0, 0):
+        raise AssertionError(f"the auto-mask path launched B1 {b1}, B2 {b2}")
+    return (b1, b2), timings
+
+
+def phase_threshold_experiments(deploy_probs, smi):
+    """The clip-rule experiments on a frame table made from the deploy
+    step's probabilities (clips of EXP_CLIP_FRAMES frames, ``Frame Path``
+    ``{clip}_{idx}``, a seeded ``Class`` per clip), on the card and on the
+    CPU: the rows and every CSV written must be equal. Returns seconds per
+    device."""
+    import tempfile
+
+    from ab_line_classifier_torch.config import Config
+    from ab_line_classifier_torch.predict import experiments as E
+    from ab_line_classifier_torch.utils.tables import write_table
+
+    rng = np.random.default_rng(14)
+    paths, labels, b_probs = [], [], []
+    for label, probs in deploy_probs.items():
+        for k, start in enumerate(range(0, len(probs), EXP_CLIP_FRAMES)):
+            chunk = probs[start:start + EXP_CLIP_FRAMES, 1]
+            paths += [f"{label}-{k}_{i}" for i in range(len(chunk))]
+            labels += [int(rng.integers(0, 2))] * len(chunk)
+            b_probs.append(chunk)
+    b = np.concatenate(b_probs).astype(np.float32)
+    n_clips = len(set(p.rpartition("_")[0] for p in paths))
+    runs = (
+        ("contiguous", lambda cfg, path, dev: E.b_line_threshold_experiment(
+            cfg, path, 1, 16, contiguous=True, document=True, device=dev)),
+        ("total", lambda cfg, path, dev: E.b_line_threshold_experiment(
+            cfg, path, 1, 16, contiguous=False, document=True, device=dev)),
+        ("sliding_window",
+         lambda cfg, path, dev: E.sliding_window_variation_experiment(
+             cfg, path, 1, 16, document=True, device=dev)))
+    seconds = {}
+    with tempfile.TemporaryDirectory() as root:
+        path = os.path.join(root, "frame_preds.csv")
+        write_table(path, {"Frame Path": np.array(paths, object),
+                             "Class": np.array(labels, np.int64),
+                             "a_lines": 1.0 - b, "b_lines": b}, index=True)
+        out = {}
+        for dev in ("cuda", "cpu"):
+            for name, run in runs:
+                d = os.path.join(root, dev, name)
+                cfg = Config({"PATHS": {
+                    "EXPERIMENTS": d, "EXPERIMENT_VISUALIZATIONS": d,
+                    "CLASS_NAME_MAP": ""},
+                    "DATA": {"CLASSES": ["a_lines", "b_lines"]}})
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rows = run(cfg, path, dev)
+                seconds[f"{name} {dev}"] = time.perf_counter() - t0
+                files = []
+                for f in sorted(os.listdir(d)):
+                    if f.endswith(".csv"):
+                        with open(os.path.join(d, f), "rb") as fh:
+                            files.append(fh.read())
+                out[(dev, name)] = (rows, files)
+        for name, _ in runs:
+            if out[("cuda", name)] != out[("cpu", name)]:
+                raise AssertionError(f"{name} experiment: card and CPU "
+                                     f"differ")
+    best = max(out[("cuda", "contiguous")][0],
+               key=lambda r: (r["f1"], -r["B-line Threshold"]))
+    print(f"threshold experiments ({smi}): {len(b)} frames in {n_clips} "
+          f"clips; contiguous, total and sliding-window rows and CSVs equal "
+          f"on the card and the CPU; best contiguous threshold "
+          f"{best['B-line Threshold']} (f1 {best['f1']:.4f}); seconds "
+          + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items()),
+          flush=True)
+    return seconds
+
+
+def phase_raw_clip(smi, served):
+    """Phase 14: deploy serving of ``served`` ({name: (spec, state)}) over
+    each DEPLOY_CLIPS clip, auto-masking, the threshold experiments.
+    Returns ({path: (B1, B2 launches)}, timings)."""
+    import tempfile
+
+    from ab_line_classifier_torch.predict import deploy as D
+
+    frame = deploy_clip(1, (480, 640), 3)[0]
+    parity = {m: D.check_preprocess_parity(frame, m, device="cuda")
+              for m in ("cutoffvgg16", "mobilenetv2", "efficientnetb7")}
+    print(f"check_preprocess_parity on the card: {parity}", flush=True)
+    if max(parity.values()) >= 1e-5:
+        raise AssertionError(f"deploy preprocessing parity {parity}")
+
+    clips = [deploy_clip(n, hw, hw[0]) for n, hw in DEPLOY_CLIPS]
+    launches, timings, probs_by_clip = [0, 0], {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        for name, (spec, state) in served.items():
+            ckpt_dir = save_deploy_checkpoint(root, name, spec, state)
+            for clip in clips:
+                b1, b2, t, probs = serve_deploy_clip(name, ckpt_dir, clip, smi)
+                label = f"{name}-{clip.shape[1]}x{clip.shape[2]}"
+                launches[0] += b1
+                launches[1] += b2
+                timings[label] = t
+                probs_by_clip[label] = probs
+    del clips
+    automask, automask_timings = phase_automask(smi)
+    experiments = phase_threshold_experiments(probs_by_clip, smi)
+    return ({"deploy": tuple(launches), "automask": automask},
+            {"deploy": timings, "automask": automask_timings,
+             "experiments_s": experiments, "parity": parity})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an "
@@ -2690,6 +3224,16 @@ def main():
     phase("13 trial-parallel cross-validation and LR search")
     paths, trial_timings = phase_trial_parallel(smi, serial)
     launches.update(paths)
+    torch.cuda.synchronize()
+
+    phase("14 raw-clip path: deploy serving, auto-masking, threshold "
+          "experiments")
+    paths, raw_clip = phase_raw_clip(smi, {
+        "cutoffvgg16": (vgg, vgg_sd),
+        "mobilenetv2": (mbv2, weights["mobilenetv2"])})
+    launches.update(paths)
+    b1_err = max([b1_err] + [t["b1_max_abs_err"]
+                             for t in raw_clip["deploy"].values()])
 
     def graph_runs(kernel):
         """Runs on the card of ``kernel`` in one replay of each model's
@@ -2710,7 +3254,14 @@ def main():
          "ms": b1["ms"], "plain_ms": b1["plain_ms"],
          "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"],
          "library_ms": b1["library_ms"],
-         "shape": f"{MAIN_BATCH}x480x640x3 uint8 -> 128x128x3 bf16"},
+         "shape": f"{MAIN_BATCH}x480x640x3 uint8 -> 128x128x3 bf16",
+         "deploy_per_clip": {
+             label: {key: t[key] for key in (
+                 "frames", "b1_ms", "b1_plain_ms", "b1_bound_ms",
+                 "b1_max_abs_err", "upload_ms", "pinned_upload_ms",
+                 "forward_ms", "device_frames_per_s",
+                 "with_upload_frames_per_s")}
+             for label, t in raw_clip["deploy"].items()}},
         {"name": "depthwise", "route": "cuda",
          "source": "ab_line_classifier_torch/csrc/depthwise.cu",
          "replaces": "ab_line_classifier_tpu/ops/depthwise_pallas.py:60",

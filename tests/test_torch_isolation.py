@@ -1,7 +1,7 @@
 """PyTorch port, isolation: the port imports no JAX and nothing of the JAX
 package, and its modules import only torch and numpy (plus the standard
 library) when they are imported, so it runs where JAX, pandas, PIL,
-sklearn, PyYAML, h5py, protobuf (``google.protobuf``) and matplotlib
+sklearn, PyYAML, h5py, protobuf (``google.protobuf``), matplotlib and cv2
 are not installed.
 """
 
@@ -38,7 +38,7 @@ def test_port_imports_no_jax_and_only_torch_numpy():
     loaded = set(roots.split())
     forbidden = {"jax", "jaxlib", "flax", "optax", "orbax",
                  "ab_line_classifier_tpu", "pandas", "PIL", "sklearn",
-                 "yaml", "h5py", "google.protobuf", "matplotlib"}
+                 "yaml", "h5py", "google.protobuf", "matplotlib", "cv2"}
     assert not loaded & forbidden, sorted(loaded & forbidden)
 
 
@@ -76,3 +76,28 @@ def test_trial_parallel_modules_are_covered():
     assert "ab_line_classifier_torch.parallel.trial_parallel" in listed
     assert not {"jax", "pandas", "ab_line_classifier_tpu"} & set(
         eval(roots))
+
+
+def test_raw_clip_modules_are_covered():
+    """The raw-clip path's modules (auto-masking, the U-Net, morphology,
+    video, deploy serving, the clip-rule experiments) are among the
+    modules the probe above imports, and alone they load no JAX, pandas,
+    cv2, h5py, matplotlib or the JAX package."""
+    modules = ("data.auto_masking", "data.video", "models.unet",
+               "ops.morphology", "predict.deploy", "predict.experiments")
+    probe = (
+        "import pkgutil, sys, importlib, ab_line_classifier_torch as p\n"
+        "names = {m.name for m in pkgutil.walk_packages(p.__path__, "
+        "'ab_line_classifier_torch.')}\n"
+        f"wanted = {['ab_line_classifier_torch.' + m for m in modules]}\n"
+        "print(sorted(set(wanted) - names))\n"
+        "for m in wanted:\n"
+        "    importlib.import_module(m)\n"
+        "print(sorted({m.split('.')[0] for m in sys.modules}))\n")
+    r = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                       text=True, timeout=120, cwd=REPO_ROOT, env=cli_env())
+    assert r.returncode == 0, r.stderr[-2000:]
+    missing, roots = r.stdout.splitlines()[:2]
+    assert eval(missing) == []
+    assert not {"jax", "pandas", "cv2", "h5py", "matplotlib",
+                "ab_line_classifier_tpu"} & set(eval(roots))
