@@ -5,6 +5,8 @@ topological order (node 0 is the input, matching ``keras.Model.layers``
 numbering), so the reference's index-based operations keep their meaning:
 
 * :meth:`LayerGraph.cut` — truncate at a layer index/name (CUTOFF_IDX).
+* :meth:`LayerGraph.segment` — the layers between two names as a graph of
+  their own (attribution's stages).
 * :meth:`LayerGraph.trainable_mask` — per-layer trainability (FREEZE_IDX).
 * :meth:`LayerGraph.last_layer_of_kind` — e.g. the Grad-CAM conv tap.
 * :class:`GraphModule` — an ``nn.Module`` executing the DAG, with
@@ -97,7 +99,11 @@ class LayerSpec:
     ``fn`` is a pure function of the input activations. ``post_fn`` is
     applied to the module's output within the same node (a Keras layer with
     a fused activation stays ONE layer for index parity). ``features`` is
-    the output channel count of a parameterized layer.
+    the output channel count of a parameterized layer. ``op`` states what a
+    ``fn`` layer computes as data, ``(kind, *arguments)`` (``("max_pool",
+    window, strides, padding)``, ``("div", 255.0)``...), for the ONNX
+    exporter, which cannot read a closure; an activation leaves it empty and
+    is known by its ``fn``.
     """
 
     name: str
@@ -107,6 +113,7 @@ class LayerSpec:
     fn: Optional[Callable[..., Any]] = None
     post_fn: Optional[Callable[..., Any]] = None
     features: Optional[int] = None
+    op: Tuple[Any, ...] = ()
 
     @property
     def has_params(self) -> bool:
@@ -199,6 +206,32 @@ class LayerGraph:
                         f"cut at {at!r} severs input {inp!r} of {spec.name!r}"
                     )
         return LayerGraph(layers=keep, output=keep[-1].name)
+
+    def segment(self, prev: Optional[str], at: str) -> "LayerGraph":
+        """The layers after ``prev`` up to ``at`` (by name), as a graph of
+        their own whose input node stands for ``prev``'s activation
+        (``prev`` None: the model input, which is :meth:`cut`). A module of
+        it runs those layers and nothing before them, under the full
+        model's layer names, so the full state dict's entries for them load
+        into it. Raises if a kept layer reads a layer before ``prev``, or
+        ``prev`` does not come before ``at``."""
+        if prev is None:
+            return self if at == self.output else self.cut(at)
+        lo, hi = self.index_of(prev), self.index_of(at)
+        if not lo < hi:
+            raise GraphError(f"segment ({prev!r}, {at!r}] is empty")
+        keep = self.layers[lo + 1: hi + 1]
+        names = {s.name for s in keep}
+        specs = []
+        for spec in keep:
+            for inp in spec.inputs:
+                if inp != prev and inp not in names:
+                    raise GraphError(
+                        f"segment ({prev!r}, {at!r}] severs input {inp!r} "
+                        f"of {spec.name!r}")
+            specs.append(dataclasses.replace(spec, inputs=tuple(
+                INPUT if inp == prev else inp for inp in spec.inputs)))
+        return LayerGraph(layers=(input_node(),) + tuple(specs), output=at)
 
     def append(self, specs: Sequence[LayerSpec],
                output: Optional[str] = None) -> "LayerGraph":
@@ -754,8 +787,11 @@ def dropout(name: str, inp: str, rate: float,
                                                          broadcast_dims))
 
 
-def activation(name: str, inp: str, fn: Callable) -> LayerSpec:
-    return LayerSpec(name=name, kind=KIND_FN, inputs=(inp,), fn=fn)
+def activation(name: str, inp: str, fn: Callable,
+               op: Tuple[Any, ...] = ()) -> LayerSpec:
+    """A layer computing ``fn`` of its input; ``op`` states it as data where
+    ``fn`` is a closure (:class:`LayerSpec`)."""
+    return LayerSpec(name=name, kind=KIND_FN, inputs=(inp,), fn=fn, op=op)
 
 
 def relu(name: str, inp: str) -> LayerSpec:
@@ -785,7 +821,8 @@ def max_pool(name: str, inp: str, window: Tuple[int, int],
     else:
         def fn(x):
             return F.max_pool2d(x, window, strides)
-    return LayerSpec(name=name, kind=KIND_FN, inputs=(inp,), fn=fn)
+    return LayerSpec(name=name, kind=KIND_FN, inputs=(inp,), fn=fn,
+                     op=("max_pool", window, strides, padding))
 
 
 def avg_pool(name: str, inp: str, window: Tuple[int, int],
@@ -798,12 +835,14 @@ def avg_pool(name: str, inp: str, window: Tuple[int, int],
     return LayerSpec(
         name=name, kind=KIND_FN, inputs=(inp,),
         fn=lambda x: F.avg_pool2d(
-            pad_same(x, window, strides) if same else x, window, strides))
+            pad_same(x, window, strides) if same else x, window, strides),
+        op=("avg_pool", window, strides, padding))
 
 
 def global_avg_pool(name: str, inp: str) -> LayerSpec:
     return LayerSpec(name=name, kind=KIND_FN, inputs=(inp,),
-                     fn=lambda x: x.mean(dim=(2, 3)))
+                     fn=lambda x: x.mean(dim=(2, 3)),
+                     op=("global_avg_pool",))
 
 
 def zero_pad(name: str, inp: str,
@@ -811,17 +850,18 @@ def zero_pad(name: str, inp: str,
     """Keras ZeroPadding2D: ``((top, bottom), (left, right))``."""
     (top, bottom), (left, right) = pad
     return LayerSpec(name=name, kind=KIND_FN, inputs=(inp,),
-                     fn=lambda x: pad_hw(x, (left, right, top, bottom)))
+                     fn=lambda x: pad_hw(x, (left, right, top, bottom)),
+                     op=("zero_pad", top, bottom, left, right))
 
 
 def add(name: str, a: str, b: str) -> LayerSpec:
     return LayerSpec(name=name, kind=KIND_FN, inputs=(a, b),
-                     fn=lambda x, y: x + y)
+                     fn=lambda x, y: x + y, op=("add",))
 
 
 def multiply(name: str, a: str, b: str) -> LayerSpec:
     return LayerSpec(name=name, kind=KIND_FN, inputs=(a, b),
-                     fn=lambda x, y: x * y)
+                     fn=lambda x, y: x * y, op=("multiply",))
 
 
 def input_node() -> LayerSpec:

@@ -248,6 +248,22 @@ class ModelSpec:
                      if s.kind == G.KIND_BN
                      and not phase.trainable.get(s.name, True))
 
+    def layer_shapes(self, state_dict: Optional[Dict[str, torch.Tensor]]
+                     = None) -> Dict[str, Tuple[int, ...]]:
+        """Every layer's output shape, and the input node's, as the module
+        gives it (NHWC for 4-D activations) at batch 1: one float32 forward
+        of zeros on the CPU, with ``state_dict`` when given (the shapes do
+        not depend on it)."""
+        names = tuple(self.graph.layer_names[1:])
+        module = self.module(capture=names)
+        if state_dict is not None:
+            module.load_state_dict(state_dict)
+        with torch.inference_mode():
+            _, acts = module.eval()(torch.zeros((1,) + self.input_shape))
+        shapes = {n: tuple(a.shape) for n, a in acts.items()}
+        shapes[G.INPUT] = (1,) + tuple(self.input_shape)
+        return shapes
+
     @property
     def last_conv_layer(self) -> str:
         """Last conv-like layer (the Grad-CAM tap)."""

@@ -116,13 +116,17 @@ def efficientnet_backbone(variant: str = "b7",
     size = tuple(input_size)
     swish = F.silu
 
-    specs.append(G.activation("rescaling", G.INPUT, lambda x: x / 255.0))
+    specs.append(G.activation("rescaling", G.INPUT, lambda x: x / 255.0,
+                              op=("div", 255.0)))
     if imagenet_stem:
         specs.append(G.normalization("normalization", "rescaling",
                                      mean=TORCH_MEAN_RGB,
                                      variance=TORCH_STD_RGB ** 2))
+        scale = 1.0 / np.sqrt(TORCH_STD_RGB)
         specs.append(G.activation("rescaling_1", "normalization",
-                                  _rescale(1.0 / np.sqrt(TORCH_STD_RGB))))
+                                  _rescale(scale),
+                                  op=("mul_channels",
+                                      tuple(float(v) for v in scale))))
         stem_in = "rescaling_1"
     else:
         specs.append(G.normalization("normalization", "rescaling",
@@ -184,7 +188,8 @@ def efficientnet_backbone(variant: str = "b7",
             se_filters = max(1, int(in_ch * se_ratio))
             specs.append(G.global_avg_pool(f"{b}_se_squeeze", x))
             specs.append(G.activation(f"{b}_se_reshape", f"{b}_se_squeeze",
-                                      lambda t: t[:, :, None, None]))
+                                      lambda t: t[:, :, None, None],
+                                      op=("expand_hw",)))
             specs.append(_conv(f"{b}_se_reduce", f"{b}_se_reshape",
                                   filters, se_filters, (1, 1), act=swish))
             specs.append(_conv(f"{b}_se_expand", f"{b}_se_reduce",

@@ -94,7 +94,9 @@ class Predictor:
     ``compute_dtype`` is the preprocessing output dtype (bfloat16 by
     default, as in the JAX package); the model then runs in its own dtype
     (``spec.dtype``: its parameters are cast to bfloat16 once for a
-    mixed-precision model), and the softmax in float32.
+    mixed-precision model), and the softmax in float32. ``weights`` is the
+    state dict it was given (float32 master weights where the checkpoint
+    holds them), which the ONNX export writes.
     """
 
     def __init__(self, spec: ModelSpec, state_dict: Dict[str, torch.Tensor],
@@ -104,6 +106,7 @@ class Predictor:
         self.spec = spec
         self.batch_size = batch_size
         self.compute_dtype = compute_dtype
+        self.weights = state_dict
         self.module = load_module(spec, state_dict, self.device)
         self._staging: List[Optional[torch.Tensor]] = [None, None]
         self._slot = 0

@@ -151,11 +151,37 @@ no result):
    the CPU's, ``mask_frames`` with and without the crop; per-step times
    and a profile of the 54x54 dilate. The clip-rule experiments
    (contiguous, total, sliding window) on a frame table made from the
-   deploy probabilities: rows and CSVs on the card equal to the CPU's.
+   deploy probabilities: rows and CSVs on the card equal to the CPU's;
+15. per-stage attribution — ``attribute_stages`` of cutoffvgg16 and
+   mobilenetv2 at batch 2048 and xception and efficientnetb7 at 512 (the
+   weights of phases 5-7, bf16; efficientnetb7's stem a stage of its own):
+   each stage a module of its own layers, timed as a CUDA graph replayed
+   8 and 16 times less a null graph; every stage row printed with the
+   stages' sum beside phase 8's served batch; B2's launches per stage
+   (counted at each stage's capture) summing to 0 / 10 / 34 / 51 and no
+   B1; the stages' FLOPs summing to ``flops_per_frame`` times the batch;
+   the stages chained on 256 frames against the whole forward by the
+   serving bar (bit-equality reported), with hooks showing that no stage
+   ran a layer of its prefix;
+16. ONNX export round trip — cutoffvgg16, mobilenetv2 and efficientnetb7
+   (the same weights, saved as port checkpoints) exported with
+   ``export_checkpoint`` on the card and restored from the ``.onnx`` with
+   ``Predictor.restore`` on the card; 256 frames of 480x640 served from it
+   in float32 (B1 once, B2 0 / 10 / 51 times, counts reset before the
+   export), equal to the checkpoint served in float32; ``onnx_eval`` on 2
+   frames within 1e-5 of the card's float32 forward (TF32 off); export and
+   restore seconds and file sizes;
+17. dataset creation — ``ABLineDatasetCreator.create_dataset`` with an
+   injected query and fetch (local copies) over two synthetic 480x640
+   clips of 40 and 30 frames, the U-Net (width 16, random weights from a
+   numpy seed) on the card: the masked mp4s and ``mask.jpg``, the frames
+   table's rows and classes, each step's seconds.
 
-The last two lines of standard output are a JSON line of per-kernel
-numbers (launches per path, ``training``, the trial-parallel, ``deploy``
-and ``automask`` paths included: the wrappers' counts,
+The last three lines of standard output are a JSON line of phases 15-17's
+summaries, a JSON line of per-kernel
+numbers (launches per path, ``training``, the trial-parallel, ``deploy``,
+``automask``, ``attribution`` and ``export_roundtrip`` paths included:
+the wrappers' counts,
 which tick once at a CUDA graph's capture; the kernel's runs in one
 replay of each latency graph, counted by the profiler, and the replays)
 and ``{"ok": true, "device": {...}}``.
@@ -254,8 +280,11 @@ BN_STAT_RTOL = 1e-4
 TRAIN_ITERS = 10
 
 
+_T0 = time.perf_counter()
+
+
 def phase(title):
-    print(f"== {title}", flush=True)
+    print(f"== {title} (at {time.perf_counter() - _T0:.1f} s)", flush=True)
 
 
 def cuda_ms(fn, iters=ITERS, warmup=WARMUP):
@@ -973,6 +1002,7 @@ def throughput(spec, state_dict, bs, per_forward, smi):
           f"ms/batch, {r['flops_per_frame'] / 1e9:.4f} GFLOP/frame, "
           f"{100 * share:.2f}% of 989 TFLOP/s bf16; preprocess launches "
           f"{forwards}, depthwise launches {DC.launch_count}", flush=True)
+    return r
 
 
 def profile_batch(name, predictor, smi, sources, gen):
@@ -3103,6 +3133,365 @@ def phase_raw_clip(smi, served):
              "experiments_s": experiments, "parity": parity})
 
 
+# Phase 15 (attribution): the four served models at full width, 128x128,
+# bf16, each at its serving batch of phase 8; every stage as a CUDA graph
+# replayed ATTR_ITERS and 2 x ATTR_ITERS times (least of two each). The
+# chain check runs ATTR_CHECK frames through the segments and the whole
+# module.
+ATTR_MODELS = {"cutoffvgg16": MAIN_BATCH, "mobilenetv2": MAIN_BATCH,
+               "xception": 512, "efficientnetb7": 512}
+ATTR_ITERS = 8
+ATTR_CHECK = 256
+
+
+def attribution_chain(name, spec, state, segs, smi):
+    """The segments chained on the card against the whole module (both
+    bf16, channels_last, on the same preprocessed frames), by the serving
+    bar; forward pre-hooks on every layer of each segment: none at or
+    before its previous boundary runs. Returns (max |dp|, bit-equal)."""
+    from ab_line_classifier_torch.ops.preprocess_cuda import preprocess_frames
+    from ab_line_classifier_torch.predict.attribution import segment_module
+    from ab_line_classifier_torch.predict.predict import load_module
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    frames = torch.randint(0, 256, (ATTR_CHECK, *OUT_HW, 3),
+                           dtype=torch.uint8, device="cuda", generator=gen)
+    index = {n: i for i, n in enumerate(spec.graph.layer_names)}
+    # Modules made outside inference mode: their parameters must stay
+    # ordinary tensors (B2's weight cache reads their version counters).
+    full = load_module(spec, state, torch.device("cuda"))
+    modules = [segment_module(graph, state, torch.device("cuda"), spec.dtype)
+               for _, _, _, graph in segs]
+    with torch.inference_mode():
+        x = preprocess_frames(frames, out_hw=OUT_HW,
+                              preprocess_mode=spec.preprocess_mode,
+                              out_dtype=spec.dtype)
+        want = full(x)
+        out = x
+        for (label, boundary, prev, _), module in zip(segs, modules):
+            ran = []
+            hooks = [m.register_forward_pre_hook(
+                lambda mod, args, n=n: ran.append(n))
+                for n, m in module.named_children()]
+            out = module(out)
+            for h in hooks:
+                h.remove()
+            lo = index[prev] if prev is not None else 0
+            early = [n for n in ran if not lo < index[n] <= index[boundary]]
+            if early or len(ran) != len(list(module.children())):
+                raise AssertionError(f"{name} stage {label}: ran {early} "
+                                     f"outside ({prev}, {boundary}]")
+    err = float((out.float() - want.float()).abs().max())
+    equal = bool(torch.equal(out, want))
+    print(f"{name} segments chained vs the whole forward on {smi}: "
+          f"{ATTR_CHECK} frames, max |dp| {err:.3e} (bar {BF16_PROB_ATOL}), "
+          f"bit-equal {equal}; no segment ran a layer of its prefix",
+          flush=True)
+    if err > BF16_PROB_ATOL:
+        raise AssertionError(f"{name}: chained segments differ from the "
+                             f"forward by {err}")
+    return err, equal
+
+
+def phase_attribution(smi, models, serve_ms):
+    """Phase 15: ``attribute_stages`` of each model in ``models`` ({name:
+    (spec, state)}) at its ATTR_MODELS batch, the counts reset just before
+    each call: B1 none, B2's launches per stage (counted at each stage's
+    capture) summing to the model's launches per forward, no input copy;
+    the FLOPs of the stages summing to ``flops_per_frame`` times the
+    batch; the chain check. Prints every stage row and the stages' sum
+    beside phase 8's ``ms_per_batch`` (``serve_ms``, which also holds B1
+    and the uint8 input). Returns ((B1, B2 launches), per-model
+    summaries)."""
+    from ab_line_classifier_torch.ops import depthwise_cuda as DC
+    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+    from ab_line_classifier_torch.predict.attribution import (
+        attribute_stages, serving_boundaries, stage_segments)
+    from ab_line_classifier_torch.predict.benchmark import flops_per_frame
+    from ab_line_classifier_torch.predict.predict import load_module
+
+    per_forward = {"cutoffvgg16": 0, **{k: v[1] for k, v in ZOO.items()}}
+    launches, summary = [0, 0], {}
+    for name, batch in ATTR_MODELS.items():
+        spec, state = models[name]
+        boundaries = serving_boundaries(spec.graph)
+        torch.cuda.synchronize()
+        PC.reset_launch_count()
+        DC.reset_launch_count()
+        t0 = time.perf_counter()
+        rows = attribute_stages(spec, state, batch=batch,
+                                boundaries=boundaries, iters=ATTR_ITERS,
+                                dtype=spec.dtype, device="cuda",
+                                verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        b1, b2 = PC.launch_count, DC.launch_count
+        launches[0] += b1
+        launches[1] += b2
+        if b1 or DC.copy_count:
+            raise AssertionError(f"{name} attribution: B1 {b1} launches, "
+                                 f"B2 copied {DC.copy_count} inputs")
+        dw = sum(r["depthwise_launches"] for r in rows)
+        if dw != per_forward[name]:
+            raise AssertionError(f"{name}: B2 launches per stage sum to {dw},"
+                                 f" not {per_forward[name]}")
+        full = flops_per_frame(load_module(spec, state, torch.device("cuda")),
+                               spec.input_shape, spec.dtype,
+                               torch.device("cuda")) * batch
+        flops = sum(r["gflops"] for r in rows) * 1e9
+        if abs(flops - full) > 1e-9 * full:
+            raise AssertionError(f"{name}: stage FLOPs {flops} against the "
+                                 f"model's {full}")
+        total = sum(r["ms"] for r in rows)
+        print(f"{name} attribution at batch {batch} on {smi} ({wall:.1f} s; "
+              f"B2 launches on the path {b2}):")
+        print(f"  {'stage':>8} {'boundary':>24} {'ms':>9} {'share':>6} "
+              f"{'GFLOP':>9} {'TFLOP/s':>8} {'GB':>7} {'GB/s':>7} "
+              f"{'FLOP/B':>7} {'B2':>3} {'null':>6}")
+        for r in rows:
+            print(f"  {r['stage']:>8} {r['boundary'][:24]:>24} "
+                  f"{r['ms']:9.4f} {r['ms'] / total:6.3f} "
+                  f"{r['gflops']:9.2f} {r['tflops_per_sec']:8.2f} "
+                  f"{r['gb_accessed']:7.3f} {r['gb_per_sec']:7.0f} "
+                  f"{r['flops_per_byte'] or 0:7.2f} "
+                  f"{r['depthwise_launches']:3d} "
+                  f"{r['chain_overhead_share']:6.3f}")
+        top = max(rows, key=lambda r: r["ms"])
+        print(f"  sum of stages {total:.4f} ms; phase 8's served batch "
+              f"{serve_ms[name]:.4f} ms (B1 and the forward); dominant stage "
+              f"{top['stage']} ({top['ms'] / total:.3f})", flush=True)
+        err, equal = attribution_chain(name, spec, state, stage_segments(
+            spec, boundaries), smi)
+        summary[name] = {"batch": batch, "stage_total_ms": total,
+                         "served_ms": serve_ms[name],
+                         "dominant": top["stage"], "chain_max_abs_err": err,
+                         "chain_bit_equal": equal, "stages": rows}
+        torch.cuda.empty_cache()
+    return tuple(launches), summary
+
+
+# Phase 16 (export round trip): 256 frames of 480x640 served in float32 from
+# the restored .onnx; the evaluator's check on the first 2 of them.
+EXPORT_FRAMES = 256
+EXPORT_EVAL_FRAMES = 2
+EXPORT_EVAL_ATOL = 1e-5
+
+
+def export_config(name):
+    """The port's Config that rebuilds ``name`` from a ``.onnx`` (built as a
+    dict: the card has no PyYAML)."""
+    from ab_line_classifier_torch.config import Config
+    from ab_line_classifier_torch.predict.benchmark import ZOO_HPARAMS
+
+    return Config({"DATA": {"IMG_DIM": list(OUT_HW),
+                            "CLASSES": ["a_lines", "b_lines"]},
+                   "TRAIN": {"MODEL_DEF": name, "BATCH_SIZE": EXPORT_FRAMES},
+                   "HPARAMS": {name.upper(): ZOO_HPARAMS[name]}})
+
+
+def export_roundtrip(name, spec, state, root, frames, smi):
+    """``export_checkpoint`` of ``name``'s checkpoint on the card, then
+    ``Predictor.restore`` of the ``.onnx`` on the card, serving ``frames``
+    in float32 (counts reset just before the export, read after the
+    serving); against the same checkpoint served in float32, and the
+    evaluator on the first frames against the card's float32 forward.
+    Returns (B1, B2 launches, summary)."""
+    from ab_line_classifier_torch.export import export_checkpoint
+    from ab_line_classifier_torch.models import build_model
+    from ab_line_classifier_torch.ops import depthwise_cuda as DC
+    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+    from ab_line_classifier_torch.ops.preprocess_cuda import preprocess_frames
+    from ab_line_classifier_torch.predict.predict import Predictor
+    from ab_line_classifier_torch.utils import checkpoint as ckpt
+    from ab_line_classifier_torch.utils import onnx_proto as OP
+    from ab_line_classifier_torch.utils.onnx_eval import evaluate
+
+    ckpt_dir = save_deploy_checkpoint(root, name, spec, state)
+    out = os.path.join(root, f"{name}.onnx")
+    cfg = export_config(name)
+    torch.cuda.synchronize()
+    PC.reset_launch_count()
+    DC.reset_launch_count()
+    t0 = time.perf_counter()
+    export_checkpoint(ckpt_dir, out, batch_size=EXPORT_EVAL_FRAMES, cfg=cfg,
+                      device="cuda")
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored = Predictor.restore(out, cfg=cfg, device="cuda",
+                                 batch_size=EXPORT_FRAMES,
+                                 compute_dtype=torch.float32)
+    restore_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = restored.predict_probs(frames)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    b1, b2 = PC.launch_count, DC.launch_count
+    want_b2 = {"cutoffvgg16": 0, **{k: v[1] for k, v in ZOO.items()}}[name]
+    if b1 != 1 or b2 != want_b2 or DC.copy_count:
+        raise AssertionError(f"{name} from .onnx: B1 {b1}, B2 {b2} launches "
+                             f"(want 1 and {want_b2}), B2 copies "
+                             f"{DC.copy_count}")
+
+    saved, meta = ckpt.load_model(ckpt_dir)
+    spec32 = build_model(name, meta["hparams"], tuple(meta["input_shape"]),
+                         int(meta["n_classes"]))
+    direct = Predictor(spec32, saved, batch_size=EXPORT_FRAMES,
+                       compute_dtype=torch.float32, device="cuda")
+    want = direct.predict_probs(frames)
+    diff = float(np.abs(got - want).max())
+    equal = bool(np.array_equal(got, want))
+
+    x = preprocess_frames(torch.as_tensor(frames[:EXPORT_EVAL_FRAMES]).cuda(),
+                          out_hw=OUT_HW, preprocess_mode=spec.preprocess_mode,
+                          out_dtype=torch.float32)
+    with torch.inference_mode():
+        card = restored.module(x).float().cpu().numpy()
+    t0 = time.perf_counter()
+    ev = evaluate(OP.load_model(out), {"input_1": x.cpu().numpy()})[0]
+    eval_s = time.perf_counter() - t0
+    eval_err = float(np.abs(ev - card).max())
+    size = os.path.getsize(out)
+    spread = float(np.ptp(want[:, 1]))
+    print(f"{name} export round trip on {smi}: export {export_s:.2f} s, "
+          f".onnx {size} bytes, restore {restore_s:.2f} s, {len(frames)} "
+          f"frames of 480x640 served from it in {serve_s:.3f} s (B1 {b1}, "
+          f"B2 {b2} launches); against the checkpoint served in float32: "
+          f"max |dp| {diff:.3e}, bit-equal {equal} (P(b_lines) spread "
+          f"{spread:.4f}); evaluator on {EXPORT_EVAL_FRAMES} frames "
+          f"({eval_s:.1f} s on the host) vs the card's float32 forward: "
+          f"{eval_err:.3e} (bar {EXPORT_EVAL_ATOL})", flush=True)
+    if not equal:
+        raise AssertionError(f"{name}: the .onnx serves other probabilities "
+                             f"than its checkpoint ({diff})")
+    if eval_err > EXPORT_EVAL_ATOL:
+        raise AssertionError(f"{name}: evaluator vs card {eval_err}")
+    return b1, b2, {"export_s": export_s, "onnx_bytes": size,
+                    "restore_s": restore_s, "serve_s": serve_s,
+                    "max_abs_diff_vs_checkpoint": diff, "bit_equal": equal,
+                    "evaluator_max_abs_err": eval_err, "evaluator_s": eval_s}
+
+
+def phase_export(smi, served):
+    """Phase 16: ``export_roundtrip`` of each model of ``served`` ({name:
+    (spec, state)}). Returns ((B1, B2 launches), summaries)."""
+    import tempfile
+
+    frames = deploy_clip(EXPORT_FRAMES, (480, 640), 16)
+    launches, summary = [0, 0], {}
+    with tempfile.TemporaryDirectory() as root:
+        for name, (spec, state) in served.items():
+            b1, b2, summary[name] = export_roundtrip(name, spec, state, root,
+                                                     frames, smi)
+            launches[0] += b1
+            launches[1] += b2
+    return tuple(launches), summary
+
+
+# Phase 17 (dataset creation): two synthetic 480x640 clips of DS_FRAMES
+# frames (a noisy fan), pulled by an injected fetch (a local copy) after an
+# injected query that also returns an unlabelled and a homogeneous clip;
+# the U-Net of phase 14's width, random weights from a numpy seed.
+DS_CLIPS = {101: 40, 102: 30}
+DS_HW = (480, 640)
+
+
+def phase_dataset(smi):
+    """Phase 17: ``ABLineDatasetCreator.create_dataset`` on the card: the
+    labelled clips pulled, masked (``mask.jpg`` and an mp4 of every frame
+    each) and decomposed, the frames table's rows and labels; each step
+    timed. Returns the timings."""
+    import shutil
+    import tempfile
+    import urllib.error
+
+    import cv2
+
+    from ab_line_classifier_torch.config import Config
+    from ab_line_classifier_torch.data.ab_line_dataset_creator import (
+        ABLineDatasetCreator)
+    from ab_line_classifier_torch.models.unet import seeded_unet_state
+    from ab_line_classifier_torch.utils import checkpoint as ckpt
+    from ab_line_classifier_torch.utils.tables import read_table
+
+    with tempfile.TemporaryDirectory() as root:
+        bucket = os.path.join(root, "bucket")
+        os.makedirs(bucket)
+        for clip_id, n in DS_CLIPS.items():
+            vw = cv2.VideoWriter(os.path.join(bucket, f"{clip_id}.mp4"),
+                                 cv2.VideoWriter_fourcc(*"mp4v"), 30,
+                                 DS_HW[::-1], True)
+            for f in beam_frames(n, DS_HW, clip_id):
+                vw.write(np.ascontiguousarray(f[..., ::-1]))
+            vw.release()
+        unet = ckpt.save_model(os.path.join(root, "unet"),
+                               seeded_unet_state(16, 17),
+                               {"model_name": "unet", "base_filters": 16})
+        paths = {k: os.path.join(root, v) for k, v in (
+            ("DATABASE_QUERY", "query.sql"), ("QUERY_TABLE", "query.csv"),
+            ("CLIPS_TABLE", "clips.csv"), ("RAW_CLIPS", "raw"),
+            ("MASKED_CLIPS", "masked"), ("FRAMES", "frames"),
+            ("FRAME_TABLE", "frames.csv"))}
+        with open(paths["DATABASE_QUERY"], "w") as f:
+            f.write("SELECT * FROM clips;")
+        cfg = Config({
+            "PATHS": dict(paths, AUTOMASK_MODEL_PATH=unet),
+            "DATA": {"CLASSES": ["a_lines", "b_lines"],
+                     "AUTOMASK": {"OUTPUT_FORMAT": "mp4",
+                                  "EDGE_PRESERVE": 0.95,
+                                  "SAVE_CROPPED_ROI": True}}})
+        rows = [{"patient_id": "p1", "a_or_b_lines": "a_lines", "id": 101,
+                 "s3_path": os.path.join(bucket, "101.mp4"),
+                 "frame_homogeneity": None},
+                {"patient_id": "p2", "a_or_b_lines": "b_lines_<_3",
+                 "id": 102, "s3_path": os.path.join(bucket, "102.mp4"),
+                 "frame_homogeneity": None},
+                {"patient_id": "p3", "a_or_b_lines": None, "id": 103,
+                 "s3_path": os.path.join(bucket, "103.mp4"),
+                 "frame_homogeneity": None},
+                {"patient_id": "p3", "a_or_b_lines": "a_lines", "id": 104,
+                 "s3_path": os.path.join(bucket, "104.mp4"),
+                 "frame_homogeneity": "homogeneous"}]
+
+        def fetch(url, out):
+            if not os.path.exists(url):
+                raise urllib.error.URLError(f"no object {url}")
+            shutil.copyfile(url, out)
+
+        creator = ABLineDatasetCreator(cfg, query_fn=lambda sql: rows,
+                                       fetch_fn=fetch, device="cuda")
+        timings = {}
+        for step in ("query_to_df", "database_pull", "auto_mask",
+                     "build_dataset"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            getattr(creator, step)()
+            torch.cuda.synchronize()
+            timings[step] = time.perf_counter() - t0
+        for clip_id, n in DS_CLIPS.items():
+            d = os.path.join(paths["MASKED_CLIPS"], str(clip_id))
+            cap = cv2.VideoCapture(os.path.join(d, f"{clip_id}.mp4"))
+            got = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+            cap.release()
+            mask = cv2.imread(os.path.join(d, "mask.jpg"), 0)
+            if got != n or mask is None or mask.shape != DS_HW:
+                raise AssertionError(
+                    f"clip {clip_id}: masked mp4 of {got} frames, mask "
+                    f"{None if mask is None else mask.shape}")
+        table = read_table(paths["FRAME_TABLE"])
+        want = [f"{c}_{i}.jpg" for c, n in DS_CLIPS.items() for i in range(n)]
+        if (list(table["Frame Path"]) != want
+                or list(table["Class"]) != [0] * DS_CLIPS[101]
+                + [1] * DS_CLIPS[102]
+                or sorted(os.listdir(paths["FRAMES"])) != sorted(want)):
+            raise AssertionError(f"frames table {len(table['Frame Path'])} "
+                                 f"rows, classes {set(table['Class'])}")
+    print(f"dataset creation on {smi}: {len(want)} frames of "
+          f"{len(DS_CLIPS)} {DS_HW[0]}x{DS_HW[1]} clips; "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items()),
+          flush=True)
+    return timings
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an "
@@ -3179,11 +3568,15 @@ def main():
     launches = {"serving": (b1_launches, b2_launches)}
 
     phase("8 throughput")
+    serve_ms = {}
     for bs in (1024, 2048):
-        throughput(vgg, vgg_sd, bs, 0, smi)
-        throughput(mbv2, weights["mobilenetv2"], bs, 10, smi)
+        r = throughput(vgg, vgg_sd, bs, 0, smi)
+        serve_ms["cutoffvgg16"] = r["ms_per_batch"]
+        r = throughput(mbv2, weights["mobilenetv2"], bs, 10, smi)
+        serve_ms["mobilenetv2"] = r["ms_per_batch"]
     for name in ("xception", "efficientnetb7"):
-        throughput(specs[name], weights[name], 512, ZOO[name][1], smi)
+        serve_ms[name] = throughput(specs[name], weights[name], 512,
+                                    ZOO[name][1], smi)["ms_per_batch"]
     gen = torch.Generator(device="cuda").manual_seed(2)
     profile_batch("cutoffvgg16", vgg_pred, smi, ((128, 128), (480, 640)),
                   gen)
@@ -3234,6 +3627,23 @@ def main():
     launches.update(paths)
     b1_err = max([b1_err] + [t["b1_max_abs_err"]
                              for t in raw_clip["deploy"].values()])
+    torch.cuda.synchronize()
+
+    phase("15 per-stage attribution")
+    served = {"cutoffvgg16": (vgg, vgg_sd),
+              **{name: (specs[name], weights[name]) for name in ZOO}}
+    launches["attribution"], attribution = phase_attribution(
+        smi, served, serve_ms)
+    torch.cuda.synchronize()
+
+    phase("16 ONNX export round trip")
+    launches["export_roundtrip"], exports = phase_export(smi, {
+        name: served[name] for name in ("cutoffvgg16", "mobilenetv2",
+                                        "efficientnetb7")})
+    torch.cuda.synchronize()
+
+    phase("17 dataset creation")
+    dataset_s = phase_dataset(smi)
 
     def graph_runs(kernel):
         """Runs on the card of ``kernel`` in one replay of each model's
@@ -3283,10 +3693,18 @@ def main():
              key: b2_b7[key] for key in ("ms", "plain_ms", "library_ms",
                                          "bound_ms")},
          "trial_launch_per_mobilenetv2_forward_batch_64": {
-             f"F={n}": t for n, t in trial_timings.items()}},
+             f"F={n}": t for n, t in trial_timings.items()},
+         "attribution_per_stage": {
+             name: {r["stage"]: r["depthwise_launches"]
+                    for r in a["stages"]}
+             for name, a in attribution.items()}},
     ]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
+    print(json.dumps({
+        "attribution": {name: {k: v for k, v in a.items() if k != "stages"}
+                        for name, a in attribution.items()},
+        "export": exports, "dataset_creation_s": dataset_s}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -101,3 +101,33 @@ def test_raw_clip_modules_are_covered():
     assert eval(missing) == []
     assert not {"jax", "pandas", "cv2", "h5py", "matplotlib",
                 "ab_line_classifier_tpu"} & set(eval(roots))
+
+
+def test_attribution_export_and_dataset_modules_are_covered():
+    """Attribution, the ONNX exporter and its evaluator, the export CLI and
+    the dataset-creation modules are among the modules the probe above
+    imports, and alone they load no JAX, pandas, PIL, cv2, protobuf, mysql
+    or the JAX package."""
+    modules = ("predict.attribution", "utils.onnx_eval",
+               "models.onnx_export", "export", "data.synthetic",
+               "data.dataset_creator", "data.ab_line_dataset_creator",
+               "data.real_time")
+    probe = (
+        "import pkgutil, sys, importlib, ab_line_classifier_torch as p\n"
+        "names = {m.name for m in pkgutil.walk_packages(p.__path__, "
+        "'ab_line_classifier_torch.')}\n"
+        f"wanted = {['ab_line_classifier_torch.' + m for m in modules]}\n"
+        "print(sorted(set(wanted) - names))\n"
+        "for m in wanted:\n"
+        "    importlib.import_module(m)\n"
+        "roots = {m.split('.')[0] for m in sys.modules}\n"
+        "roots |= {m for m in sys.modules if m.startswith('google.protobuf')}"
+        "\n"
+        "print(sorted(roots))\n")
+    r = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                       text=True, timeout=120, cwd=REPO_ROOT, env=cli_env())
+    assert r.returncode == 0, r.stderr[-2000:]
+    missing, roots = r.stdout.splitlines()[:2]
+    assert eval(missing) == []
+    assert not {"jax", "pandas", "PIL", "cv2", "mysql", "google.protobuf",
+                "ab_line_classifier_tpu"} & set(eval(roots))
