@@ -1,8 +1,8 @@
-"""Input pipeline: frames table -> decoded uint8 batches (port of the PIL
-path of the JAX package's ``data/pipeline.py``), and the device-resident
-cache.
+"""Input pipeline: frames table -> decoded uint8 batches (port of the JAX
+package's ``data/pipeline.py``), and the device-resident cache.
 
-* :class:`FrameDataset`: the host decodes JPEGs (PIL) and resizes them to
+* :class:`FrameDataset`: the host decodes JPEGs (the native libjpeg loader
+  of ``data/native.py`` where it builds, else PIL) and resizes them to
   IMG_DIM with the same nearest index map as the device kernel, into
   static-shape uint8 batches with a validity mask, on a background thread;
   normalization runs on the device.
@@ -19,8 +19,7 @@ Every epoch, streamed or cached, uses the same row order
 wraparound rows of that batch's own (mask 0: out of the loss and the
 metrics, but real images in a training batch norm's statistics). PIL and
 pandas are imported only where they are used, so training and serving run
-where neither is installed. The native ctypes loader comes with a later
-slice of the port.
+where neither is installed.
 """
 
 from __future__ import annotations
@@ -69,17 +68,33 @@ def _resize_nearest_np(img: np.ndarray, out_hw: Tuple[int, int],
 
 class FrameDataset:
     """A frames table (a pandas DataFrame with the reference's columns
-    ``Frame Path``, ``Class``, ...) bound to an image directory."""
+    ``Frame Path``, ``Class``, ...) bound to an image directory.
+
+    ``use_native``: decode with the native loader (``data/native.py``)
+    where it builds (None), always (True: raises with the build's message
+    where it does not) or never (False: PIL). Both decode the same
+    bytes."""
 
     def __init__(self, frames_df, frames_dir: str,
                  img_dim: Tuple[int, int] = (128, 128),
-                 resize_mode: str = "tf"):
+                 resize_mode: str = "tf",
+                 use_native: Optional[bool] = None):
         self.df = frames_df.reset_index(drop=True)
         self.frames_dir = frames_dir
         self.img_dim = tuple(img_dim)
         self.resize_mode = resize_mode
         self._paths = [os.path.join(frames_dir, p)
                        for p in self.df[FRAME_PATH]]
+        if use_native is not False:
+            from ab_line_classifier_torch.data import native
+
+            available = native.native_available()
+            if use_native and not available:
+                raise RuntimeError(f"use_native=True, but the native JPEG "
+                                   f"loader is unavailable: "
+                                   f"{native.build_error()}")
+            use_native = available
+        self.use_native = use_native
 
     def __len__(self) -> int:
         return len(self.df)
@@ -103,7 +118,7 @@ class FrameDataset:
     def take(self, rows: np.ndarray) -> "FrameDataset":
         """Rows ``rows`` of the table, in that order."""
         return FrameDataset(self.df.iloc[rows], self.frames_dir,
-                            self.img_dim, self.resize_mode)
+                            self.img_dim, self.resize_mode, self.use_native)
 
     def load_frame(self, row_idx: int) -> np.ndarray:
         img = decode_jpeg(self._paths[row_idx])
@@ -114,9 +129,20 @@ class FrameDataset:
         the labels."""
         h, w = self.img_dim
         images = np.zeros((len(self), h, w, 3), np.uint8)
-        for i in range(len(self)):
-            images[i] = self.load_frame(i)
+        self._decode(np.arange(len(self)), images)
         return images, self.labels
+
+    def _decode(self, rows: np.ndarray, out: np.ndarray) -> None:
+        """Frames ``rows`` decoded into ``out[:len(rows)]``."""
+        if self.use_native:
+            from ab_line_classifier_torch.data import native
+
+            native.decode_jpeg_batch([self._paths[int(r)] for r in rows],
+                                     self.img_dim, self.resize_mode,
+                                     out=out[:len(rows)])
+            return
+        for j, r in enumerate(rows):
+            out[j] = self.load_frame(int(r))
 
     # ------------------------------------------------------------------
     def batches(self, batch_size: int, *, shuffle: bool = False,
@@ -141,9 +167,9 @@ class FrameDataset:
             mask = np.zeros((batch_size,), np.float32)
             indices = np.full((batch_size,), -1, np.int32)
             valid = idxs[:n_valid]
-            for j, ri in enumerate(valid):
-                images[j] = self.load_frame(int(ri))
-                labels[j] = all_labels[ri]
+            self._decode(valid, images)
+            labels[:n_valid] = all_labels[valid]
+            # Wraparound rows are copies of the batch's own decoded rows.
             for j in range(n_valid, batch_size):
                 src = (j - n_valid) % n_valid
                 images[j] = images[src]

@@ -26,9 +26,11 @@ The trial-parallel variants (:func:`lr_search_parallel`,
 once, one stacked model on one device
 (``parallel/trial_parallel.py::ParallelFoldTrainer``), from the union of
 their rows held once on the device; a ``PARALLEL.MESH.TRIAL`` above 1 (the
-JAX package's trial sharding over a device mesh) raises. Fetching a W&B
-artifact pin and the W&B sweep backend raise ``NotImplementedError``:
-they come with later slices of the port.
+JAX package's trial sharding over a device mesh) raises. A pinned W&B
+artifact version is fetched into the local store
+(``data/wandb_artifacts.py``), and ``TRAIN.HPARAM_SEARCH.BACKEND: wandb``
+lets the W&B sweep agent schedule the trials (``train/wandb_sweep.py``);
+both import wandb only then.
 """
 
 from __future__ import annotations
@@ -160,11 +162,23 @@ def source_from_datasets(cfg: Config) -> FoldSource:
     return FoldSource(FrameDataset(table, frames_dir, cfg.img_dim), fold_set)
 
 
+def _wandb_prefix(cfg: Config) -> str:
+    """``entity/project``, ``project`` alone when ENTITY is blank (the API's
+    default entity then applies), or empty when neither is set."""
+    entity = str(cfg["WANDB"].get("ENTITY", "") or "")
+    project = str(cfg["WANDB"].get("PROJECT_NAME", "") or "")
+    return f"{entity}/{project}" if entity and project else project
+
+
 def _pinned_version(cfg: Config, store, name: str, key: str) -> Optional[str]:
     """The local store's version of a W&B artifact pinned by
-    ``WANDB.<key>``, or None when nothing is pinned. A pinned version
-    already fetched into the store (``source == wandb:<name>:<ver>``) is
-    served from it; fetching one raises (the W&B slice of the port)."""
+    ``WANDB.<key>``, or None when nothing is pinned (JAX
+    ``train/experiment.py:311-335``). A pinned version already fetched
+    into the store (``source == wandb:<name>:<ver>``) is served from it
+    without touching wandb; else it is fetched through
+    :class:`~ab_line_classifier_torch.data.wandb_artifacts.WandbArtifactFetcher`
+    (``wandb.Api()``). Without wandb a pin raises ``ImportError``: training
+    on another split than the pinned one would be silent."""
     ver = str((cfg.get("WANDB") or {}).get(key, "") or "")
     if not ver:
         return None
@@ -173,9 +187,19 @@ def _pinned_version(cfg: Config, store, name: str, key: str) -> Optional[str]:
         for v in reversed(store.versions(name)):
             if store.metadata(name, v).get("source") == want:
                 return v
-    raise NotImplementedError(
-        f"WANDB.{key} pins W&B artifact version {ver!r}: fetching it "
-        f"{_LATER}")
+    from ab_line_classifier_torch.data.wandb_artifacts import (
+        WandbArtifactFetcher)
+    try:
+        fetcher = WandbArtifactFetcher(store, project=_wandb_prefix(cfg))
+        path = (fetcher.fetch_k_fold(ver) if name == K_FOLD
+                else fetcher.fetch_train_val_test(ver))
+    except ImportError as e:
+        raise ImportError(
+            f"WANDB.{key} pins artifact version {ver!r} but wandb "
+            f"is not importable — install wandb or clear the pin "
+            f"(training on a different split than the one pinned "
+            f"would be silent data corruption)") from e
+    return os.path.basename(path.rstrip(os.sep))
 
 
 def resolve_datasets(cfg: Config, fold_id: Optional[int] = None,
@@ -186,7 +210,7 @@ def resolve_datasets(cfg: Config, fold_id: Optional[int] = None,
 
     1. a pinned W&B artifact version (``WANDB.TRAIN_VAL_TEST_ARTIFACT_
        VERSION``): served from the store when it was fetched before, else
-       ``NotImplementedError``;
+       fetched into it (:func:`_pinned_version`);
     2. partition CSVs under ``PATHS.PARTITIONS``/frames;
     3. the local artifact store's latest TrainValTest artifact;
     4. a patient-grouped split of ``PATHS.FRAME_TABLE`` with
@@ -574,7 +598,10 @@ def hparam_search(cfg: Config, save_weights: bool = False,
                   resume: bool = False, device=None,
                   source: Optional[FoldSource] = None) -> Dict[str, Any]:
     """Serial hyperparameter search with the native controllers (JAX
-    ``train/experiment.py:622-734``). Each trial's record (``trial``, its
+    ``train/experiment.py:622-734``), or, with ``TRAIN.HPARAM_SEARCH.
+    BACKEND: wandb`` where wandb imports, scheduled by the W&B sweep agent
+    (:func:`~ab_line_classifier_torch.train.wandb_sweep.run_wandb_sweep`,
+    resumed only by ``sweep_id``). Each trial's record (``trial``, its
     parameters, ``objective``) is appended to
     ``EXPERIMENTS/{sweep_id}.jsonl`` when it finishes; rerunning with the
     same ``sweep_id`` (``resume`` without one: the latest sweep) replays
@@ -586,13 +613,26 @@ def hparam_search(cfg: Config, save_weights: bool = False,
     device = resolve_device(device)
     search = cfg["TRAIN"]["HPARAM_SEARCH"]
     if str(search.get("BACKEND", "native")).lower() == "wandb":
+        # Only the import is tried here: an ImportError inside a trial
+        # propagates, never reruns the search natively.
+        from ab_line_classifier_torch.train import wandb_sweep
         try:
-            import wandb  # noqa: F401
+            wandb_sweep._default_wandb()
         except ImportError as e:
             print(f"wandb sweep backend unavailable ({e}); "
                   f"using the native controller")
         else:
-            raise NotImplementedError(f"the W&B sweep backend {_LATER}")
+            if resume and sweep_id is None:
+                # The service owns a W&B sweep's trial history: there is no
+                # local trials file to resume from.
+                raise ValueError(
+                    "hparam_search --resume with the wandb backend needs "
+                    "an explicit --sweep-id (the service owns the trial "
+                    "history); pass the sweep id printed when the sweep "
+                    "was registered, or drop --resume to start a new one")
+            return wandb_sweep.run_wandb_sweep(
+                cfg, save_weights=save_weights, verbose=verbose,
+                sweep_id=sweep_id, device=device, source=source)
     space = space_from_config(cfg.hparam_search_space())
     controller = make_controller(search["METHOD"], space,
                                  seed=int(cfg["TRAIN"]["SEED"]))
@@ -713,7 +753,7 @@ def _check_single_device_mesh(cfg: Config) -> None:
         raise NotImplementedError(
             f"PARALLEL.MESH.TRIAL {mesh['TRIAL']}: sharding trials over a "
             f"device mesh is multi-device training, which {_LATER}, item "
-            f"5); set TRIAL to 1 to train every trial on one device")
+            f"10); set TRIAL to 1 to train every trial on one device")
 
 
 def _union_cache(frames, rows_per_trial: Sequence[Sequence[np.ndarray]],

@@ -1,14 +1,17 @@
-"""Experiment tracking, local-first (the ``NullTracker`` and
-``LocalTracker`` of the JAX package's ``train/tracker.py``).
+"""Experiment tracking, local-first (port of the JAX package's
+``train/tracker.py``).
 
 ``LocalTracker`` writes one directory per run under ``TRACKER.DIR``:
 ``events.jsonl`` (timestamped epoch and metric events; the first,
 ``start``, names the run's group, a sweep's or k-fold run's id, and its
 job type), ``config.json`` (the hyperparameters with a trial's overrides,
 and ``FOLD_ID``) and, from :meth:`LocalTracker.finish`, ``summary.json``.
-The W&B and TensorBoard backends wait for a later slice of the port:
-selecting one says so and tracks locally, as the JAX package does when
-its backend is not importable.
+``TRACKER.BACKEND: wandb`` logs to a W&B run (:class:`WandbTracker`) and
+``tensorboard`` to event files under ``PATHS.LOGS/<run>``
+(:class:`TensorBoardTracker`), with the same event names
+(``epoch/<k>``, ``epoch/val_<k>``, ``epoch/lr``, ``<name>/<k>``); where
+the backend does not import, :func:`make_tracker` says so and tracks
+locally. wandb and tensorboard are imported only by those trackers.
 """
 
 from __future__ import annotations
@@ -122,15 +125,107 @@ class LocalTracker(NullTracker):
         self._events.close()
 
 
+class WandbTracker(NullTracker):
+    """A W&B run (the reference's own tracker); ``wandb_module`` stands in
+    for the ``wandb`` module (the default imports it)."""
+
+    def __init__(self, project: str, entity: Optional[str] = None,
+                 group: Optional[str] = None, job_type: str = "train",
+                 config: Optional[Dict] = None, wandb_module=None):
+        if wandb_module is None:
+            import wandb as wandb_module
+        self._wandb = wandb_module
+        self.run = wandb_module.init(project=project, entity=entity or None,
+                                     group=group, job_type=job_type,
+                                     config=config)
+        self.run_dir = self.run.dir
+
+    def log_config(self, config: Dict[str, Any]) -> None:
+        self.run.config.update(config, allow_val_change=True)
+
+    def log_epoch(self, log) -> None:
+        payload = {f"epoch/{k}": v for k, v in log.train.items()}
+        payload.update({f"epoch/val_{k}": v for k, v in log.val.items()})
+        payload["epoch/lr"] = log.lr
+        self._wandb.log(payload, step=log.epoch)
+
+    def log_metrics(self, name: str, metrics: Dict[str, Any]) -> None:
+        self._wandb.log({f"{name}/{k}": v for k, v in metrics.items()})
+
+    def log_image(self, name: str, image, step: Optional[int] = None) -> None:
+        self._wandb.log({name: self._wandb.Image(_as_image_array(image))},
+                        step=step)
+
+    def finish(self, summary: Optional[Dict[str, Any]] = None) -> None:
+        if summary:
+            for k, v in summary.items():
+                self.run.summary[k] = v
+        self.run.finish()
+
+
+class TensorBoardTracker(NullTracker):
+    """TensorBoard event files under ``<log_root>/<run>`` (the reference's
+    legacy trainer's ``results/logs/{timestamp}``); scalars by epoch."""
+
+    def __init__(self, log_root: str, run_name: Optional[str] = None):
+        from torch.utils.tensorboard import SummaryWriter
+
+        ts = time.strftime("%Y%m%d-%H%M%S")
+        self.run_id = run_name or f"{ts}-{uuid.uuid4().hex[:6]}"
+        self.run_dir = os.path.join(log_root, self.run_id)
+        self._writer = SummaryWriter(self.run_dir)
+
+    def log_config(self, config: Dict[str, Any]) -> None:
+        self._writer.add_text("config", json.dumps(
+            {k: _jsonable(v) for k, v in config.items()}, indent=2))
+
+    def log_epoch(self, log) -> None:
+        for k, v in log.train.items():
+            self._writer.add_scalar(f"epoch/{k}", v, log.epoch)
+        for k, v in log.val.items():
+            self._writer.add_scalar(f"epoch/val_{k}", v, log.epoch)
+        if log.lr is not None:
+            self._writer.add_scalar("epoch/lr", log.lr, log.epoch)
+
+    def log_metrics(self, name: str, metrics: Dict[str, Any]) -> None:
+        for k, v in metrics.items():
+            if isinstance(v, (int, float)):
+                self._writer.add_scalar(f"{name}/{k}", v)
+
+    def log_image(self, name: str, image, step: Optional[int] = None) -> None:
+        self._writer.add_image(name, _as_image_array(image),
+                               global_step=step or 0, dataformats="HWC")
+
+    def finish(self, summary: Optional[Dict[str, Any]] = None) -> None:
+        if summary:
+            self._writer.add_text("summary", json.dumps(
+                {k: _jsonable(v) for k, v in summary.items()}, indent=2))
+        self._writer.close()
+
+
 def make_tracker(cfg, *, run_name: Optional[str] = None,
                  group: Optional[str] = None, job_type: str = "train"):
-    """The tracker ``TRACKER.BACKEND`` selects (default local)."""
+    """The tracker ``TRACKER.BACKEND`` selects (default local). A W&B or
+    TensorBoard backend that cannot start (its package does not import)
+    says why and tracks locally."""
     tcfg = cfg.get("TRACKER", {}) or {}
     backend = str(tcfg.get("BACKEND", "local")).lower()
     if backend == "none":
         return NullTracker()
-    if backend != "local":
-        print(f"tracker backend {backend!r} is not ported yet; tracking "
-              f"locally")
+    if backend == "wandb":
+        try:
+            wandb_cfg = cfg["WANDB"]
+            return WandbTracker(project=wandb_cfg["PROJECT_NAME"],
+                                entity=wandb_cfg.get("ENTITY"),
+                                group=group, job_type=job_type)
+        except Exception as e:
+            print(f"wandb tracker unavailable ({e}); falling back to local")
+    if backend == "tensorboard":
+        try:
+            log_root = cfg["PATHS"].get("LOGS", "results/logs/")
+            return TensorBoardTracker(log_root, run_name=run_name)
+        except Exception as e:
+            print(f"tensorboard tracker unavailable ({e}); "
+                  "falling back to local")
     return LocalTracker(tcfg.get("DIR", "results/runs/"), run_name=run_name,
                         group=group, job_type=job_type)

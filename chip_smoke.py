@@ -175,12 +175,29 @@ no result):
    injected query and fetch (local copies) over two synthetic 480x640
    clips of 40 and 30 frames, the U-Net (width 16, random weights from a
    numpy seed) on the card: the masked mp4s and ``mask.jpg``, the frames
-   table's rows and classes, each step's seconds.
+   table's rows and classes, each step's seconds;
+18. the JPEG-fed path — 2048 JPEGs of 480x640 written through
+   ``data/synthetic.py``; where ``jpeglib.h`` is on g++'s include path the
+   native loader is built and held byte-equal to PIL in both modes (host
+   frames/s on 1, 4 and all cores beside PIL's), else the phase says so
+   and feeds from PIL; cutoffvgg16 (batch 256, bf16) through
+   ``Trainer.fit`` streamed from the JPEGs with the device cache off (B1
+   once per validation batch), tracked by the W&B (stand-in), TensorBoard
+   and local trackers at once (the event file's scalars read back equal to
+   the local epoch log), and one streamed step's idle share by each feed
+   beside the device cache's; a TrainValTest split pinned by
+   ``WANDB.TRAIN_VAL_TEST_ARTIFACT_VERSION`` fetched from a stand-in W&B
+   hub serving a store the phase wrote (tables byte-equal, a second
+   resolve without a download); ``hparam_search`` with ``BACKEND: wandb``
+   through the stand-in agent (mobilenetv2, 3 LR trials, B1 and B2 held to
+   the data's counts); ``publish_all`` with every ``WANDB.LOGGING`` flag.
+   The stand-in ``wandb`` module is in ``sys.modules`` for this phase only.
 
-The last three lines of standard output are a JSON line of phases 15-17's
+The last three lines of standard output are a JSON line of phases 15-18's
 summaries, a JSON line of per-kernel
 numbers (launches per path, ``training``, the trial-parallel, ``deploy``,
-``automask``, ``attribution`` and ``export_roundtrip`` paths included:
+``automask``, ``attribution``, ``export_roundtrip``, ``jpeg_training``
+and ``wandb_sweep`` paths included:
 the wrappers' counts,
 which tick once at a CUDA graph's capture; the kernel's runs in one
 replay of each latency graph, counted by the profiler, and the replays)
@@ -195,6 +212,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -3492,6 +3510,610 @@ def phase_dataset(smi):
     return timings
 
 
+# Phase 18 (the JPEG-fed path): JPEG_UNIQUE frames of 480x640 written by
+# data/synthetic.py (PIL), each copied under JPEG_COPIES names (a patient
+# each: 2048 files; writing them all would take minutes of numpy);
+# cutoffvgg16 streamed from them at batch 256 (STREAM_TRAIN training and
+# STREAM_VAL validation frames, extract and finetune one epoch each), the
+# device cache off; a TrainValTest split of SWEEP_FRAMES of them (grouped by
+# patient) published on a stand-in W&B hub, fetched by a pinned version and
+# swept by the stand-in agent (mobilenetv2, SWEEP_TRIALS LR trials, one
+# epoch, batch 64).
+JPEG_HW = (480, 640)
+JPEG_UNIQUE, JPEG_COPIES = 128, 16
+STREAM_BATCH, STREAM_TRAIN, STREAM_VAL = 256, 1024, 256
+STREAM_STEPS = 4
+DECODE_FRAMES = 512
+SWEEP_FRAMES, SWEEP_TRIALS = 384, 3
+NATIVE_THREADS = (1, 4, 0)  # 0: one per core
+
+
+class StandInWandb:
+    """The ``wandb`` surface the port touches, in process and offline: the
+    sweep service and agent (LR drawn log-uniformly from the registered
+    space), runs (``config``, ``summary``, ``log``), an artifact hub that
+    serves a local store (``Api().artifact(name).download()``) and records
+    what is published (``Artifact``, ``use_artifact``, ``log_artifact``).
+    Installed as ``sys.modules["wandb"]`` for phase 18 only."""
+
+    def __init__(self, root, served, seed):
+        self.module = types.ModuleType("wandb")
+        self.root, self.served = root, served
+        self.rng = np.random.RandomState(seed)
+        self.downloads, self.logs, self.edges, self.published = [], [], [], []
+        self.sweep_cfg, self.trial_config, self.versions = None, {}, {}
+        m = self.module
+        m.Api, m.sweep, m.agent, m.init, m.log = (
+            self.api, self.sweep, self.agent, self.init, self.log)
+        m.Image = lambda array: ("image", np.asarray(array).shape)
+
+        class Artifact:
+            def __init__(self, name, type=None, description=None,
+                         metadata=None):
+                self.name, self.type = name, type
+                self.metadata, self.adds = dict(metadata or {}), []
+
+            def add_file(self, path, name=None):
+                if not os.path.isfile(path):
+                    raise FileNotFoundError(path)
+                self.adds.append(name)
+
+            def add_dir(self, path, name=None):
+                if not os.path.isdir(path):
+                    raise FileNotFoundError(path)
+                self.adds.append(name)
+
+        m.Artifact = Artifact
+
+    def api(self):
+        hub = self
+
+        class Api:
+            def artifact(self, spec):
+                name, _, ver = spec.rpartition("/")[2].partition(":")
+                path, meta = hub.served(name, ver)
+
+                def download():
+                    hub.downloads.append(f"{name}:{ver}")
+                    return path
+
+                return types.SimpleNamespace(metadata=meta, version=ver,
+                                             download=download)
+
+        return Api()
+
+    def sweep(self, sweep, project=None, entity=None):
+        self.sweep_cfg = sweep
+        return "sweep-smoke"
+
+    def agent(self, sweep_id, function, count=None):
+        lr = self.sweep_cfg["parameters"]["LR"]
+        for _ in range(count):
+            self.trial_config = {"LR": float(np.exp(self.rng.uniform(
+                np.log(lr["min"]), np.log(lr["max"]))))}
+            function()
+        self.trial_config = {}
+
+    def init(self, **kw):
+        hub = self
+
+        class Config(dict):
+            def update(self, values, allow_val_change=False):
+                dict.update(self, values)
+
+        class Run:
+            dir = self.root
+            config = Config(self.trial_config)
+            summary = {}
+
+            def finish(self):
+                pass
+
+            def __enter__(self):
+                return self
+
+            def __exit__(self, *exc):
+                return False
+
+            def use_artifact(self, spec):
+                hub.edges.append(spec)
+                name, _, ver = spec.partition(":")
+                return types.SimpleNamespace(
+                    version=hub.versions.get(name, ver))
+
+            def log_artifact(self, art):
+                ver = f"v{len([p for p in hub.published if p[0] == art.name])}"
+                hub.published.append((art.name, ver, art.adds))
+                hub.versions[art.name] = ver
+                return types.SimpleNamespace(version=ver)
+
+        return Run()
+
+    def log(self, payload, step=None):
+        self.logs.append(dict(payload))
+
+
+class Tee:
+    """A tracker that hands every call to each of ``trackers``."""
+
+    def __init__(self, *trackers):
+        self.trackers = trackers
+
+    def __getattr__(self, name):
+        return lambda *a, **k: [getattr(t, name)(*a, **k)
+                                for t in self.trackers][-1]
+
+
+def write_jpegs(root):
+    """The phase's JPEGs: data/synthetic.py's frames and tables under
+    ``root`` (the Images layout: frames.csv, clips_table.csv, frames/),
+    each frame then copied to JPEG_COPIES names, a patient and a clip per
+    copy; the tables rewritten without pandas. Returns the frames table."""
+    import shutil
+
+    from ab_line_classifier_torch.data.synthetic import generate_dataset
+    from ab_line_classifier_torch.utils.tables import (read_table,
+                                                       write_table)
+
+    fcsv, ccsv, fdir = generate_dataset(
+        root, n_patients=JPEG_UNIQUE // 8, clips_per_patient=2,
+        frames_per_clip=4, hw=JPEG_HW, seed=18, frames_csv="frames.csv",
+        clips_csv="clips_table.csv")
+    frames, clips = read_table(fcsv), read_table(ccsv)
+    n_clips = len(clips["id"])
+    out_f = {k: [] for k in frames}
+    out_c = {k: [] for k in clips}
+    for r in range(JPEG_COPIES):
+        for i, name in enumerate(frames["Frame Path"]):
+            copy = f"r{r:02d}_{name}"
+            shutil.copyfile(os.path.join(fdir, name),
+                            os.path.join(fdir, copy))
+            for k in frames:
+                v = frames[k][i]
+                out_f[k].append(copy if k == "Frame Path"
+                                else f"r{r:02d}_{v}" if k == "patient_id"
+                                else v + r * n_clips if k == "id" else v)
+        for i in range(n_clips):
+            for k in clips:
+                v = clips[k][i]
+                out_c[k].append(f"r{r:02d}_{v}" if k in ("filename",
+                                                         "patient_id")
+                                else v + r * n_clips if k == "id" else v)
+    for name in frames["Frame Path"]:
+        os.remove(os.path.join(fdir, name))
+    table = {k: np.array(v) for k, v in out_f.items()}
+    write_table(fcsv, table)
+    write_table(ccsv, {k: np.array(v) for k, v in out_c.items()})
+    return table, fcsv, ccsv, fdir
+
+
+def hub_lineage(store, table, fcsv, ccsv, fdir):
+    """The local lineage the stand-in hub serves, committed through the
+    port's ``ArtifactStore`` (pandas and sklearn-free: patients dealt in
+    numpy): Images; ModelDev and Holdout (every eighth patient held out);
+    TrainValTest over the first SWEEP_FRAMES frames of ModelDev (70/15/15
+    of its patients); KFoldCrossValidation (3 folds of ModelDev)."""
+    from ab_line_classifier_torch.data import artifacts as A
+    from ab_line_classifier_torch.utils.tables import read_table, write_table
+
+    clips = read_table(ccsv)
+    patients = np.asarray(table["patient_id"])
+
+    def frame_rows(keep_ids):
+        keep = np.isin(patients, list(keep_ids))
+        return {k: v[keep] for k, v in table.items()}
+
+    def clip_rows(keep_ids):
+        keep = np.isin(clips["patient_id"], list(keep_ids))
+        return {k: v[keep] for k, v in clips.items()}
+
+    store.log_images(fcsv, ccsv, frames_dir=fdir)
+    ids = list(dict.fromkeys(patients))
+    held = set(ids[7::8])
+    dev_ids = [p for p in ids if p not in held]
+    versions = []
+    for name, keep_ids in ((A.MODEL_DEV, set(dev_ids)), (A.HOLDOUT, held)):
+        path = store.new_version_dir(name)
+        write_table(os.path.join(path, "frames.csv"), frame_rows(keep_ids))
+        write_table(os.path.join(path, "clips_table.csv"),
+                    clip_rows(keep_ids))
+        versions.append(path)
+    for path in versions:
+        store._write_meta(path, {"images_artifact_version": "v0",
+                                 "random_seed": 42, "holdout_split": 0.125,
+                                 "frames_dir": fdir})
+    sweep_ids = dev_ids[:SWEEP_FRAMES // int(np.sum(patients == ids[0]))]
+    n = len(sweep_ids)
+    parts = {"train": sweep_ids[:round(0.7 * n)],
+             "val": sweep_ids[round(0.7 * n):round(0.85 * n)],
+             "test": sweep_ids[round(0.85 * n):]}
+    path = store.new_version_dir(A.TRAIN_VAL_TEST)
+    for sub in ("frames", "clips"):
+        os.makedirs(os.path.join(path, sub))
+    for split, keep_ids in parts.items():
+        write_table(os.path.join(path, "frames", f"{split}.csv"),
+                    frame_rows(keep_ids))
+        write_table(os.path.join(path, "clips", f"{split}.csv"),
+                    clip_rows(keep_ids))
+    store._write_meta(path, {"model_dev_artifact_version": "v0",
+                             "random_seed": 42, "val_split": 0.15,
+                             "test_split": 0.15, "frames_dir": fdir})
+    path = store.new_version_dir(A.K_FOLD)
+    for k in range(3):
+        os.makedirs(os.path.join(path, f"fold_{k}"))
+        write_table(os.path.join(path, f"fold_{k}", "frames.csv"),
+                    frame_rows(dev_ids[k::3]))
+    store._write_meta(path, {"model_dev_artifact_version": "v0",
+                             "n_folds": 3, "random_seed": 42,
+                             "val_split": 0.1, "frames_dir": fdir})
+    return {split: int(np.isin(patients, keep).sum())
+            for split, keep in parts.items()}
+
+
+def decode_rates(paths, native_ok, smi):
+    """Host frames/s of DECODE_FRAMES 480x640 JPEGs decoded and resized to
+    128x128: PIL (``FrameDataset``), and the native loader on 1, 4 and all
+    cores where it builds, held byte-equal to PIL in both modes."""
+    import pandas as pd
+
+    from ab_line_classifier_torch.data import native
+    from ab_line_classifier_torch.data.pipeline import FrameDataset
+
+    fdir = os.path.dirname(paths[0])
+    df = pd.DataFrame({"Frame Path": [os.path.basename(p)
+                                      for p in paths[:DECODE_FRAMES]],
+                       "Class": 0})
+    rates = {}
+    for mode in ("tf", "cv2"):
+        t0 = time.perf_counter()
+        pil, _ = FrameDataset(df, fdir, OUT_HW, mode,
+                              use_native=False).load_all()
+        seconds = time.perf_counter() - t0
+        if mode == "tf":
+            rates["pil"] = DECODE_FRAMES / seconds
+        if native_ok:
+            got = native.decode_jpeg_batch(paths[:DECODE_FRAMES], OUT_HW,
+                                           mode)
+            if not np.array_equal(got, pil):
+                bad = int((got != pil).any(axis=(1, 2, 3)).sum())
+                raise AssertionError(f"native loader ({mode}) differs from "
+                                     f"PIL on {bad} frames")
+    if native_ok:
+        for n in NATIVE_THREADS:
+            native.decode_jpeg_batch(paths[:64], OUT_HW, n_threads=n)
+            t0 = time.perf_counter()
+            native.decode_jpeg_batch(paths[:DECODE_FRAMES], OUT_HW,
+                                     n_threads=n)
+            rates[f"native_{n or os.cpu_count()}"] = DECODE_FRAMES / (
+                time.perf_counter() - t0)
+    print(f"decode on the host of {smi}, {DECODE_FRAMES} JPEGs "
+          f"{JPEG_HW[0]}x{JPEG_HW[1]} -> {OUT_HW[0]}x{OUT_HW[1]} "
+          f"(torch.get_num_threads() {torch.get_num_threads()}, "
+          f"os.cpu_count() {os.cpu_count()}): "
+          + ", ".join(f"{k} {v:.1f} frames/s" for k, v in rates.items())
+          + ("; native byte-equal to PIL in tf and cv2 modes"
+             if native_ok else ""), flush=True)
+    return rates
+
+
+def streamed_idle(trainer, ds, smi, label):
+    """A profiled window of STREAM_STEPS training steps of cutoffvgg16
+    ``extract`` at STREAM_BATCH, each batch pulled from ``ds.batches`` (a
+    decoding producer thread for a ``FrameDataset``) and copied over, after
+    two warm steps (all JPEG_UNIQUE * JPEG_COPIES frames: 8 batches).
+    Returns (ms per step, device idle share)."""
+    from ab_line_classifier_torch.ops import metrics as M
+
+    batches = ds.batches(STREAM_BATCH, shuffle=True, seed=0)
+    metrics = M.init_metrics(2, device="cuda")
+
+    def step():
+        b = next(batches)
+        trainer.train_step(*(torch.as_tensor(a, device="cuda") for a in (
+            b.images, b.labels, b.mask)), metrics)
+
+    step()
+    prof = device_time_by_kernel(step, n_iters=STREAM_STEPS)
+    batches.close()
+    wall, busy = prof["wall_ms"], prof["busy_ms"]
+    idle = 1 - busy / wall
+    print(f"streamed cutoffvgg16 extract step on {smi}, batch "
+          f"{STREAM_BATCH}, fed by {label}: wall {wall:.3f} ms, device busy "
+          f"{busy:.3f} ms (idle share {idle:.4f})", flush=True)
+    return wall, idle
+
+
+def jpeg_training(vgg_sd, table, fdir, native_ok, root, smi):
+    """Step 2: cutoffvgg16 through ``Trainer.fit`` streamed from JPEGs
+    (the device cache off), tracked by a tee of the wandb stand-in, a
+    TensorBoard and a local tracker; B1 once per validation batch. Then
+    the profiled streamed step by each feed. Returns (B1, B2 launches),
+    the step timings and the trackers."""
+    import pandas as pd
+
+    from ab_line_classifier_torch.data.pipeline import (DeviceCachedDataset,
+                                                        FrameDataset)
+    from ab_line_classifier_torch.models import build_model
+    from ab_line_classifier_torch.ops import depthwise_cuda as DC
+    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+    from ab_line_classifier_torch.predict.benchmark import (TRAIN_AUG,
+                                                            ZOO_HPARAMS)
+    from ab_line_classifier_torch.train.loop import Trainer
+    from ab_line_classifier_torch.train.tracker import make_tracker
+
+    df = pd.DataFrame({k: table[k] for k in ("Frame Path", "Class")})
+    feed = FrameDataset(df, fdir, OUT_HW, use_native=native_ok)
+    if feed.use_native != native_ok:
+        raise AssertionError(f"use_native {feed.use_native}")
+    tr = feed.take(np.arange(STREAM_TRAIN))
+    va = feed.take(np.arange(STREAM_TRAIN, STREAM_TRAIN + STREAM_VAL))
+    hp = dict(ZOO_HPARAMS["cutoffvgg16"], EXTRACT_EPOCHS=1)
+    spec = build_model("cutoffvgg16", hp, OUT_HW + (3,), 2,
+                       mixed_precision=True, total_epochs=1)
+    trackers = {backend: make_tracker({
+        "TRACKER": {"BACKEND": backend, "DIR": os.path.join(root, "runs")},
+        "PATHS": {"LOGS": os.path.join(root, "logs")},
+        "WANDB": {"PROJECT_NAME": "ab_line", "ENTITY": ""}},
+        run_name=f"jpeg-{backend}", group="jpeg", job_type="train")
+        for backend in ("wandb", "tensorboard", "local")}
+    trainer = Trainer(spec, aug_config=TRAIN_AUG, seed=10001,
+                      compute_dtype=torch.bfloat16, device="cuda")
+    PC.reset_launch_count()
+    DC.reset_launch_count()
+    t0 = time.perf_counter()
+    _, hist = trainer.fit(tr, va, batch_size=STREAM_BATCH, epochs=1,
+                          variables=vgg_sd, verbose=False,
+                          tracker=Tee(*trackers.values()))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = (PC.launch_count, DC.launch_count)
+    for t in trackers.values():
+        t.finish()
+    want = len(hist) * va.n_batches(STREAM_BATCH)
+    if ([h.phase for h in hist] != ["extract", "finetune"]
+            or launches != (want, 0)):
+        raise AssertionError(f"JPEG-fed fit: phases "
+                             f"{[h.phase for h in hist]}, launches "
+                             f"{launches}, want ({want}, 0)")
+    for h in hist:
+        if not all(np.isfinite(v) for v in (*h.train.values(),
+                                            *h.val.values())):
+            raise AssertionError(f"non-finite metrics in epoch {h.epoch}")
+    frames = len(hist) * (len(tr) + len(va))
+    feed_name = "native loader" if native_ok else "PIL"
+    print(f"JPEG-fed cutoffvgg16 fit on {smi} ({feed_name}, device cache "
+          f"off): {len(hist)} epochs of {len(tr)} "
+          f"training and {len(va)} validation frames of "
+          f"{JPEG_HW[0]}x{JPEG_HW[1]} in "
+          f"{seconds:.2f} s ({frames / seconds:.1f} frames/s decoded and "
+          f"trained); val loss "
+          f"{[round(h.val['loss'], 4) for h in hist]}; preprocess launches "
+          f"{launches[0]} ({want} validation batches), depthwise "
+          f"{launches[1]}", flush=True)
+
+    # The device cache's step needs no decode: random frames do its work.
+    n = (STREAM_STEPS + 2) * STREAM_BATCH
+    rand = np.random.RandomState(18).randint(0, 256, (n, *OUT_HW, 3),
+                                             dtype=np.uint8)
+    feeds = {"the device cache": DeviceCachedDataset.from_arrays(
+                 rand, np.arange(n) % 2, "cuda"),
+             "PIL": FrameDataset(df, fdir, OUT_HW, use_native=False)}
+    if native_ok:
+        feeds["the native loader"] = feed
+    trainer.begin_phase(0, spec.phases[0], vgg_sd)
+    steps = {label: streamed_idle(trainer, ds, smi, label)
+             for label, ds in feeds.items()}
+    if native_ok:
+        fast = min(("PIL", "the native loader"), key=lambda k: steps[k][0])
+        busy = steps["the native loader"][1] < 0.1
+        print(f"faster feed: {fast}; the native loader "
+              f"{'keeps' if busy else 'does not keep'} the card busy (idle "
+              f"share below 0.1) at batch {STREAM_BATCH}", flush=True)
+    else:
+        print("native loader step: not measured (no jpeglib.h on this "
+              "machine)", flush=True)
+    return launches, seconds, steps, trackers
+
+
+def check_trackers(trackers, stand_in):
+    """Step 5: the payload keys of the wandb stand-in's log calls, and the
+    TensorBoard event file's scalars read back against the local
+    tracker's epoch log of the same run."""
+    keys = []
+    for payload in stand_in.logs:
+        k = sorted(payload)
+        if k not in keys:
+            keys.append(k)
+    print(f"wandb tracker (stand-in) log payload keys: {keys}", flush=True)
+    tb = trackers["tensorboard"]
+    if type(tb).__name__ != "TensorBoardTracker":
+        print("tensorboard tracker: torch.utils.tensorboard does not import "
+              "here; the JAX package's fallback to local tracking ran",
+              flush=True)
+        return
+    from tensorboard.backend.event_processing.event_accumulator import (
+        EventAccumulator)
+
+    acc = EventAccumulator(tb.run_dir)
+    acc.Reload()
+    got = {tag: [(e.step, e.value) for e in acc.Scalars(tag)]
+           for tag in acc.Tags()["scalars"]}
+    want = {}
+    with open(os.path.join(trackers["local"].run_dir, "events.jsonl")) as f:
+        for e in map(json.loads, f):
+            if e["event"] != "epoch":
+                continue
+            for k, v in e.items():
+                if k.startswith(("train/", "val/")):
+                    split, m = k.split("/", 1)
+                    tag = (f"epoch/{m}" if split == "train"
+                           else f"epoch/val_{m}")
+                    want.setdefault(tag, []).append(
+                        (e["epoch"], float(np.float32(v))))
+            want.setdefault("epoch/lr", []).append(
+                (e["epoch"], float(np.float32(e["lr"]))))
+    if got != want:
+        raise AssertionError(f"tensorboard scalars {got} != local {want}")
+    print(f"tensorboard tracker: {len(got)} scalar tags x "
+          f"{len(next(iter(got.values())))} epochs read back equal to the "
+          f"local tracker's epoch log (as float32)", flush=True)
+
+
+def phase_jpeg_wandb(smi, vgg_sd):
+    """Phase 18: the native JPEG loader (or, without jpeglib.h, PIL) feeding
+    a cutoffvgg16 training run, a W&B-pinned split fetched into the local
+    store, a W&B sweep of mobilenetv2 through the stand-in agent, the W&B
+    and TensorBoard trackers, and the lineage published. Returns the
+    paths' (B1, B2) launches and the phase's numbers."""
+    import shutil
+
+    from ab_line_classifier_torch.config import Config
+    from ab_line_classifier_torch.data import artifacts as A
+    from ab_line_classifier_torch.data import native
+    from ab_line_classifier_torch.data.wandb_artifacts import publish_all
+    from ab_line_classifier_torch.ops import _build
+    from ab_line_classifier_torch.ops import depthwise_cuda as DC
+    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+    from ab_line_classifier_torch.train import experiment as E
+
+    t_phase = time.perf_counter()
+    root = os.path.join(REPO, "build", "phase18")
+    shutil.rmtree(root, ignore_errors=True)
+    images = os.path.join(root, "images")
+    t0 = time.perf_counter()
+    table, fcsv, ccsv, fdir = write_jpegs(images)
+    paths = [os.path.join(fdir, p) for p in table["Frame Path"]]
+    print(f"wrote {len(paths)} JPEGs of {JPEG_HW[0]}x{JPEG_HW[1]} "
+          f"({JPEG_UNIQUE} from "
+          f"data/synthetic.py, {JPEG_COPIES} names each) in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    native_ok = _build.has_header("jpeglib.h")
+    if native_ok:
+        if not native.native_available():
+            raise RuntimeError(f"native loader build failed: "
+                               f"{native.build_error()}")
+        print(f"native loader built: "
+              f"{os.path.relpath(_build.host_library_path('loader'), REPO)}")
+    else:
+        print("native loader: no jpeglib.h on this machine", flush=True)
+    rates = decode_rates(paths, native_ok, smi)
+
+    import importlib.util
+    print(f"wandb importable on this machine: "
+          f"{importlib.util.find_spec('wandb') is not None} (a stand-in "
+          f"takes its place in this phase)", flush=True)
+    hub = A.ArtifactStore(os.path.join(root, "hub"))
+    split_sizes = hub_lineage(hub, table, fcsv, ccsv, fdir)
+
+    def served(name, ver):
+        path = images if name == A.IMAGES else hub.resolve(name, ver)
+        return path, hub.metadata(name, ver)
+
+    stand_in = StandInWandb(os.path.join(root, "wandb"), served, seed=18)
+    saved = sys.modules.get("wandb")
+    sys.modules["wandb"] = stand_in.module
+    try:
+        launches = {}
+        launches["jpeg_training"], fit_s, steps, trackers = jpeg_training(
+            vgg_sd, table, fdir, native_ok, root, smi)
+
+        cfg = experiment_config(os.path.join(root, "sweep"), "mobilenetv2",
+                                "hparam_search").to_dict()
+        cfg["WANDB"].update(PROJECT_NAME="ab_line", ENTITY="",
+                            TRAIN_VAL_TEST_ARTIFACT_VERSION="v0")
+        cfg["TRACKER"].update(BACKEND="wandb",
+                              ARTIFACTS_DIR=os.path.join(root, "store"))
+        cfg["PATHS"]["FRAMES"] = fdir
+        cfg["TRAIN"]["HPARAM_SEARCH"].update(BACKEND="wandb",
+                                             N_EVALS=SWEEP_TRIALS)
+        cfg = Config(cfg)
+        t0 = time.perf_counter()
+        tr, va, te, split_dir = E.resolve_datasets(cfg)
+        fetch_s = time.perf_counter() - t0
+        fetched = cfg["TRACKER"]["ARTIFACTS_DIR"]
+        local = A.ArtifactStore(fetched)
+        meta = local.metadata(A.TRAIN_VAL_TEST)
+        for split in ("train", "val", "test"):
+            with open(os.path.join(local.resolve(A.TRAIN_VAL_TEST), "frames",
+                                   f"{split}.csv"), "rb") as f:
+                got = f.read()
+            with open(os.path.join(hub.resolve(A.TRAIN_VAL_TEST), "frames",
+                                   f"{split}.csv"), "rb") as f:
+                if got != f.read():
+                    raise AssertionError(f"fetched {split}.csv differs")
+        first = list(stand_in.downloads)
+        E.resolve_datasets(cfg)
+        if stand_in.downloads != first:
+            raise AssertionError(f"the second resolve downloaded "
+                                 f"{stand_in.downloads[len(first):]}")
+        sizes = {"train": len(tr), "val": len(va), "test": len(te)}
+        if sizes != split_sizes or split_dir != fdir:
+            raise AssertionError(f"pinned split {sizes} from {split_dir}")
+        print(f"pinned split TrainValTest:v0 fetched in {fetch_s:.3f} s "
+              f"(downloads {first}; source {meta['source']}), tables "
+              f"byte-equal to the served ones, {sizes}; the second resolve "
+              f"downloaded nothing", flush=True)
+
+        PC.reset_launch_count()
+        DC.reset_launch_count()
+        t0 = time.perf_counter()
+        stand_in.logs.clear()
+        with RunMeter() as sweep:
+            out = E.hparam_search(cfg, verbose=False, device="cuda")
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+        launches["wandb_sweep"] = (PC.launch_count, DC.launch_count)
+        check_runs("wandb sweep trial", sweep.runs,
+                   [(tr, va, te)] * len(sweep.runs), ZOO["mobilenetv2"][1],
+                   smi)
+        metric = cfg["TRAIN"]["HPARAM_SEARCH"]["METRIC_NAME"]
+        # The service's own metric, one key a payload (the trackers log
+        # epoch/val_loss among the epoch's other keys).
+        sent = [p[metric] for p in stand_in.logs if list(p) == [metric]]
+        if (out["sweep_id"] != "sweep-smoke"
+                or len(out["trials"]) != SWEEP_TRIALS
+                or len(sent) != SWEEP_TRIALS
+                or not all(np.isfinite(sent))):
+            raise AssertionError(f"wandb sweep: {out}, sent {sent}")
+        print(f"wandb sweep {out['sweep_id']}: {SWEEP_TRIALS} mobilenetv2 "
+              f"trials in {sweep_s:.2f} s; LR and logged {metric}: "
+              + "; ".join(f"{t['LR']:.3e} {v:.6f}"
+                          for t, v in zip(out["trials"], sent))
+              + f"; best_params {out['best_params']}; preprocess launches "
+              f"{PC.launch_count}, depthwise {DC.launch_count}", flush=True)
+        if DC.copy_count:
+            raise AssertionError(f"{DC.copy_count} depthwise input copies")
+
+        check_trackers(trackers, stand_in)
+
+        flags = {k: True for k in ("IMAGES", "MODEL_DEV_HOLDOUT",
+                                   "K_FOLD_CROSS_VAL", "TRAIN_VAL_TEST")}
+        published = publish_all(
+            {"WANDB": {"LOGGING": flags, "PROJECT_NAME": "ab_line",
+                       "ENTITY": ""},
+             "DATA": {"AUTOMASK": {"VERSION": 1}}, "PATHS": {}},
+            store=hub, wandb_module=stand_in.module)
+        names = [p[0] for p in stand_in.published]
+        if names != [A.IMAGES, A.MODEL_DEV, A.HOLDOUT, A.K_FOLD,
+                     A.TRAIN_VAL_TEST] or set(published) != set(names):
+            raise AssertionError(f"published {names}, {published}")
+        print(f"publish_all (every WANDB.LOGGING flag): "
+              f"{[(n, v) for n, v, _ in stand_in.published]}; lineage "
+              f"edges {stand_in.edges}", flush=True)
+    finally:
+        if saved is None:
+            sys.modules.pop("wandb", None)
+        else:
+            sys.modules["wandb"] = saved
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 18: {seconds:.1f} s", flush=True)
+    return launches, {"decode_frames_per_s": rates, "fit_s": fit_s,
+                      "streamed_step": {k: {"ms": v[0], "idle_share": v[1]}
+                                        for k, v in steps.items()},
+                      "sweep_s": sweep_s, "seconds": seconds}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an "
@@ -3644,6 +4266,11 @@ def main():
 
     phase("17 dataset creation")
     dataset_s = phase_dataset(smi)
+    torch.cuda.synchronize()
+
+    phase("18 JPEG-fed training, pinned W&B split, W&B sweep, trackers")
+    paths, jpeg_wandb = phase_jpeg_wandb(smi, vgg_sd)
+    launches.update(paths)
 
     def graph_runs(kernel):
         """Runs on the card of ``kernel`` in one replay of each model's
@@ -3704,7 +4331,8 @@ def main():
     print(json.dumps({
         "attribution": {name: {k: v for k, v in a.items() if k != "stages"}
                         for name, a in attribution.items()},
-        "export": exports, "dataset_creation_s": dataset_s}))
+        "export": exports, "dataset_creation_s": dataset_s,
+        "jpeg_wandb": jpeg_wandb}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

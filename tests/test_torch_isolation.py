@@ -1,8 +1,8 @@
 """PyTorch port, isolation: the port imports no JAX and nothing of the JAX
 package, and its modules import only torch and numpy (plus the standard
 library) when they are imported, so it runs where JAX, pandas, PIL,
-sklearn, PyYAML, h5py, protobuf (``google.protobuf``), matplotlib and cv2
-are not installed.
+sklearn, PyYAML, h5py, protobuf (``google.protobuf``), matplotlib, cv2,
+wandb and tensorboard are not installed.
 """
 
 import os
@@ -38,7 +38,8 @@ def test_port_imports_no_jax_and_only_torch_numpy():
     loaded = set(roots.split())
     forbidden = {"jax", "jaxlib", "flax", "optax", "orbax",
                  "ab_line_classifier_tpu", "pandas", "PIL", "sklearn",
-                 "yaml", "h5py", "google.protobuf", "matplotlib", "cv2"}
+                 "yaml", "h5py", "google.protobuf", "matplotlib", "cv2",
+                 "wandb", "tensorboard", "tensorboardX"}
     assert not loaded & forbidden, sorted(loaded & forbidden)
 
 
@@ -131,3 +132,48 @@ def test_attribution_export_and_dataset_modules_are_covered():
     assert eval(missing) == []
     assert not {"jax", "pandas", "PIL", "cv2", "mysql", "google.protobuf",
                 "ab_line_classifier_tpu"} & set(eval(roots))
+
+
+def test_loader_and_tracking_modules_are_covered():
+    """The native loader, the trackers, the W&B artifact adapters and the
+    W&B sweep backend are among the modules the probe above imports; alone
+    they load no JAX, pandas, PIL, wandb, tensorboard or
+    ``torch.utils.tensorboard``, and importing them runs no compiler and
+    writes nothing under ``build/native``."""
+    modules = ("data.native", "data.pipeline", "train.tracker",
+               "data.wandb_artifacts", "train.wandb_sweep",
+               "train.experiment", "ops._build")
+    native_dir = os.path.join(REPO_ROOT, "build", "native")
+    probe = (
+        "import os, pkgutil, subprocess, sys, importlib\n"
+        "calls = []\n"
+        "real = subprocess.Popen.__init__\n"
+        "def spy(self, *a, **k):\n"
+        "    calls.append(a[0] if a else k.get('args'))\n"
+        "    return real(self, *a, **k)\n"
+        "subprocess.Popen.__init__ = spy\n"
+        f"d = {native_dir!r}\n"
+        "before = sorted(os.listdir(d)) if os.path.isdir(d) else None\n"
+        "import ab_line_classifier_torch as p\n"
+        "names = {m.name for m in pkgutil.walk_packages(p.__path__, "
+        "'ab_line_classifier_torch.')}\n"
+        f"wanted = {['ab_line_classifier_torch.' + m for m in modules]}\n"
+        "print(sorted(set(wanted) - names))\n"
+        "for m in wanted:\n"
+        "    importlib.import_module(m)\n"
+        "roots = {m.split('.')[0] for m in sys.modules}\n"
+        "roots |= {m for m in sys.modules if m.startswith("
+        "'torch.utils.tensorboard')}\n"
+        "print(sorted(roots))\n"
+        "after = sorted(os.listdir(d)) if os.path.isdir(d) else None\n"
+        "print(repr((calls, before == after)))\n")
+    r = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                       text=True, timeout=120, cwd=REPO_ROOT, env=cli_env())
+    assert r.returncode == 0, r.stderr[-2000:]
+    missing, roots, built = r.stdout.splitlines()[:3]
+    assert eval(missing) == []
+    assert not {"jax", "pandas", "PIL", "wandb", "tensorboard",
+                "torch.utils.tensorboard", "ab_line_classifier_tpu"} & set(
+        eval(roots))
+    calls, unchanged = eval(built)
+    assert calls == [] and unchanged

@@ -8,8 +8,10 @@ validation prediction tables locally, and saves a port checkpoint that
 and hyperparameter search run on the same workspace, and the local
 artifact store is read as the JAX package reads it; ``--trial-parallel``
 runs both experiments with every fold or trial at once; what waits for
-later slices (a device mesh with a trial axis, fetching a pinned W&B
-artifact, the W&B sweep backend) raises ``NotImplementedError``.
+a later slice (a device mesh with a trial axis) raises
+``NotImplementedError``, a pinned W&B artifact without wandb raises the
+JAX package's ``ImportError``, and the W&B sweep backend reaches the
+sweep service where wandb imports.
 """
 
 import glob
@@ -112,12 +114,13 @@ def test_train_cli_raises_without_a_gpu(workspace):
     assert "CUDA is not available" in r.stderr
 
 
-def test_later_slices_raise(workspace, tmp_path):
+def test_later_slices_raise(workspace, tmp_path, monkeypatch):
     """What still waits for a later slice raises: trial-parallel
-    experiments on a mesh with a trial axis (multi-device training), a
+    experiments on a mesh with a trial axis (multi-device training). A
     W&B artifact version pinned for the split or the folds that the store
-    does not hold, and the W&B sweep backend where wandb is importable
-    (without it the sweep says so and runs the native controller)."""
+    does not hold is fetched, so without wandb it raises the JAX package's
+    ImportError; the W&B sweep backend, where wandb imports, registers a
+    sweep and hands it to the agent."""
     ws, cfg_path = workspace
     cfg = load_config(cfg_path)
     meshed = cfg.replace(PARALLEL={"MESH": {"DATA": 1, "TRIAL": 2}})
@@ -125,25 +128,32 @@ def test_later_slices_raise(workspace, tmp_path):
         with pytest.raises(NotImplementedError, match="multi-device"):
             train_experiment(meshed, experiment=experiment,
                              trial_parallel=True, device="cpu")
+    monkeypatch.setitem(sys.modules, "wandb", None)  # import raises
     pinned = cfg.replace_path("WANDB.TRAIN_VAL_TEST_ARTIFACT_VERSION", "v3")
-    with pytest.raises(NotImplementedError, match="W&B"):
+    with pytest.raises(ImportError, match="wandb is not importable"):
         resolve_datasets(pinned)
     pinned = cfg.replace_path("WANDB.K_FOLD_CROSS_VAL_ARTIFACT_VERSION",
                               "latest")
-    with pytest.raises(NotImplementedError, match="W&B"):
+    with pytest.raises(ImportError, match="wandb is not importable"):
         resolve_kfold_tables(pinned)
-    with pytest.raises(NotImplementedError, match="W&B"):
+    with pytest.raises(ImportError, match="wandb is not importable"):
         train_experiment(pinned, experiment="cross_validation", device="cpu")
     import types
 
     wandb_cfg = cfg.replace_path("TRAIN.HPARAM_SEARCH.BACKEND", "wandb")
-    sys.modules["wandb"] = types.ModuleType("wandb")
-    try:
-        with pytest.raises(NotImplementedError, match="W&B sweep"):
-            train_experiment(wandb_cfg, experiment="hparam_search",
-                             device="cpu")
-    finally:
-        del sys.modules["wandb"]
+    calls = []
+    stand_in = types.ModuleType("wandb")
+    stand_in.sweep = lambda sweep, project=None, entity=None: (
+        calls.append(("sweep", sweep["method"])) or "svc-sweep")
+    stand_in.agent = lambda sweep_id, function, count=None: calls.append(
+        ("agent", sweep_id, count))
+    monkeypatch.setitem(sys.modules, "wandb", stand_in)
+    out = train_experiment(wandb_cfg, experiment="hparam_search",
+                           device="cpu")
+    search = cfg["TRAIN"]["HPARAM_SEARCH"]
+    assert calls == [("sweep", search["METHOD"]),
+                     ("agent", "svc-sweep", int(search["N_EVALS"]))]
+    assert out["sweep_id"] == "svc-sweep" and out["trials"] == []
 
 
 def test_store_and_partitions_resolve_like_jax(workspace, tmp_path):
