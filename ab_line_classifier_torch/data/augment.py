@@ -29,6 +29,9 @@ computes, with gathers.
 
 Randomness: the parts of a batch are drawn from the ``torch.Generator``
 the caller passes (on the images' device), one draw per part per batch.
+Under data parallelism a rank's batch is one shard of the global batch:
+the parts are drawn for the global batch and the shard's rows kept
+(``shard``), so N ranks augment as one process does.
 """
 
 from __future__ import annotations
@@ -61,6 +64,14 @@ class Parts(NamedTuple):
     ty: torch.Tensor
     flip: torch.Tensor
     delta: torch.Tensor
+
+
+def shard_parts(parts: Parts, shard: Tuple[int, int]) -> Parts:
+    """Rows ``[i * b, (i + 1) * b)`` of parts drawn for a global batch of
+    ``count * b``, ``shard`` being ``(i, count)``."""
+    i, count = shard
+    b = parts.theta.shape[0] // count
+    return Parts(*(p[i * b:(i + 1) * b] for p in parts))
 
 
 def _uniform(generator: torch.Generator, shape, lo: float, hi: float,
@@ -255,13 +266,18 @@ def augment_batch(images: torch.Tensor, generator: torch.Generator, *,
                   zoom: float = 0.0, shift_w: float = 0.0,
                   shift_h: float = 0.0, rotation: float = 0.0,
                   brightness: float = 0.0,
-                  horizontal_flip: bool = False) -> torch.Tensor:
+                  horizontal_flip: bool = False,
+                  shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
     """Augment a float ``[B, H, W, C]`` batch in [0, 255]: the fused affine
-    (bilinear, zero fill), then the brightness shift with clipping."""
+    (bilinear, zero fill), then the brightness shift with clipping. With
+    ``shard`` ``(i, count)`` the batch is shard ``i`` of a global batch of
+    ``count * B`` (:func:`shard_parts`)."""
     b, h, w, _ = images.shape
-    parts = sample_parts(generator, b, (h, w), images.device, zoom=zoom,
-                         shift_w=shift_w, shift_h=shift_h, rotation=rotation,
-                         brightness=brightness,
+    parts = sample_parts(generator, b * shard[1], (h, w), images.device,
+                         zoom=zoom, shift_w=shift_w, shift_h=shift_h,
+                         rotation=rotation, brightness=brightness,
                          horizontal_flip=horizontal_flip)
+    if shard[1] > 1:
+        parts = shard_parts(parts, shard)
     return apply_parts(images, parts, zoom=zoom, rotation=rotation,
                        brightness=brightness)

@@ -13,6 +13,16 @@ package's ``data/pipeline.py``), and the device-resident cache.
   (:meth:`DeviceCachedDataset.epoch_index_table`) and a batch a gather.
   :func:`maybe_device_cache` takes the cache when the frames fit half the
   device's free memory, and says so when it does not.
+* :class:`ShardedDeviceCachedDataset`: under a device mesh, the frames
+  split over the ``data`` axis (rank r holds rows ``[r*S, (r+1)*S)``,
+  :func:`shard_frames_over_data`), so D ranks hold D times one device's
+  cache; a batch is :func:`sharded_gather`: each rank fills its own rows
+  of a zeroed uint8 batch and one uint8 ``all_reduce`` completes it,
+  exactly, since one rank supplies each row.
+
+Under a mesh every rank iterates the same epoch, and ``batches(rows=)``
+hands it only its rows of each batch (the data-parallel trainer's and the
+serving path's shard), decoded or gathered for those rows alone.
 
 Every epoch, streamed or cached, uses the same row order
 (``np.random.RandomState(seed)`` shuffle) and pads its last batch with
@@ -32,8 +42,10 @@ from typing import Callable, Iterable, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ab_line_classifier_torch.ops.image import nearest_indices
+from ab_line_classifier_torch.parallel import mesh as mesh_lib
 
 FRAME_PATH = "Frame Path"
 CLASS = "Class"
@@ -147,36 +159,38 @@ class FrameDataset:
     # ------------------------------------------------------------------
     def batches(self, batch_size: int, *, shuffle: bool = False,
                 seed: int = 0, drop_remainder: bool = False,
-                prefetch: int = 2) -> Iterator[Batch]:
+                prefetch: int = 2,
+                rows: Optional[slice] = None) -> Iterator[Batch]:
         """Iterate static-shape batches, decoding on a background thread
         up to ``prefetch`` batches ahead: in table order, or shuffled by
         ``np.random.RandomState(seed)``; rows past the valid count of the
         last batch repeat that batch's own rows (mask 0), unless
-        ``drop_remainder`` drops a partial last batch."""
+        ``drop_remainder`` drops a partial last batch. ``rows`` (a slice of
+        ``range(batch_size)``) yields only those rows of each batch, and
+        decodes only them."""
         order = np.arange(len(self))
         if shuffle:
             np.random.RandomState(seed).shuffle(order)
         if drop_remainder:
             order = order[: (len(order) // batch_size) * batch_size]
         all_labels = self.labels
+        keep = slice(None) if rows is None else rows
 
         def make_batch(idxs: np.ndarray, n_valid: int) -> Batch:
-            h, w = self.img_dim
-            images = np.zeros((batch_size, h, w, 3), np.uint8)
-            labels = np.zeros((batch_size,), np.int32)
-            mask = np.zeros((batch_size,), np.float32)
-            indices = np.full((batch_size,), -1, np.int32)
             valid = idxs[:n_valid]
-            self._decode(valid, images)
-            labels[:n_valid] = all_labels[valid]
-            # Wraparound rows are copies of the batch's own decoded rows.
-            for j in range(n_valid, batch_size):
-                src = (j - n_valid) % n_valid
-                images[j] = images[src]
-                labels[j] = labels[src]
-            mask[:n_valid] = 1.0
-            indices[:n_valid] = valid
-            return Batch(images, labels, mask, indices)
+            # Wraparound rows repeat the batch's own rows.
+            full = np.concatenate([valid, np.resize(valid,
+                                                    batch_size - n_valid)])
+            mask = (np.arange(batch_size) < n_valid).astype(np.float32)
+            indices = np.where(mask > 0, full, -1).astype(np.int32)
+            sel = full[keep]
+            # Each distinct frame is decoded once and its repeats copied.
+            uniq, inv = np.unique(sel, return_inverse=True)
+            images = np.zeros((len(uniq),) + self.img_dim + (3,), np.uint8)
+            self._decode(uniq, images)
+            return Batch(images[inv.reshape(-1)],
+                         all_labels[sel].astype(np.int32), mask[keep],
+                         indices[keep])
 
         chunks = [(order[i:i + batch_size], len(order[i:i + batch_size]))
                   for i in range(0, len(order), batch_size)]
@@ -252,7 +266,8 @@ class FrameArrays:
 
     def batches(self, batch_size: int, *, shuffle: bool = False,
                 seed: int = 0, drop_remainder: bool = False,
-                prefetch: int = 0) -> Iterator[Batch]:
+                prefetch: int = 0,
+                rows: Optional[slice] = None) -> Iterator[Batch]:
         del prefetch
         idx_tab, mask_tab = epoch_index_table(len(self), batch_size,
                                               shuffle=shuffle, seed=seed)
@@ -260,7 +275,8 @@ class FrameArrays:
         if drop_remainder and len(self) % batch_size:
             nb -= 1
         labels = np.asarray(self.labels, np.int32)
-        for idx, mask in zip(idx_tab[:nb], mask_tab[:nb]):
+        sel = slice(None) if rows is None else rows
+        for idx, mask in zip(idx_tab[:nb, sel], mask_tab[:nb, sel]):
             yield Batch(self.images[idx], labels[idx], mask,
                         np.where(mask > 0, idx, -1).astype(np.int32))
 
@@ -356,20 +372,106 @@ class DeviceCachedDataset:
 
     def batches(self, batch_size: int, *, shuffle: bool = False,
                 seed: int = 0, drop_remainder: bool = False,
-                prefetch: int = 0) -> Iterator[Batch]:
+                prefetch: int = 0,
+                rows: Optional[slice] = None) -> Iterator[Batch]:
         """:meth:`FrameDataset.batches`' batches, images and labels as
-        device tensors."""
+        device tensors; ``rows`` gathers only those rows of each."""
         del prefetch
         idx_tab, mask_tab = self.epoch_index_table(batch_size,
                                                    shuffle=shuffle, seed=seed)
         nb = idx_tab.shape[0]
         if drop_remainder and len(self) % batch_size:
             nb -= 1
-        for b in range(nb):
-            idx, mask = idx_tab[b], mask_tab[b]
-            images, labels = self.gather(idx)
-            yield Batch(images, labels, mask,
-                        np.where(mask > 0, idx, -1).astype(np.int32))
+        sel = slice(None) if rows is None else rows
+        for idx, mask in zip(idx_tab[:nb], mask_tab[:nb]):
+            images, labels = self.gather_rows(idx, rows)
+            yield Batch(images, labels, mask[sel],
+                        np.where(mask > 0, idx, -1).astype(np.int32)[sel])
+
+    def gather_rows(self, idx: np.ndarray, rows: Optional[slice] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`gather` of the ``rows`` (a slice of the last axis) of
+        ``idx``; all of it without ``rows``."""
+        return self.gather(idx if rows is None else idx[..., rows])
+
+
+def shard_frames_over_data(images: np.ndarray, mesh, device) -> torch.Tensor:
+    """This rank's shard of a ``[N, ...]`` host array split over the
+    mesh's ``data`` axis, on ``device``: rows ``[r*S, (r+1)*S)`` with ``S
+    = ceil(N/D)``, zero rows padding the tail (never indexed)."""
+    d = mesh_lib.axis_size(mesh, mesh_lib.DATA_AXIS)
+    r = mesh_lib.axis_index(mesh, mesh_lib.DATA_AXIS)
+    s = -(-len(images) // d)
+    local = np.zeros((s,) + images.shape[1:], images.dtype)
+    part = images[r * s:(r + 1) * s]
+    local[:len(part)] = part
+    return torch.as_tensor(local).to(device)
+
+
+def sharded_gather(local: torch.Tensor, idx, group) -> torch.Tensor:
+    """Rows ``idx`` (any integer shape, global row numbers) of a frame
+    store split over ``group`` (this rank holding ``local``, its ``[S,
+    ...]`` shard, rank r of the group rows ``[r*S, (r+1)*S)``): each rank
+    fills the rows it owns of a zeroed batch, and one ``all_reduce`` SUM
+    in the frames' dtype completes it on every rank. Exact, uint8
+    included: one rank supplies each row, the others add zeros."""
+    s = local.shape[0]
+    r = dist.get_rank(group)
+    rows = torch.as_tensor(idx, dtype=torch.int64).to(local.device)
+    rel = rows.reshape(-1) - r * s
+    owned = (rel >= 0) & (rel < s)
+    out = local.index_select(0, rel.clamp(0, s - 1))
+    out *= owned.view((-1,) + (1,) * (local.ndim - 1)).to(out.dtype)
+    dist.all_reduce(out, group=group)
+    return out.view(tuple(rows.shape) + tuple(local.shape[1:]))
+
+
+class ShardedDeviceCachedDataset(DeviceCachedDataset):
+    """A device cache whose uint8 frames split over the mesh's ``data``
+    axis: D ranks hold D times one device's cache, each its 1/D
+    (:func:`shard_frames_over_data`); the labels (4 bytes a frame) are
+    held whole. A batch is :func:`sharded_gather` (one uint8 ``all_reduce``
+    over the data group), bit-equal to the replicated cache's; every data
+    rank gathers the same batch, together."""
+
+    def __init__(self, ds, device, mesh):
+        images, labels = ds.load_all()
+        self._init_sharded(images, labels, ds.img_dim, device, mesh,
+                           ds.frame_paths)
+
+    @classmethod
+    def from_arrays(cls, images: np.ndarray, labels: np.ndarray, device,
+                    mesh, frame_paths: Optional[Sequence[str]] = None
+                    ) -> "ShardedDeviceCachedDataset":
+        self = cls.__new__(cls)
+        self._init_sharded(np.asarray(images, np.uint8), np.asarray(labels),
+                           tuple(images.shape[1:3]), device, mesh,
+                           frame_paths)
+        return self
+
+    def _init_sharded(self, images, labels, img_dim, device, mesh,
+                      frame_paths) -> None:
+        if mesh is None:
+            raise ValueError("ShardedDeviceCachedDataset requires a mesh")
+        self._init(images[:0], labels, img_dim, device, frame_paths)
+        self.group = mesh_lib.axis_group(mesh, mesh_lib.DATA_AXIS)
+        self.frames = shard_frames_over_data(images, mesh, self.device)
+
+    def gather(self, idx: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
+        rows = torch.as_tensor(idx, dtype=torch.int64).to(self.device)
+        labels = self.labels_dev.index_select(0, rows.reshape(-1))
+        return (sharded_gather(self.frames, rows, self.group),
+                labels.view(rows.shape))
+
+    def gather_rows(self, idx: np.ndarray, rows: Optional[slice] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The whole of ``idx`` gathered (the collective every data rank
+        joins), then its ``rows``."""
+        images, labels = self.gather(idx)
+        if rows is None:
+            return images, labels
+        lead = (slice(None),) * (labels.ndim - 1) + (rows,)
+        return images[lead], labels[lead]
 
 
 #: Device-cache budget where the device reports no free memory (the CPU).
@@ -390,22 +492,35 @@ def device_cache_budget(device) -> int:
 
 
 def maybe_device_cache(ds, mode="auto", *, device,
-                       budget: Optional[int] = None):
-    """``ds`` (a :class:`FrameDataset` or :class:`FrameArrays`) as a
-    :class:`DeviceCachedDataset` on ``device`` when ``mode`` is True, or
-    'auto' and its decoded frames fit ``budget`` (default
-    :func:`device_cache_budget`); else ``ds`` itself, its batches going over
-    from the host (decoded from disk, or from host memory). Says why when
-    the cache is not taken."""
+                       budget: Optional[int] = None, mesh=None):
+    """``ds`` (a :class:`FrameDataset` or :class:`FrameArrays`) cached on
+    ``device`` when ``mode`` is True or 'auto', by the JAX package's tiers
+    (``budget``, default :func:`device_cache_budget`, is per device):
+
+    * its decoded frames fit ``budget`` -> :class:`DeviceCachedDataset`
+      (every rank holds them all);
+    * they exceed it, the mesh's ``data`` axis has D > 1 ranks and they fit
+      ``budget * D`` -> :class:`ShardedDeviceCachedDataset`;
+    * else, under 'auto', ``ds`` itself, its batches going over from the
+      host (decoded from disk, or from host memory), said so.
+
+    Forced caching (True) beyond one device's budget takes the sharded
+    tier where there is one."""
     if mode is False or mode is None or len(ds) == 0:
         return ds
     if budget is None:
         budget = device_cache_budget(device)
     h, w = ds.img_dim
     nbytes = len(ds) * h * w * 3
-    if mode == "auto" and nbytes > budget:
+    n_data = mesh_lib.axis_size(mesh, mesh_lib.DATA_AXIS)
+    sharded = nbytes > budget and n_data > 1
+    if mode == "auto" and nbytes > budget and not (
+            sharded and nbytes <= budget * n_data):
         print(f"(device cache not taken: {len(ds)} frames need {nbytes} "
-              f"bytes, over the {budget}-byte budget; batches go over from "
-              f"the host)")
+              f"bytes, over the {budget}-byte budget"
+              + (f" times {n_data} data ranks" if n_data > 1 else "")
+              + "; batches go over from the host)")
         return ds
+    if sharded:
+        return ShardedDeviceCachedDataset(ds, device, mesh)
     return DeviceCachedDataset(ds, device)

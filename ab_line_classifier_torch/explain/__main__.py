@@ -5,7 +5,8 @@ frames named on the command line (matched by file name), or for the first
 ``--limit`` frames of the frames table, into ``PATHS.HEATMAPS``. ``--device``
 picks the device (default ``cuda``; ``cpu`` runs the plain PyTorch path),
 ``--profile`` writes a ``torch.profiler`` trace under
-``<PATHS.LOGS>/profiles``.
+``<PATHS.LOGS>/profiles``. Under ``torchrun`` every rank runs the pass
+(the JAX package's Grad-CAM has no mesh) and rank 0 writes the PNGs.
 """
 
 import argparse
@@ -33,6 +34,8 @@ def main():
     import pandas as pd
 
     from ab_line_classifier_torch.explain.gradcam import GradCAMExplainer
+    from ab_line_classifier_torch.parallel.mesh import (is_main,
+                                                        run_with_env_group)
     from ab_line_classifier_torch.utils.profiling import run_maybe_traced
 
     cfg = load_config(args.config)
@@ -51,12 +54,15 @@ def main():
         frame_df = frame_df.head(args.limit)
     frame_df = frame_df.reset_index(drop=True)
 
-    def run():
-        explainer = GradCAMExplainer(cfg, mode=args.mode, device=args.device)
-        explainer.apply_gradcam(frame_df)
+    def run(device):
+        explainer = GradCAMExplainer(cfg, mode=args.mode, device=device)
+        run_maybe_traced(lambda: explainer.apply_gradcam(frame_df),
+                         args.profile, cfg)
+        if is_main():
+            print(f"wrote {len(frame_df)} heatmaps to "
+                  f"{cfg['PATHS']['HEATMAPS']}")
 
-    run_maybe_traced(run, args.profile, cfg)
-    print(f"wrote {len(frame_df)} heatmaps to {cfg['PATHS']['HEATMAPS']}")
+    run_with_env_group(run, args.device)
 
 
 if __name__ == "__main__":

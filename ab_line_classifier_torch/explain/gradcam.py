@@ -8,7 +8,8 @@ program; here a batch is one forward and one ``torch.autograd.grad``:
     preprocess (kernel B1 on the GPU) -> forward, the last conv's output
     made an autograd leaf -> the rest of the graph -> d score / d tap for
     the one-hot argmax class -> channel weights -> weighted channel sum ->
-    ReLU -> per-image normalize -> bilinear upsample to IMG_DIM
+    ReLU -> per-image normalize -> bilinear resize to IMG_DIM (a tap
+    larger than it downsampled as jax.image.resize does)
 
 so probabilities and heatmaps come from the same pass. The tap is the last
 conv-like layer (``ModelSpec.last_conv_layer``). Everything before it runs
@@ -41,6 +42,7 @@ from ab_line_classifier_torch import resolve_device
 from ab_line_classifier_torch.config import Config
 from ab_line_classifier_torch.models import build_model
 from ab_line_classifier_torch.models.common import ModelSpec
+from ab_line_classifier_torch.ops.image import linear_resize
 from ab_line_classifier_torch.ops.preprocess_cuda import preprocess_frames
 from ab_line_classifier_torch.predict.predict import load_module
 from ab_line_classifier_torch.utils import checkpoint as ckpt
@@ -84,7 +86,7 @@ def build_fused_gradcam(spec: ModelSpec, module: torch.nn.Module,
     ``predict.load_module``). Returns ``fn(frames_u8) -> (probs float32
     [B, C], heatmaps float32 [B, H, W] in [0, 1])`` for uint8 ``[B, H_src,
     W_src, 3]`` frames on that device; ``(H, W)`` is ``out_hw`` (default
-    the model's input size), which the tap must not exceed.
+    the model's input size).
 
     The module's parameters are set not to require grad. ``fn`` records
     autograd itself: do not call it under ``torch.inference_mode``."""
@@ -109,9 +111,6 @@ def build_fused_gradcam(spec: ModelSpec, module: torch.nn.Module,
             with annotate("gradcam.gradient"):
                 grads, = torch.autograd.grad(probs.gather(1, cls).sum(), a)
         a = a.detach()
-        if a.shape[1] > hw[0] or a.shape[2] > hw[1]:
-            raise ValueError(f"the tap {tap!r} ({tuple(a.shape[1:3])}) is "
-                             f"larger than the heatmap {hw}")
         with annotate("gradcam.heatmap"):
             return probs.detach(), _heatmaps(a, grads, mode, hw)
 
@@ -135,6 +134,11 @@ def _heatmaps(a: torch.Tensor, grads: torch.Tensor, mode: str,
         weights = grads.mean(dim=(1, 2))
     cam = F.relu(torch.einsum("bhwc,bc->bhw", a, weights))
     cam = cam / torch.clamp(cam.amax(dim=(1, 2), keepdim=True), min=1e-12)
+    if cam.shape[1] > hw[0] or cam.shape[2] > hw[1]:
+        # A tap larger than the heatmap (cnn0's padded convs): the JAX
+        # package's jax.image.resize, the triangle kernel widened by the
+        # downscale factor.
+        return linear_resize(cam.to(torch.float32), hw)
     # Bilinear upsample, half-pixel centres, edges clamped: for an upsample,
     # jax.image.resize's renormalised triangle kernel.
     cam = F.interpolate(cam[:, None], size=hw, mode="bilinear",

@@ -55,6 +55,14 @@ and ``dropout_masks``: each dropout layer applies the keep mask given under
 its name (drawn outside the vmapped forward, one generator per trial,
 :func:`dropout_mask_shapes`) instead of drawing one.
 
+Data parallelism. Under a device mesh each rank runs its rows of the
+global batch, and :func:`set_data_parallel` makes the module's layers
+behave as the JAX package's, whose one program sees the global batch: a
+training batch norm takes the global batch's statistics (the per-channel
+sums all-reduced over the ``data`` group, differentiably, and under
+``torch.func.vmap`` for every trial at once), and a dropout layer draws
+the global batch's mask from the step's generator and keeps its rows.
+
 TF ``SAME`` padding: at stride 1 with an odd kernel it is symmetric; at
 stride 2 it depends on the input size and puts the odd pixel bottom/right
 (``ops/padding.py``), so those convs and max-pools pad explicitly (max-pool
@@ -68,6 +76,7 @@ import math
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -570,6 +579,34 @@ class _Float32State(nn.Module):
         return self
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over a process group, differentiable: the backward sums the
+    gradients over the same group (each rank's loss depends on every
+    rank's input through the sum). Under ``torch.func.vmap`` the batched
+    tensor is reduced whole, so every trial's statistics go in one
+    ``all_reduce`` (a collective has no batching rule of its own)."""
+
+    @staticmethod
+    def forward(x, group):
+        out = x.detach().contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.group = inputs[1]
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, group):
+        return _AllReduceSum.apply(x, group), in_dims[0]
+
+
 class BatchNorm(_Float32State):
     """Keras BatchNormalization (flax ``BatchNorm``): ``weight``/``bias``
     (flax ``scale``/``bias``) and the ``running_mean``/``running_var``
@@ -580,9 +617,17 @@ class BatchNorm(_Float32State):
     variance, both in float32, and ``ra = momentum * ra + (1 - momentum) *
     batch``. ``F.batch_norm`` moves the running statistics by that rule
     from the statistics of its own pass, but with the unbiased variance
-    ``n / (n - 1) * var``; one ``lerp`` takes the excess back."""
+    ``n / (n - 1) * var``; one ``lerp`` takes the excess back.
+
+    With a ``group`` (:func:`set_data_parallel`), training statistics are
+    the global batch's: the per-channel sum, then the sum of squared
+    deviations from the global mean, each all-reduced over the group
+    (:class:`_AllReduceSum`), normalized in float32 as
+    :meth:`stacked` writes it out; every rank moves its running statistics
+    by flax's rule from the same global ones."""
 
     frozen = False
+    group = None
 
     def __init__(self, features: int, momentum: float = 0.99,
                  epsilon: float = 1e-3, scale: bool = True):
@@ -599,6 +644,14 @@ class BatchNorm(_Float32State):
                                 self.weight, self.bias, False, 0.0,
                                 self.epsilon)
         m, n = self.momentum, x.numel() // x.shape[1]
+        if self.group is not None:
+            y, mean, var = self._train_norm(x)
+            with torch.no_grad():
+                self.running_mean = (self.running_mean * m
+                                     + mean.detach() * (1.0 - m))
+                self.running_var = (self.running_var * m
+                                    + var.detach() * (1.0 - m))
+            return y
         with torch.no_grad():
             kept = self.running_var * m
         y = F.batch_norm(x, self.running_mean, self.running_var, self.weight,
@@ -622,26 +675,43 @@ class BatchNorm(_Float32State):
         input against float32 statistics: vmap's batch-norm rule takes one
         dtype, and on CUDA asks for a memory format that a vmapped tensor
         cannot report."""
-        xf = x.to(torch.float32)
-        shape = (1, -1) + (1,) * (x.ndim - 2)
-        dims = (0,) + tuple(range(2, x.ndim))
-        moving = self.training and not self.frozen
-        if moving:
-            mean = xf.mean(dims)
-            var = (xf - mean.view(shape)).square().mean(dims)
-        else:
-            mean, var = self.running_mean, self.running_var
-        scale = torch.rsqrt(var + self.epsilon)
-        if self.weight is not None:
-            scale = scale * self.weight
-        y = (xf - mean.view(shape)) * scale.view(shape) + self.bias.view(shape)
-        if not moving:
-            return y.to(x.dtype), None
+        if not (self.training and not self.frozen):
+            return self._normalize(x, self.running_mean,
+                                   self.running_var), None
+        y, mean, var = self._train_norm(x)
         m = self.momentum
         with torch.no_grad():
             stats = (self.running_mean * m + mean.detach() * (1.0 - m),
                      self.running_var * m + var.detach() * (1.0 - m))
-        return y.to(x.dtype), stats
+        return y, stats
+
+    def _normalize(self, x: torch.Tensor, mean: torch.Tensor,
+                   var: torch.Tensor) -> torch.Tensor:
+        """``x`` normalized by ``mean`` and ``var`` in float32, scaled and
+        shifted, in ``x``'s dtype."""
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        scale = torch.rsqrt(var + self.epsilon)
+        if self.weight is not None:
+            scale = scale * self.weight
+        y = ((x.to(torch.float32) - mean.view(shape)) * scale.view(shape)
+             + self.bias.view(shape))
+        return y.to(x.dtype)
+
+    def _train_norm(self, x: torch.Tensor):
+        """``(y, mean, var)``: ``x`` normalized by its batch's mean and
+        biased variance (float32; the global batch's over ``group``)."""
+        xf = x.to(torch.float32)
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        dims = (0,) + tuple(range(2, x.ndim))
+        if self.group is None:
+            mean = xf.mean(dims)
+            var = (xf - mean.view(shape)).square().mean(dims)
+        else:
+            n = xf.numel() // xf.shape[1] * dist.get_world_size(self.group)
+            mean = _AllReduceSum.apply(xf.sum(dims), self.group) / n
+            var = _AllReduceSum.apply(
+                (xf - mean.view(shape)).square().sum(dims), self.group) / n
+        return self._normalize(x, mean, var), mean, var
 
 
 def adapt_batch_norm(module: nn.Module, x: torch.Tensor) -> None:
@@ -725,6 +795,11 @@ class Dropout(nn.Module):
     samples (stochastic depth), ``(1, 2)`` whole channels
     (SpatialDropout2D). Identity when not training or at rate 0."""
 
+    #: ``(index, count)``: under data parallelism the rank's batch is
+    #: shard ``index`` of ``count`` equal shards of the global batch, and
+    #: the mask is drawn for the global batch, this shard's rows kept.
+    shard = (0, 1)
+
     def __init__(self, rate: float, broadcast_dims: Tuple[int, ...] = ()):
         super().__init__()
         self.rate, self.broadcast_dims = rate, tuple(broadcast_dims)
@@ -750,8 +825,11 @@ class Dropout(nn.Module):
                 raise ValueError("dropout in training mode draws from an "
                                  "explicit generator: pass one to the "
                                  "forward")
-            mask = torch.rand(self.mask_shape(x.shape), device=x.device,
-                              generator=generator) < keep
+            shape = self.mask_shape(x.shape)
+            i, count = self.shard
+            b, shape[0] = shape[0], shape[0] * count
+            mask = torch.rand(shape, device=x.device,
+                              generator=generator)[i * b:(i + 1) * b] < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -878,6 +956,21 @@ def set_compute_dtype(module: nn.Module,
     for m in module.modules():
         if isinstance(m, (Conv2d, Linear, DepthwiseConv)):
             m.compute_dtype = dtype
+
+
+def set_data_parallel(module: nn.Module, group=None) -> None:
+    """Data parallelism over the process ``group`` (the mesh's ``data``
+    axis; ``None``: none): every :class:`BatchNorm` of ``module`` takes
+    its training statistics over the group's global batch and every
+    :class:`Dropout` keeps its rank's rows of the global batch's mask (this
+    rank's batch is shard ``rank in group`` of ``group``'s size)."""
+    shard = ((0, 1) if group is None else
+             (dist.get_rank(group), dist.get_world_size(group)))
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
+        elif isinstance(m, Dropout):
+            m.shard = shard
 
 
 def graph_of(*specs: LayerSpec, output: Optional[str] = None) -> LayerGraph:

@@ -9,7 +9,10 @@ correct counts, loss totals), so a batch updates it on the device inside
 the step, and :func:`compute_metrics` finalizes it to floats at the end of
 an epoch. With ``trials``, the state has a leading trial axis and
 :func:`update_stacked_metrics` accumulates a stacked batch ``[F, B, C]``
-of all trials at once (the trial-parallel trainer's).
+of all trials at once (the trial-parallel trainer's). Under a device mesh
+each rank accumulates its own rows, and :func:`reduce_metrics` sums the
+states over the ``data`` axis once an epoch, before
+:func:`compute_metrics`.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ import dataclasses
 from typing import Dict, List, Optional, Sequence
 
 import torch
+
+from ab_line_classifier_torch.parallel.mesh import all_reduce_tensors
 
 _EPS = 1e-7
 
@@ -149,6 +154,16 @@ def update_stacked_metrics(state: MetricsState, probs: torch.Tensor,
     state.cls_tp += (cls_pred * labels).sum(1)
     state.cls_fp += (cls_pred * (1.0 - labels)).sum(1)
     state.cls_fn += ((1.0 - cls_pred) * labels * m[..., None]).sum(1)
+
+
+def reduce_metrics(state: MetricsState, group=None) -> MetricsState:
+    """Sum every field of ``state`` in place over the process ``group``
+    (the mesh's ``data`` axis: the JAX package's ``psum``), one
+    ``all_reduce`` of one buffer; a no-op without a group. Returns
+    ``state``."""
+    all_reduce_tensors([getattr(state, f.name)
+                        for f in dataclasses.fields(state)], group)
+    return state
 
 
 def compute_stacked_metrics(state: MetricsState,

@@ -1,2 +1,3 @@
-"""Trial-parallel training on one device (port of the JAX package's
-``parallel`` package, without its device mesh)."""
+"""Parallel execution (port of the JAX package's ``parallel`` package): the
+device mesh over process groups (``mesh``), trial-parallel training
+(``trial_parallel``) and multi-process execution (``multihost``)."""

@@ -43,9 +43,20 @@ trial t's augmentation parts and dropout masks come from CPU generators
 seeded from ``(seed, phase, step, t)`` (:func:`trial_generators`), as the
 serial ``Trainer``'s come from ``(seed, phase, step)``.
 
-The JAX package also shards the trial axis over a device mesh; the port
-runs on one device, and a mesh with a trial axis raises
-(``train/experiment.py``).
+With a device mesh (``parallel/mesh.py``), as in the JAX package, the
+trial axis shards over the mesh's ``trial`` axis and each trial's batch
+over its ``data`` axis: a rank holds F/T trials (all F, replicated, when T
+does not divide F, said so) and takes its rows of every batch; B2's one
+stacked launch then covers its ``F/T * C`` channels. Its batch norms take
+each trial's global batch statistics (one ``all_reduce`` for all its
+trials), its augmentation and dropout are drawn for each trial's global
+batch and its rows kept, its loss divides by the global valid count, its
+gradients and metrics are summed over the data group, and the per-trial
+metrics are gathered over the trial group, so the host-side callbacks see
+all F trials alike on every rank. The frame table lives whole on every
+rank, or split over the data axis (``shard_dataset``;
+``data/pipeline.py::ShardedDeviceCachedDataset``). The checkpoint and the
+returned weights are gathered to all F trials; rank 0 writes.
 """
 
 from __future__ import annotations
@@ -60,12 +71,14 @@ from torch.func import functional_call, vmap
 from ab_line_classifier_torch import graph as G
 from ab_line_classifier_torch import resolve_device
 from ab_line_classifier_torch.data.augment import affine_params_from_config
-from ab_line_classifier_torch.data.pipeline import DeviceCachedDataset
+from ab_line_classifier_torch.data.pipeline import (
+    DeviceCachedDataset, ShardedDeviceCachedDataset, device_cache_budget)
 from ab_line_classifier_torch.models.common import (ModelSpec,
                                                     StackedOptimizer,
                                                     TrainPhase)
 from ab_line_classifier_torch.models.preprocess import get_preprocess_fn
 from ab_line_classifier_torch.ops import metrics as M
+from ab_line_classifier_torch.parallel import mesh as mesh_lib
 from ab_line_classifier_torch.train import objective
 from ab_line_classifier_torch.utils.resume import load_resume, save_resume
 
@@ -134,12 +147,16 @@ def trial_state(stacked: Dict[str, Stacked], t: int
 
 class ParallelFoldTrainer:
     """Train F same-architecture models on F index sets of one frame table
-    at once, on ``device`` (``cuda`` unless it says otherwise).
+    at once, on ``device`` (``cuda`` unless it says otherwise), over the
+    ranks of ``mesh`` when given (this rank's device).
 
-    ``class_weights`` and ``output_biases`` are ``[F, C]``;
-    ``compute_dtype`` bfloat16 trains mixed precision (float32 parameters,
-    per-layer bfloat16 casts); ``seed`` seeds each trial's initialization
-    and every step's generators."""
+    ``class_weights`` and ``output_biases`` are ``[F, C]`` (all F trials,
+    on every rank); ``compute_dtype`` bfloat16 trains mixed precision
+    (float32 parameters, per-layer bfloat16 casts); ``seed`` seeds each
+    trial's initialization and every step's generators. ``trials`` is the
+    slice of the F trials this rank holds; the stacked tensors of
+    :meth:`train_step` and :meth:`eval_step` are those trials' and this
+    rank's rows of their batches."""
 
     RESUME_FILE = "trial_state.pt"
 
@@ -148,10 +165,27 @@ class ParallelFoldTrainer:
                  output_biases: Optional[np.ndarray] = None,
                  aug_config: Optional[Dict] = None, seed: int = 0,
                  compute_dtype: torch.dtype = torch.float32,
-                 progress_label: str = "folds", device=None):
+                 progress_label: str = "folds", device=None, mesh=None):
         self.device = resolve_device(device)
         self.spec = spec
         self.n_folds = int(n_folds)
+        self.mesh = mesh
+        n_trial = mesh_lib.axis_size(mesh, mesh_lib.TRIAL_AXIS)
+        if self.n_folds % n_trial:
+            # The stacked trial axis shards over 'trial' only when it
+            # divides; otherwise every rank holds every trial (batches
+            # still shard over 'data').
+            if mesh_lib.is_main():
+                print(f"trial axis ({n_trial}) does not divide "
+                      f"{self.n_folds} folds/trials; replicating fold state "
+                      f"across the mesh")
+            self.trial_group = None
+        else:
+            self.trial_group = mesh_lib.axis_group(mesh, mesh_lib.TRIAL_AXIS)
+        self.trials = mesh_lib.trial_replicated(mesh, self.n_folds)
+        self.data_group = mesh_lib.axis_group(mesh, mesh_lib.DATA_AXIS)
+        self.shard = (mesh_lib.axis_index(mesh, mesh_lib.DATA_AXIS),
+                      mesh_lib.axis_size(mesh, mesh_lib.DATA_AXIS))
         self.progress_label = progress_label
         self.seed = int(seed)
         self.compute_dtype = compute_dtype
@@ -159,7 +193,8 @@ class ParallelFoldTrainer:
         self.aug_params = (affine_params_from_config(aug_config)
                            if aug_config else None)
         self.class_weights = torch.as_tensor(
-            np.asarray(class_weights, np.float32)).to(self.device)
+            np.asarray(class_weights, np.float32)[self.trials]).to(
+                self.device)
         self.output_biases = (None if output_biases is None else
                               torch.as_tensor(np.asarray(output_biases,
                                                          np.float32)))
@@ -173,6 +208,7 @@ class ParallelFoldTrainer:
         G.set_compute_dtype(self.module,
                             None if compute_dtype == torch.float32
                             else compute_dtype)
+        G.set_data_parallel(self.module, self.data_group)
         # Found on a CPU copy: a pass on the device would launch its
         # kernels outside any step.
         self.drop_shapes = G.dropout_mask_shapes(
@@ -187,18 +223,21 @@ class ParallelFoldTrainer:
             1, np.uint32)[0]) for t in range(self.n_folds)]
 
     def init_stacked(self, warm_start=None) -> Tuple[Stacked, Stacked]:
-        """Stacked per-trial initialization: ``(params, buffers)``, trial t
-        from its own seeded generator; the output biases (``[F, C]``) on
-        the logits layer; then ``warm_start``, a ``(state_dict,
-        layer_names)`` pair, broadcast into every trial over the named
-        layers (all, when ``layer_names`` is None), as each fold of the
-        serial run starts from the same pretrained file."""
+        """Stacked per-trial initialization of this rank's trials:
+        ``(params, buffers)``, trial t from its own seeded generator; the
+        output biases (``[F, C]``) on the logits layer; then
+        ``warm_start``, a ``(state_dict, layer_names)`` pair, broadcast into
+        every trial over the named layers (all, when ``layer_names`` is
+        None), as each fold of the serial run starts from the same
+        pretrained file."""
+        local = range(self.n_folds)[self.trials]
+        seeds = self.trial_seeds()
         states = [self.spec.logits_module(
-            generator=torch.Generator().manual_seed(s)).state_dict()
-            for s in self.trial_seeds()]
+            generator=torch.Generator().manual_seed(seeds[t])).state_dict()
+            for t in local]
         if self.output_biases is not None:
             key = f"{self.spec.logits_layer}.bias"
-            for t, sd in enumerate(states):
+            for t, sd in zip(local, states):
                 sd[key] = self.output_biases[t].to(sd[key].dtype)
         if warm_start is not None:
             wsd, names = warm_start
@@ -224,11 +263,15 @@ class ParallelFoldTrainer:
 
     # ------------------------------------------------------------------
     def _dropout_masks(self, generators, batch: int) -> Stacked:
+        """Each trial's keep masks, drawn for its global batch (``batch``
+        times the data axis), this rank's rows kept."""
+        i, count = self.shard
         masks = {}
         for name, shape in self.drop_shapes.items():
             keep = 1.0 - self.module._modules[name].rate
             masks[name] = torch.stack([
-                torch.rand([batch] + shape[1:], generator=g) < keep
+                torch.rand([batch * count] + shape[1:],
+                           generator=g)[i * batch:(i + 1) * batch] < keep
                 for _, g in generators]).to(self.device)
         return masks
 
@@ -245,18 +288,25 @@ class ParallelFoldTrainer:
                    opt: StackedOptimizer, images: torch.Tensor,
                    labels: torch.Tensor, mask: torch.Tensor,
                    lr_factor: np.ndarray, active: np.ndarray,
-                   metrics: M.MetricsState) -> torch.Tensor:
+                   metrics: M.MetricsState,
+                   denom: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One step of every trial on a stacked uint8 batch ``[F, B, H, W,
         3]`` on the device (labels and mask ``[F, B]``): augment, vmapped
         forward and loss, one backward, the stacked update gated by
         ``lr_factor * active``; a trial's new batch-norm statistics only
         where it is active. Accumulates ``metrics`` (stacked). Returns the
-        per-trial losses ``[F]``."""
+        per-trial losses ``[F]``.
+
+        Under a mesh: this rank's trials and rows; ``denom`` ``[F]`` is
+        each trial's global valid count (summed over the data group when
+        not given); the losses are this rank's shares."""
         f, b = images.shape[:2]
-        gens = trial_generators(self.seed, self.phase_idx, self.step, f)
+        gens = trial_generators(self.seed, self.phase_idx, self.step,
+                                self.n_folds)[self.trials]
         parts = (objective.stacked_parts([g for g, _ in gens], b,
                                          tuple(images.shape[2:4]),
-                                         self.device, self.aug_params)
+                                         self.device, self.aug_params,
+                                         shard=self.shard)
                  if self.aug_params else None)
         x = objective.prepare_stacked_images(
             self.preprocess_fn, self.aug_params, self.compute_dtype, images,
@@ -265,20 +315,28 @@ class ParallelFoldTrainer:
         labels_oh = M.one_hot(labels.reshape(-1), self.spec.n_classes).view(
             f, b, -1)
         self.module.train()
+        if denom is None:
+            denom = mask.to(torch.float32).sum(-1)
+            mesh_lib.all_reduce_tensors([denom], self.data_group)
+        denom = torch.clamp(denom, min=1.0)
 
-        def one(p, bufs, x, loh, m, cw, dm):
+        def one(p, bufs, x, loh, m, cw, dm, dn):
             stats = {}
             loss, probs, per_ex = objective.forward_loss(
                 self._forward(p, bufs, dropout_masks=dm, bn_stats=stats),
                 self.reg_layers, self.reg_lambdas, x, loh, m, cw,
-                train=True)
+                train=True, denom=dn)
             return loss, probs, per_ex, stats
 
         loss, probs, per_ex, stats = vmap(one)(
-            params, buffers, x, labels_oh, mask, self.class_weights, drop)
+            params, buffers, x, labels_oh, mask, self.class_weights, drop,
+            denom)
         for p in params.values():
             p.grad = None
         loss.sum().backward()
+        mesh_lib.all_reduce_tensors(
+            [p.grad for p in params.values() if p.grad is not None],
+            self.data_group)
         opt.step(params, lr_factor, active)
         with torch.no_grad():
             on = torch.as_tensor(np.asarray(active) > 0).to(self.device)
@@ -319,32 +377,54 @@ class ParallelFoldTrainer:
 
     # ------------------------------------------------------------------
     def _batch_tables(self, index_lists, batch_size: int):
-        """Ragged per-trial index lists -> ``[nb, F, B]`` index and mask
-        tables on the device; all padding (to the longest list and to the
-        batch multiple) wraps around (:func:`pad_index_table`)."""
+        """Ragged per-trial index lists (all F) -> this rank's trials'
+        ``[nb, F, B]`` index and mask tables on the device; all padding
+        (to the longest list and to the batch multiple) wraps around
+        (:func:`pad_index_table`)."""
         f = self.n_folds
         n = max(len(ix) for ix in index_lists)
         nb = -(-n // batch_size)
         table, tmask = pad_index_table(index_lists, pad_to=nb * batch_size)
         idx = table.reshape(f, nb, batch_size).transpose(1, 0, 2)
         msk = tmask.reshape(f, nb, batch_size).transpose(1, 0, 2)
+        idx, msk = idx[:, self.trials], msk[:, self.trials]
         return (torch.as_tensor(np.ascontiguousarray(idx)).to(self.device),
                 torch.as_tensor(np.ascontiguousarray(msk)).to(self.device))
 
     def run_epoch(self, params, buffers, opt, cache: DeviceCachedDataset,
                   idx_tab, mask_tab, *, train: bool, lr_factor=None,
                   active=None) -> List[Dict[str, float]]:
-        """One epoch over ``[nb, F, B]`` tables; each trial's metrics."""
+        """One epoch over ``[nb, F, B]`` tables (this rank's trials, whole
+        batches: it takes its rows); every trial's metrics (all F)."""
         metrics = M.init_metrics(self.spec.n_classes, device=self.device,
-                                 trials=self.n_folds)
+                                 trials=len(idx_tab[0]))
+        rows = (None if self.mesh is None
+                else mesh_lib.batch_sharding(self.mesh, idx_tab.shape[-1]))
+        sel = slice(None) if rows is None else rows
         for idx, msk in zip(idx_tab, mask_tab):
-            images, labels = cache.gather(idx)
+            images, labels = cache.gather_rows(idx, rows)
             if train:
-                self.train_step(params, buffers, opt, images, labels, msk,
-                                lr_factor, active, metrics)
+                self.train_step(params, buffers, opt, images, labels,
+                                msk[:, sel], lr_factor[self.trials],
+                                active[self.trials], metrics,
+                                denom=msk.sum(-1))
             else:
-                self.eval_step(params, buffers, images, labels, msk, metrics)
-        return M.compute_stacked_metrics(metrics)
+                self.eval_step(params, buffers, images, labels, msk[:, sel],
+                               metrics)
+        M.reduce_metrics(metrics, self.data_group)
+        return M.compute_stacked_metrics(self._gather_trials(metrics))
+
+    def _gather_trials(self, tree):
+        """Every tensor of ``tree`` (dicts, a :class:`MetricsState`), this
+        rank's trials along dim 0, gathered over the trial group to all F
+        trials, on every rank."""
+        if isinstance(tree, M.MetricsState):
+            return M.MetricsState(**self._gather_trials(vars(tree)))
+        if isinstance(tree, dict):
+            return {k: self._gather_trials(v) for k, v in tree.items()}
+        if self.trial_group is None or tree is None:
+            return tree
+        return mesh_lib.all_gather_rows(tree, self.trial_group)
 
     @staticmethod
     def _history_to_host(history):
@@ -361,14 +441,19 @@ class ParallelFoldTrainer:
             batch_size: int, epochs: int, patience: int = 15,
             lr_factors=None, verbose: bool = True,
             checkpoint_dir: Optional[str] = None, resume: bool = False,
-            warm_start=None) -> Tuple[Dict[str, Stacked], List[Dict]]:
+            warm_start=None, shard_dataset="auto"
+            ) -> Tuple[Dict[str, Stacked], List[Dict]]:
         """Train every trial through the phase plan. ``frames`` is a
         :class:`DeviceCachedDataset` (``labels`` unused) or a uint8 ``[N, H,
         W, 3]`` array with its ``labels``, uploaded once; ``train_idx`` /
         ``val_idx`` are each trial's rows of it. Returns ``({"params",
-        "buffers"}`` stacked end-of-plan weights, the history: one dict of
-        per-trial arrays per epoch``)``; a resumed fit's history starts at
-        epoch 0, the checkpointed epochs restored.
+        "buffers"}`` stacked end-of-plan weights of all F trials, the
+        history: one dict of per-trial arrays per epoch``)``; a resumed
+        fit's history starts at epoch 0, the checkpointed epochs restored.
+
+        :param shard_dataset: under a mesh with a ``data`` axis, an array
+            ``frames`` is split over it (``True``; ``"auto"``: where it
+            exceeds one device's cache budget) or held whole (``False``).
 
         :param lr_factors: per-trial learning-rate multipliers: one ``[F]``
             array for every phase, or ``{phase_name: [F]}``.
@@ -378,9 +463,16 @@ class ParallelFoldTrainer:
             every trial's initialization (:meth:`init_stacked`).
         """
         f = self.n_folds
-        cache = (frames if isinstance(frames, DeviceCachedDataset) else
-                 DeviceCachedDataset.from_arrays(frames, labels,
-                                                 self.device))
+        if isinstance(frames, DeviceCachedDataset):
+            cache = frames
+        elif self.data_group is not None and shard_dataset is not False and (
+                shard_dataset is True
+                or frames.nbytes > device_cache_budget(self.device)):
+            cache = ShardedDeviceCachedDataset.from_arrays(
+                frames, labels, self.device, self.mesh)
+        else:
+            cache = DeviceCachedDataset.from_arrays(frames, labels,
+                                                    self.device)
         v_idx, v_mask = self._batch_tables(val_idx, batch_size)
 
         history: List[Dict] = []
@@ -445,7 +537,8 @@ class ParallelFoldTrainer:
                 self._restore(payload, params, buffers, opt)
                 best = payload["best"]
                 if best is not None:
-                    best = {k: {n: t.to(self.device) for n, t in v.items()}
+                    best = {k: {n: t[self.trials].to(self.device)
+                                for n, t in v.items()}
                             for k, v in best.items()}
                 lr_factor = np.asarray(progress["lr_factor"], np.float32)
                 active = np.asarray(progress["active"], np.float32)
@@ -478,7 +571,8 @@ class ParallelFoldTrainer:
                             "buffers": {k: v.clone()
                                         for k, v in buffers.items()}}
                 else:
-                    imp = torch.as_tensor(improved).to(self.device)
+                    imp = torch.as_tensor(improved[self.trials]).to(
+                        self.device)
                     for part, cur in (("params", params),
                                       ("buffers", buffers)):
                         for k, v in cur.items():
@@ -509,7 +603,7 @@ class ParallelFoldTrainer:
                     "val_loss": val_loss, "val_auc": val_auc,
                     "active": active.copy(),
                     "seconds": time.time() - t0})
-                if verbose:
+                if verbose and mesh_lib.is_main():
                     print(f"[{self.progress_label} x{f}|{phase.name}] "
                           f"epoch {epoch}: "
                           f"val_loss={np.round(val_loss, 3)} "
@@ -539,25 +633,36 @@ class ParallelFoldTrainer:
 
         if carry is None:
             raise ValueError("the phase plan ran no epoch (EPOCHS 0?)")
-        return {"params": carry[0], "buffers": carry[1]}, history
+        return self._gather_trials({"params": carry[0],
+                                    "buffers": carry[1]}), history
 
     def _save_resume(self, path: str, params, buffers, opt, best,
                      progress: Dict) -> None:
         """The whole stacked state (parameters, buffers, optimizer moments
-        and step counts, best weights, the step index) and the host
-        progress as one atomic file (``utils/resume.py``)."""
-        save_resume(path, self.RESUME_FILE,
-                    {"params": {k: v.detach() for k, v in params.items()},
-                     "buffers": buffers, "optimizer": opt.state_dict(),
-                     "best": best, "step": self.step},
+        and step counts, best weights, the step index), gathered to all F
+        trials (every rank joins), and the host progress as one atomic
+        file (``utils/resume.py``: rank 0 writes)."""
+        sd = opt.state_dict()
+        sd["count"] = sd["count"].to(self.device)
+        payload = self._gather_trials(
+            {"params": {k: v.detach() for k, v in params.items()},
+             "buffers": buffers, "optimizer": sd, "best": best})
+        payload["optimizer"]["count"] = payload["optimizer"]["count"].cpu()
+        save_resume(path, self.RESUME_FILE, {**payload, "step": self.step},
                     progress)
 
     def _restore(self, payload, params, buffers, opt) -> None:
+        """This rank's trials of a checkpoint of all F."""
+        t = self.trials
         with torch.no_grad():
             for part, cur in (("params", params), ("buffers", buffers)):
                 for k, v in cur.items():
-                    v.copy_(payload[part][k])
-        opt.load_state_dict(payload["optimizer"])
+                    v.copy_(payload[part][k][t])
+        sd = payload["optimizer"]
+        opt.load_state_dict({
+            "count": sd["count"][t],
+            "state": {n: {k: v[t] for k, v in slots.items()}
+                      for n, slots in sd["state"].items()}})
         self.step = int(payload["step"])
 
     def _end_vars(self, params, buffers, best, wait, patience
@@ -568,8 +673,8 @@ class ParallelFoldTrainer:
         their final weights, as the serial ``Trainer`` does."""
         if best is None:
             return params, buffers
-        early = torch.as_tensor(np.asarray(wait) >= patience).to(
-            self.device)
+        early = torch.as_tensor(
+            (np.asarray(wait) >= patience)[self.trials]).to(self.device)
         with torch.no_grad():
             for part, cur in (("params", params), ("buffers", buffers)):
                 for k, v in cur.items():

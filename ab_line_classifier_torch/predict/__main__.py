@@ -6,7 +6,9 @@ predictions at threshold 0.5, from one frame sweep. ``--device`` picks the
 device (default ``cuda``; ``cpu`` runs the plain PyTorch path);
 ``--profile`` writes a ``torch.profiler`` trace under
 ``<PATHS.LOGS>/profiles``. ``PATHS.MODEL_TO_LOAD`` is a port checkpoint or a
-Keras ``.h5`` / ``.onnx`` file (rebuilt from ``TRAIN.MODEL_DEF``).
+Keras ``.h5`` / ``.onnx`` file (rebuilt from ``TRAIN.MODEL_DEF``). Under
+``torchrun --nproc-per-node N`` each rank serves its rows of every batch
+over the ``PARALLEL.MESH`` mesh and rank 0 writes the files.
 """
 
 import argparse
@@ -53,12 +55,13 @@ def main():
     from ab_line_classifier_torch.predict.predict import (
         compute_clip_predictions, compute_frame_predictions,
         default_predictor)
+    from ab_line_classifier_torch.parallel.mesh import run_with_env_group
     from ab_line_classifier_torch.utils.profiling import run_maybe_traced
 
-    def run():
+    def run(device):
         # One restore and ONE frame sweep shared by both passes: thresholds
         # apply downstream of the probabilities.
-        predictor = default_predictor(cfg, args.device)
+        predictor = default_predictor(cfg, device)
         ds = FrameDataset(pd.read_csv(frames_path), frames_dir,
                           img_dim=cfg.img_dim)
         frame_probs = predictor.predict_dataset(ds)
@@ -74,7 +77,9 @@ def main():
                                   predictor=predictor, frames_dir=frames_dir,
                                   frame_probs=frame_probs)
 
-    run_maybe_traced(run, args.profile, cfg)
+    run_with_env_group(
+        lambda device: run_maybe_traced(lambda: run(device), args.profile,
+                                        cfg), args.device)
 
 
 if __name__ == "__main__":

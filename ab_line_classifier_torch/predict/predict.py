@@ -10,11 +10,21 @@
 * Frame classification: B-line probability >= threshold -> class 1.
 * ``compute_clip_predictions`` / ``compute_frame_predictions`` write the
   same metrics-JSON and predictions-CSV files as the JAX package, into
-  ``PATHS.METRICS`` / ``PATHS.BATCH_PREDS`` with timestamped names.
+  ``PATHS.METRICS`` / ``PATHS.BATCH_PREDS`` with timestamped names (rank
+  0 alone under a process group).
 * Frames belong to a clip by clip-name substring match on ``Frame Path``.
 
 pandas and sklearn are imported only by the table functions, so
 ``Predictor.predict_probs`` and ``group_clip_probs`` run without them.
+
+With a device mesh (``parallel/mesh.py``; ``default_predictor`` reads
+``PARALLEL.MESH``) serving spreads over every rank, trial x data
+flattened: the chunk is rounded up to a multiple of the world size, each
+rank serves its rows of every chunk through B1 and the model (its own
+pinned staging buffers), and an ``all_gather`` returns the whole
+probability array on every rank, the API unchanged. Each rank is given
+the same weights (restored from the same checkpoint); nothing is
+broadcast.
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ from ab_line_classifier_torch.models.onnx_weights import import_onnx_state
 from ab_line_classifier_torch.models.weights import import_h5_state
 from ab_line_classifier_torch.ops import clip_aggregation as agg
 from ab_line_classifier_torch.ops.preprocess_cuda import preprocess_frames
+from ab_line_classifier_torch.parallel import mesh as mesh_lib
 from ab_line_classifier_torch.utils import checkpoint as ckpt
 from ab_line_classifier_torch.utils.profiling import annotate
 
@@ -96,14 +107,21 @@ class Predictor:
     (``spec.dtype``: its parameters are cast to bfloat16 once for a
     mixed-precision model), and the softmax in float32. ``weights`` is the
     state dict it was given (float32 master weights where the checkpoint
-    holds them), which the ONNX export writes.
+    holds them), which the ONNX export writes. With ``mesh`` (this rank's
+    ``device``) the batch size rounds up to a multiple of the mesh's size
+    and each rank serves its rows of every chunk.
     """
 
     def __init__(self, spec: ModelSpec, state_dict: Dict[str, torch.Tensor],
                  *, batch_size: int = 64,
-                 compute_dtype: torch.dtype = torch.bfloat16, device=None):
+                 compute_dtype: torch.dtype = torch.bfloat16, device=None,
+                 mesh=None):
         self.device = resolve_device(device)
         self.spec = spec
+        self.mesh = mesh
+        if mesh is not None:
+            n_dev = mesh.size()
+            batch_size = -(-batch_size // n_dev) * n_dev
         self.batch_size = batch_size
         self.compute_dtype = compute_dtype
         self.weights = state_dict
@@ -114,7 +132,8 @@ class Predictor:
     @classmethod
     def restore(cls, model_path: str, *, batch_size: int = 64,
                 compute_dtype: torch.dtype = torch.bfloat16,
-                device=None, cfg: Optional[Config] = None) -> "Predictor":
+                device=None, cfg: Optional[Config] = None,
+                mesh=None) -> "Predictor":
         """Restore a port checkpoint directory (``utils/checkpoint.py``),
         or a Keras ``.h5`` or an ``.onnx`` file (the reference's serving
         formats). A file needs ``cfg`` for the architecture
@@ -137,14 +156,14 @@ class Predictor:
                 raise ValueError(
                     f"no layers matched while importing {model_path!r}")
             return cls(spec, state, batch_size=batch_size,
-                       compute_dtype=compute_dtype, device=device)
+                       compute_dtype=compute_dtype, device=device, mesh=mesh)
         state, meta = ckpt.load_model(model_path)
         spec = build_model(meta["model_name"], meta["hparams"],
                            tuple(meta["input_shape"]), int(meta["n_classes"]),
                            mixed_precision=bool(meta.get("mixed_precision",
                                                          False)))
         return cls(spec, state, batch_size=batch_size,
-                   compute_dtype=compute_dtype, device=device)
+                   compute_dtype=compute_dtype, device=device, mesh=mesh)
 
     # ------------------------------------------------------------------
     @torch.inference_mode()
@@ -179,25 +198,44 @@ class Predictor:
     def predict_probs(self, frames_u8: np.ndarray) -> np.ndarray:
         """Probabilities for a uint8 ``[N, H, W, 3]`` host frame array, swept
         in chunks of ``batch_size``; chunk k+1 is copied and launched
-        before chunk k is read back."""
+        before chunk k is read back. Under a mesh each rank serves its
+        rows of a chunk (the chunk split evenly over the ranks, zero
+        frames padding the last rank's share of a ragged chunk) and every
+        rank gets the whole array."""
         n = len(frames_u8)
         bs = self.batch_size
         out = np.zeros((n, self.spec.n_classes), np.float32)
 
         def launch(i):
-            return i, self.forward(self._to_device(frames_u8[i:i + bs]))
+            chunk = frames_u8[i:i + bs]
+            if self.mesh is None:
+                return i, len(chunk), self.forward(self._to_device(chunk))
+            per = -(-len(chunk) // self.mesh.size())
+            r = mesh_lib.rank()
+            local = np.zeros((per,) + chunk.shape[1:], chunk.dtype)
+            part = chunk[r * per:(r + 1) * per]
+            local[:len(part)] = part
+            return i, len(chunk), self.forward(self._to_device(local))
 
         def drain(pending):
-            i, probs = pending
-            out[i:i + len(probs)] = probs.cpu().numpy()
+            i, k, probs = pending
+            if self.mesh is not None:
+                probs = mesh_lib.all_gather_rows(
+                    probs, mesh_lib.world_group())[:k]
+            out[i:i + k] = probs.cpu().numpy()
 
         drain_behind((launch(i) for i in range(0, n, bs)), drain)
         return out
 
     def predict_dataset(self, ds: FrameDataset) -> np.ndarray:
         """Decode + predict a frames table: host decode (producer thread),
-        host -> device copy, forward and readback all pipelined."""
+        host -> device copy, forward and readback all pipelined. Under a
+        mesh each rank decodes and serves its rows of every batch, and one
+        ``all_reduce`` at the end (each valid row from one rank, zeros
+        from the others: exact) gives every rank the whole array."""
         out = np.zeros((len(ds), self.spec.n_classes), np.float32)
+        rows = (None if self.mesh is None else
+                mesh_lib.full_batch_sharding(self.mesh, self.batch_size))
 
         def launch(batch):
             return (self.forward(self._to_device(batch.images)),
@@ -209,17 +247,23 @@ class Predictor:
             valid = mask > 0
             out[indices[valid]] = probs[valid]
 
-        drain_behind((launch(b) for b in ds.batches(self.batch_size)), drain)
+        drain_behind((launch(b) for b in ds.batches(self.batch_size,
+                                                    rows=rows)), drain)
+        if self.mesh is not None:
+            total = torch.from_numpy(out).to(mesh_lib.backend_device())
+            mesh_lib.all_reduce_tensors([total], mesh_lib.world_group())
+            out = total.cpu().numpy()
         return out
 
 
 def default_predictor(cfg: Config, device=None) -> Predictor:
     """The restore every predict surface shares (``PATHS.MODEL_TO_LOAD``, a
     checkpoint directory or a ``.h5`` / ``.onnx`` file; config batch
-    size)."""
+    size; the mesh of ``PARALLEL.MESH`` under a process group)."""
     return Predictor.restore(cfg["PATHS"]["MODEL_TO_LOAD"],
                              batch_size=cfg.batch_size, device=device,
-                             cfg=cfg)
+                             cfg=cfg,
+                             mesh=mesh_lib.mesh_from_config(cfg, device))
 
 
 def classify_probs(probs: np.ndarray, cfg: Config,
@@ -272,9 +316,20 @@ def group_clip_probs(frame_paths: Sequence[str], probs: np.ndarray,
 
 
 def _write_json(path: str, obj) -> None:
+    if not mesh_lib.is_main():
+        return
     os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "w") as f:
         json.dump(obj, f)
+
+
+def _write_predictions(df, cfg: Config, set_name: str) -> None:
+    """The predictions CSV (rank 0 only)."""
+    if not mesh_lib.is_main():
+        return
+    os.makedirs(cfg["PATHS"]["BATCH_PREDS"], exist_ok=True)
+    df.to_csv(os.path.join(cfg["PATHS"]["BATCH_PREDS"],
+                           f"{set_name}_predictions{_timestamp()}.csv"))
 
 
 def compute_clip_predictions(cfg: Config, frames_table_path: str,
@@ -334,10 +389,7 @@ def compute_clip_predictions(cfg: Config, frames_table_path: str,
     pred_probs_df.insert(0, "filename", clips_df["filename"])
     if "class" in clips_df.columns:  # absent on unlabeled tables
         pred_probs_df.insert(1, "class", clips_df["class"])
-    os.makedirs(cfg["PATHS"]["BATCH_PREDS"], exist_ok=True)
-    pred_probs_df.to_csv(os.path.join(
-        cfg["PATHS"]["BATCH_PREDS"],
-        f"{set_name}_predictions{_timestamp()}.csv"))
+    _write_predictions(pred_probs_df, cfg, set_name)
     return pred_probs_df
 
 
@@ -380,8 +432,5 @@ def compute_frame_predictions(cfg: Config, dataset_files_path: str,
     pred_probs_df.insert(0, FRAME_PATH, files_df[FRAME_PATH])
     if "Class" in files_df.columns:  # absent on unlabeled tables
         pred_probs_df.insert(1, "Class", files_df["Class"])
-    os.makedirs(cfg["PATHS"]["BATCH_PREDS"], exist_ok=True)
-    pred_probs_df.to_csv(os.path.join(
-        cfg["PATHS"]["BATCH_PREDS"],
-        f"{set_name}_predictions{_timestamp()}.csv"))
+    _write_predictions(pred_probs_df, cfg, set_name)
     return pred_probs_df

@@ -12,6 +12,11 @@ continues from the per-epoch checkpoint). ``--device`` picks the
 device (default ``cuda``: without a GPU the command raises unless given
 ``--device cpu``); ``--profile`` writes a ``torch.profiler`` trace under
 ``<PATHS.LOGS>/profiles``.
+
+One process per device: ``torchrun --nproc-per-node N -m
+ab_line_classifier_torch.train ...`` starts N ranks (``cuda:LOCAL_RANK``
+each, NCCL; ``--device cpu``: gloo), and every experiment runs over the
+``PARALLEL.MESH`` mesh (``parallel/mesh.py``); rank 0 writes.
 """
 
 import argparse
@@ -52,18 +57,19 @@ def main():
 
     cfg = load_config(args.config)
 
+    from ab_line_classifier_torch.parallel.mesh import run_with_env_group
     from ab_line_classifier_torch.train.experiment import train_experiment
     from ab_line_classifier_torch.utils.profiling import run_maybe_traced
 
-    def run():
-        train_experiment(cfg, experiment=args.experiment,
-                         save_weights=not args.no_save_weights,
-                         trial_parallel=args.trial_parallel,
-                         checkpoint_dir=args.checkpoint_dir,
-                         resume=args.resume, sweep_id=args.sweep_id,
-                         device=args.device)
+    def run(device):
+        run_maybe_traced(lambda: train_experiment(
+            cfg, experiment=args.experiment,
+            save_weights=not args.no_save_weights,
+            trial_parallel=args.trial_parallel,
+            checkpoint_dir=args.checkpoint_dir, resume=args.resume,
+            sweep_id=args.sweep_id, device=device), args.profile, cfg)
 
-    run_maybe_traced(run, args.profile, cfg)
+    run_with_env_group(run, args.device)
 
 
 if __name__ == "__main__":

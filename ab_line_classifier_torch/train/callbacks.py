@@ -7,7 +7,9 @@ pred``, a CSV per epoch under the tracker's run directory) through the
 port's :class:`~ab_line_classifier_torch.predict.predict.Predictor`
 (kernel B1 on CUDA), and Grad-CAM heatmap PNGs of the first
 ``n_heatmaps`` rows through the port's Grad-CAM pass. The CSV is written
-with the standard library: no pandas.
+with the standard library: no pandas. Under a device mesh every rank runs
+the same pass (a sharded cache's gathers are collectives) and rank 0
+writes.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+
+from ab_line_classifier_torch.parallel.mesh import is_main
 
 
 class PredictionTableLogger:
@@ -62,6 +66,8 @@ class PredictionTableLogger:
                 break
 
         run_dir = getattr(self.tracker, "run_dir", None)
+        if not is_main():
+            return rows
         if run_dir and rows:
             out = os.path.join(run_dir, "val_predictions")
             os.makedirs(out, exist_ok=True)

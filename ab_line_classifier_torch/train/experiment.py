@@ -23,10 +23,18 @@ and ``csv``. pandas is imported only where tables are read.
 
 The trial-parallel variants (:func:`lr_search_parallel`,
 :func:`cross_validation_parallel`) train every LR trial or every fold at
-once, one stacked model on one device
-(``parallel/trial_parallel.py::ParallelFoldTrainer``), from the union of
-their rows held once on the device; a ``PARALLEL.MESH.TRIAL`` above 1 (the
-JAX package's trial sharding over a device mesh) raises. A pinned W&B
+once, one stacked model (``parallel/trial_parallel.py::
+ParallelFoldTrainer``), from the union of their rows held once on the
+device.
+
+Under a process group (``torchrun``, one process per device) every
+experiment takes the mesh of ``PARALLEL.MESH`` (``parallel/mesh.py::
+mesh_from_config``): a run's steps are data-parallel over its ``data``
+axis, its caches split over it where one device's budget is too small,
+its test set served over every rank; the trial-parallel trainer shards
+its trials over the ``trial`` axis. Every rank runs the same control
+flow, and rank 0 alone writes checkpoints, records, CSVs, plots and
+tracker logs (the others get a ``NullTracker``). A pinned W&B
 artifact version is fetched into the local store
 (``data/wandb_artifacts.py``), and ``TRAIN.HPARAM_SEARCH.BACKEND: wandb``
 lets the W&B sweep agent schedule the trials (``train/wandb_sweep.py``);
@@ -51,12 +59,12 @@ from ab_line_classifier_torch.config import Config, ensure_output_dirs
 from ab_line_classifier_torch.data import splits as S
 from ab_line_classifier_torch.data.artifacts import (K_FOLD, TRAIN_VAL_TEST,
                                                      store_from_config)
-from ab_line_classifier_torch.data.pipeline import (DeviceCachedDataset,
-                                                    FrameDataset,
-                                                    device_cache_budget,
-                                                    maybe_device_cache)
+from ab_line_classifier_torch.data.pipeline import (
+    DeviceCachedDataset, FrameDataset, ShardedDeviceCachedDataset,
+    device_cache_budget, maybe_device_cache)
 from ab_line_classifier_torch.models import build_model
 from ab_line_classifier_torch.models.common import ModelSpec, compute_dtype
+from ab_line_classifier_torch.parallel import mesh as mesh_lib
 from ab_line_classifier_torch.predict.metrics import compute_metrics
 from ab_line_classifier_torch.predict.predict import Predictor
 from ab_line_classifier_torch.train.class_balance import (
@@ -70,9 +78,6 @@ from ab_line_classifier_torch.train.sweep import (SweepExhausted,
 from ab_line_classifier_torch.train.tracker import make_tracker
 from ab_line_classifier_torch.utils import checkpoint as ckpt
 from ab_line_classifier_torch.utils.tables import write_csv
-
-_LATER = "waits for a later slice of the port (ROADMAP Queue A)"
-
 
 @dataclasses.dataclass
 class RunResult:
@@ -333,6 +338,8 @@ def generate_classification_test_results(predictor: Predictor, test,
     metrics = compute_metrics(cfg.classes, labels, preds, probs)
     if tracker is not None:
         tracker.log_metrics("test", metrics)
+    if not mesh_lib.is_main():
+        return metrics
     try:
         from ab_line_classifier_torch.viz.visualization import (
             _pyplot, plot_confusion_matrix, plot_roc)
@@ -397,11 +404,12 @@ def perform_single_run(cfg: Config, *,
         raise
 
 
-def _run_data(cfg: Config, fold_id, kfold_tables, device):
+def _run_data(cfg: Config, fold_id, kfold_tables, device, mesh=None):
     """``(train_ds, val_ds, test)`` of a run: its fold of the
     :class:`FoldSource` (k-fold tables, or :func:`resolve_datasets`' split,
     become one), train and val cached on the device where they fit one
-    budget for the pair, split by their sizes (JAX
+    budget for the pair, split by their sizes, or split over the mesh's
+    data axis where only its ranks together hold them (JAX
     ``train/experiment.py:465-485``), else streamed."""
     if isinstance(kfold_tables, FoldSource):
         source = kfold_tables
@@ -414,9 +422,9 @@ def _run_data(cfg: Config, fold_id, kfold_tables, device):
     budget = configured_cache_budget(cfg, device)
     frac = len(train_ds) / max(len(train_ds) + len(val_ds), 1)
     train_ds = maybe_device_cache(train_ds, mode, device=device,
-                                  budget=int(budget * frac))
+                                  budget=int(budget * frac), mesh=mesh)
     val_ds = maybe_device_cache(val_ds, mode, device=device,
-                                budget=int(budget * (1 - frac)))
+                                budget=int(budget * (1 - frac)), mesh=mesh)
     return train_ds, val_ds, test
 
 
@@ -434,7 +442,9 @@ def _perform_single_run_body(cfg: Config, tracker, *, hparam_overrides,
                         "DATA": {"IMG_DIM": list(cfg.img_dim)},
                         "FOLD_ID": fold_id})
 
-    train_ds, val_ds, test = _run_data(cfg, fold_id, kfold_tables, device)
+    mesh = mesh_lib.mesh_from_config(cfg, device)
+    train_ds, val_ds, test = _run_data(cfg, fold_id, kfold_tables, device,
+                                       mesh)
     train_labels = train_ds.labels
     mixed = bool(cfg["TRAIN"].get("MIXED_PRECISION", False))
     dtype = compute_dtype(mixed)
@@ -451,7 +461,7 @@ def _perform_single_run_body(cfg: Config, tracker, *, hparam_overrides,
     trainer = Trainer(spec, class_weight=compute_class_weight(train_labels),
                       class_names=cfg.classes,
                       aug_config=dict(cfg["TRAIN"]["DATA_AUG"]), seed=seed,
-                      compute_dtype=dtype, device=device)
+                      compute_dtype=dtype, device=device, mesh=mesh)
     from ab_line_classifier_torch.train.callbacks import (
         PredictionTableLogger)
     callbacks = [PredictionTableLogger(spec, val_ds, tracker=tracker,
@@ -469,8 +479,10 @@ def _perform_single_run_body(cfg: Config, tracker, *, hparam_overrides,
 
     model_dir = None
     if save_weights:
-        model_dir = os.path.join(cfg["PATHS"]["MODEL_WEIGHTS"],
-                                 f"model{time.strftime('%Y%m%d-%H%M%S')}")
+        model_dir = mesh_lib.broadcast_object(os.path.join(
+            cfg["PATHS"]["MODEL_WEIGHTS"],
+            f"model{time.strftime('%Y%m%d-%H%M%S')}"))
+    if model_dir and mesh_lib.is_main():
         ckpt.save_model(model_dir, best, meta={
             "model_name": model_name, "hparams": hparams,
             "input_shape": list(cfg.img_dim) + [3],
@@ -481,7 +493,7 @@ def _perform_single_run_body(cfg: Config, tracker, *, hparam_overrides,
     test_metrics: Dict[str, Any] = {}
     if test is not None and len(test):
         predictor = Predictor(spec, best, batch_size=cfg.batch_size,
-                              compute_dtype=dtype, device=device)
+                              compute_dtype=dtype, device=device, mesh=mesh)
         test_metrics = generate_classification_test_results(
             predictor, test, cfg, tracker)
 
@@ -565,8 +577,17 @@ def _read_trial_records(path: str, verbose: bool) -> list:
 
 
 def _append_record(path: str, record: Dict) -> None:
+    if not mesh_lib.is_main():
+        return
     with open(path, "a") as f:
         f.write(json.dumps(record) + "\n")
+
+
+def _records(path: str, verbose: bool) -> list:
+    """Rank 0's :func:`_read_trial_records` of ``path`` on every rank (it
+    alone reads, repairs and appends the file)."""
+    return mesh_lib.broadcast_object(
+        _read_trial_records(path, verbose) if mesh_lib.is_main() else None)
 
 
 def mean_std_rows(rows: Sequence[Dict], key: str = "fold") -> List[Dict]:
@@ -611,8 +632,14 @@ def hparam_search(cfg: Config, save_weights: bool = False,
     ``source``: the split to train every trial on (default: the
     :func:`resolve_datasets` split, resolved once)."""
     device = resolve_device(device)
+    verbose = verbose and mesh_lib.is_main()
     search = cfg["TRAIN"]["HPARAM_SEARCH"]
     if str(search.get("BACKEND", "native")).lower() == "wandb":
+        if mesh_lib.world_size() > 1:
+            raise NotImplementedError(
+                "TRAIN.HPARAM_SEARCH.BACKEND wandb under a process group: "
+                "the W&B agent hands each trial to one process; run the "
+                "sweep with one process, or with the native controller")
         # Only the import is tried here: an ImportError inside a trial
         # propagates, never reruns the search natively.
         from ab_line_classifier_torch.train import wandb_sweep
@@ -642,11 +669,12 @@ def hparam_search(cfg: Config, save_weights: bool = False,
         if sweep_id is None:
             print("hparam_search --resume: no previous sweep trials file "
                   "found; starting a new sweep")
-    group = sweep_id or f"sweep-{time.strftime('%Y%m%d-%H%M%S')}"
+    group = mesh_lib.broadcast_object(
+        sweep_id or f"sweep-{time.strftime('%Y%m%d-%H%M%S')}")
     out_dir = cfg["PATHS"]["EXPERIMENTS"]
     os.makedirs(out_dir, exist_ok=True)
     trials_path = os.path.join(out_dir, f"{group}.jsonl")
-    results = _read_trial_records(trials_path, verbose)
+    results = _records(trials_path, verbose)
     replay_trials(controller, results)
     if verbose and results:
         print(f"resuming sweep {group}: {len(results)} trials done")
@@ -678,12 +706,13 @@ def hparam_search(cfg: Config, save_weights: bool = False,
             "resumed sweep with an empty trials file): nothing to select "
             "a best from")
     best_params, best_obj = controller.best
-    write_csv(os.path.join(
-        out_dir, f"hparam_search_{time.strftime('%Y%m%d-%H%M%S')}.csv"),
-        results)
+    if mesh_lib.is_main():
+        write_csv(os.path.join(
+            out_dir, f"hparam_search_{time.strftime('%Y%m%d-%H%M%S')}.csv"),
+            results)
     plot_dir = cfg["PATHS"].get("EXPERIMENT_VISUALIZATIONS",
                                 cfg["PATHS"]["IMAGES"])
-    if len(results) >= 2:
+    if len(results) >= 2 and mesh_lib.is_main():
         try:
             from ab_line_classifier_torch.viz.visualization import (
                 plot_bayesian_hparam_opt, plot_hparam_search)
@@ -711,6 +740,7 @@ def cross_validation(cfg: Config, save_weights: bool = False,
     folds done. Returns the summary's rows: one per fold, then ``mean``
     and ``std``."""
     device = resolve_device(device)
+    verbose = verbose and mesh_lib.is_main()
     if source is None:
         source = source_from_kfold_tables(cfg)
     n_folds = len(source.folds)
@@ -719,11 +749,12 @@ def cross_validation(cfg: Config, save_weights: bool = False,
         if group is None:
             print("cross_validation --resume: no previous fold results file "
                   "found; starting a new run")
-    group = group or f"kfold-{time.strftime('%Y%m%d-%H%M%S')}"
+    group = mesh_lib.broadcast_object(
+        group or f"kfold-{time.strftime('%Y%m%d-%H%M%S')}")
     out_dir = cfg["PATHS"]["EXPERIMENTS"]
     os.makedirs(out_dir, exist_ok=True)
     folds_path = os.path.join(out_dir, f"{group}.jsonl")
-    rows = _read_trial_records(folds_path, verbose)
+    rows = _records(folds_path, verbose)
     if verbose and rows:
         print(f"resuming k-fold run {group}: {len(rows)} folds done")
     for fold_id in range(len(rows), n_folds):
@@ -739,44 +770,42 @@ def cross_validation(cfg: Config, save_weights: bool = False,
         rows.append(row)
         _append_record(folds_path, row)
     summary = list(rows) + mean_std_rows(rows)
-    write_csv(os.path.join(
-        out_dir, f"kfold_{time.strftime('%Y%m%d-%H%M%S')}.csv"), summary)
+    if mesh_lib.is_main():
+        write_csv(os.path.join(
+            out_dir, f"kfold_{time.strftime('%Y%m%d-%H%M%S')}.csv"),
+            summary)
     return summary
 
 
 # -- trial-parallel -------------------------------------------------------
-def _check_single_device_mesh(cfg: Config) -> None:
-    """The port trains the trial axis on one device: a configured mesh
-    that shards it raises (multi-device training: ROADMAP Queue A)."""
-    mesh = (cfg.get("PARALLEL") or {}).get("MESH") or {}
-    if int(mesh.get("TRIAL", 1)) > 1:
-        raise NotImplementedError(
-            f"PARALLEL.MESH.TRIAL {mesh['TRIAL']}: sharding trials over a "
-            f"device mesh is multi-device training, which {_LATER}, item "
-            f"10); set TRIAL to 1 to train every trial on one device")
-
-
 def _union_cache(frames, rows_per_trial: Sequence[Sequence[np.ndarray]],
-                 cfg: Config, device) -> Tuple[DeviceCachedDataset, List]:
+                 cfg: Config, device, mesh=None
+                 ) -> Tuple[DeviceCachedDataset, List]:
     """The union of every trial's rows of ``frames`` (a
     :class:`FrameDataset` or :class:`FrameArrays`) uploaded once to the
     device, and each list of ``rows_per_trial`` re-indexed into it. The
-    table must fit :func:`configured_cache_budget`: every trial gathers
-    from it at every step, and there is no streaming form (the JAX
-    package holds it in device memory too); it raises with the sizes when
-    it does not fit."""
+    table must fit :func:`configured_cache_budget`, or, under a mesh with
+    a ``data`` axis of D ranks, D times it (then split over that axis):
+    every trial gathers from it at every step, and there is no streaming
+    form (the JAX package holds it in device memory too); it raises with
+    the sizes when it does not fit."""
     union = np.unique(np.concatenate([np.asarray(r) for rows in
                                       rows_per_trial for r in rows]))
     h, w = frames.img_dim
     nbytes = len(union) * h * w * 3
     budget = configured_cache_budget(cfg, device)
-    if nbytes > budget:
+    n_data = mesh_lib.axis_size(mesh, mesh_lib.DATA_AXIS)
+    if nbytes > budget * n_data:
         raise MemoryError(
             f"the trial-parallel frame table ({len(union)} frames of "
             f"{h}x{w}x3 uint8, {nbytes} bytes) does not fit the device "
             f"cache budget of {budget} bytes (half the free device memory, "
-            f"or TRAIN.MEMORY_LIMIT); use the serial experiment")
-    cache = DeviceCachedDataset(frames.take(union), device)
+            f"or TRAIN.MEMORY_LIMIT) on each of {n_data} data ranks; use "
+            f"the serial experiment")
+    if nbytes > budget:
+        cache = ShardedDeviceCachedDataset(frames.take(union), device, mesh)
+    else:
+        cache = DeviceCachedDataset(frames.take(union), device)
     return cache, [[np.searchsorted(union, r) for r in rows]
                    for rows in rows_per_trial]
 
@@ -876,7 +905,7 @@ def select_trial(history: List[Dict], metric_name: str, goal: str
 
 
 def _parallel_trainer(cfg: Config, spec: ModelSpec, n: int, cls_w, biases,
-                      device, label: str):
+                      device, label: str, mesh=None):
     from ab_line_classifier_torch.parallel.trial_parallel import (
         ParallelFoldTrainer)
 
@@ -885,7 +914,7 @@ def _parallel_trainer(cfg: Config, spec: ModelSpec, n: int, cls_w, biases,
         spec, n, class_weights=cls_w, output_biases=biases,
         aug_config=dict(cfg["TRAIN"]["DATA_AUG"]),
         seed=int(cfg["TRAIN"]["SEED"]), compute_dtype=compute_dtype(mixed),
-        progress_label=label, device=device)
+        progress_label=label, device=device, mesh=mesh)
 
 
 def _fit_parallel(cfg: Config, trainer, spec, cache, train_idx, val_idx,
@@ -907,7 +936,8 @@ def lr_search_parallel(cfg: Config, n_trials: Optional[int] = None,
                        verbose: bool = True,
                        checkpoint_dir: Optional[str] = None,
                        resume: bool = False, device=None,
-                       source: Optional[FoldSource] = None) -> Dict[str, Any]:
+                       source: Optional[FoldSource] = None,
+                       mesh=None) -> Dict[str, Any]:
     """Trial-parallel learning-rate search (JAX
     ``train/experiment.py:735-909``): every candidate rate
     (:func:`lr_candidates`) trains at once, one stacked model whose trials
@@ -919,9 +949,11 @@ def lr_search_parallel(cfg: Config, n_trials: Optional[int] = None,
     saves the stacked state every epoch and ``resume`` continues from it.
 
     ``source``: the split (default :func:`resolve_datasets`'), fold 0's
-    train and val rows."""
+    train and val rows. ``mesh``: the trials shard over its ``trial``
+    axis, each trial's batches over its ``data`` axis (JAX
+    ``train/experiment.py:736-749``)."""
     device = resolve_device(device)
-    _check_single_device_mesh(cfg)
+    verbose = verbose and mesh_lib.is_main()
     ensure_output_dirs(cfg)
     search = cfg["TRAIN"]["HPARAM_SEARCH"]
     hparams = cfg.model_hparams()
@@ -933,7 +965,7 @@ def lr_search_parallel(cfg: Config, n_trials: Optional[int] = None,
         source = source_from_datasets(cfg)
     tr_rows, va_rows, _ = source.folds.fold(0)
     cache, (train_idx, val_idx) = _union_cache(
-        source.frames, [[tr_rows] * n, [va_rows] * n], cfg, device)
+        source.frames, [[tr_rows] * n, [va_rows] * n], cfg, device, mesh)
     train_labels = np.asarray(source.frames.labels)[tr_rows]
     mixed = bool(cfg["TRAIN"].get("MIXED_PRECISION", False))
     spec = build_model(cfg.model_name, hparams, cfg.img_dim + (3,),
@@ -943,7 +975,7 @@ def lr_search_parallel(cfg: Config, n_trials: Optional[int] = None,
         cfg, spec, n, np.tile(class_weight_array(train_labels,
                                                  cfg.n_classes), (n, 1)),
         np.tile(output_bias_array(train_labels, cfg.n_classes), (n, 1)),
-        device, "trials")
+        device, "trials", mesh)
     # Each trial's factor against the HPARAMS rate, per phase for
     # cutoffvgg16's pair.
     if phase_vars is None:
@@ -964,18 +996,19 @@ def lr_search_parallel(cfg: Config, n_trials: Optional[int] = None,
              if phase_vars is None or k in space}
     rows = [{"trial": t, **{k: float(v[t]) for k, v in swept.items()},
              "objective": float(per_trial[t])} for t in range(n)]
-    out_dir = cfg["PATHS"]["EXPERIMENTS"]
-    os.makedirs(out_dir, exist_ok=True)
-    write_csv(os.path.join(
-        out_dir, f"lr_sweep_parallel_{time.strftime('%Y%m%d-%H%M%S')}.csv"),
-        rows)
-    try:
-        from ab_line_classifier_torch.viz.visualization import (
-            plot_hparam_search)
-        plot_hparam_search(rows, goal=goal, dir_path=cfg["PATHS"].get(
-            "EXPERIMENT_VISUALIZATIONS", cfg["PATHS"]["IMAGES"]))
-    except Exception as e:
-        print(f"(sweep plot skipped: {e})")
+    if mesh_lib.is_main():
+        out_dir = cfg["PATHS"]["EXPERIMENTS"]
+        os.makedirs(out_dir, exist_ok=True)
+        write_csv(os.path.join(
+            out_dir,
+            f"lr_sweep_parallel_{time.strftime('%Y%m%d-%H%M%S')}.csv"), rows)
+        try:
+            from ab_line_classifier_torch.viz.visualization import (
+                plot_hparam_search)
+            plot_hparam_search(rows, goal=goal, dir_path=cfg["PATHS"].get(
+                "EXPERIMENT_VISUALIZATIONS", cfg["PATHS"]["IMAGES"]))
+        except Exception as e:
+            print(f"(sweep plot skipped: {e})")
     best_params = {k: float(v[best_t]) for k, v in swept.items()}
     if verbose:
         print(f"best {best_params} ({col}={per_trial[best_t]:.4f})")
@@ -988,8 +1021,8 @@ def lr_search_parallel(cfg: Config, n_trials: Optional[int] = None,
 def cross_validation_parallel(cfg: Config, verbose: bool = True,
                               checkpoint_dir: Optional[str] = None,
                               resume: bool = False, device=None,
-                              source: Optional[FoldSource] = None
-                              ) -> List[Dict]:
+                              source: Optional[FoldSource] = None,
+                              mesh=None) -> List[Dict]:
     """Every fold at once (JAX ``train/experiment.py:912-1001``): one
     stacked model, fold t training on its train rows with its own class
     weights and output bias, early-stopped on its val rows; then each
@@ -997,12 +1030,13 @@ def cross_validation_parallel(cfg: Config, verbose: bool = True,
     best weights (kernel B1 on every test batch), and
     ``kfold_parallel_<timestamp>.csv``: a row per fold, then ``mean`` and
     ``std``. Returns those rows. ``source``: the fold source (default
-    :func:`resolve_kfold_tables`'); ``checkpoint_dir`` / ``resume`` as
-    :func:`lr_search_parallel`."""
+    :func:`resolve_kfold_tables`'); ``checkpoint_dir`` / ``resume`` /
+    ``mesh`` as :func:`lr_search_parallel` (the test sets served over every
+    rank of the mesh)."""
     from ab_line_classifier_torch.parallel.trial_parallel import trial_state
 
     device = resolve_device(device)
-    _check_single_device_mesh(cfg)
+    verbose = verbose and mesh_lib.is_main()
     ensure_output_dirs(cfg)
     if source is None:
         source = source_from_kfold_tables(cfg)
@@ -1010,7 +1044,7 @@ def cross_validation_parallel(cfg: Config, verbose: bool = True,
     split = [source.folds.fold(k) for k in range(n_folds)]
     cache, (train_idx, val_idx) = _union_cache(
         source.frames, [[s[0] for s in split], [s[1] for s in split]], cfg,
-        device)
+        device, mesh)
     labels = np.asarray(source.frames.labels)
     cls_w = np.stack([class_weight_array(labels[s[0]], cfg.n_classes)
                       for s in split])
@@ -1022,7 +1056,7 @@ def cross_validation_parallel(cfg: Config, verbose: bool = True,
                        mixed_precision=mixed,
                        total_epochs=int(cfg["TRAIN"]["EPOCHS"]))
     trainer = _parallel_trainer(cfg, spec, n_folds, cls_w, biases, device,
-                                "folds")
+                                "folds", mesh)
     best, _ = _fit_parallel(cfg, trainer, spec, cache, train_idx, val_idx,
                             verbose, checkpoint_dir, resume)
     del trainer, cache
@@ -1032,7 +1066,7 @@ def cross_validation_parallel(cfg: Config, verbose: bool = True,
         predictor = Predictor(spec, trial_state(best, k),
                               batch_size=cfg.batch_size,
                               compute_dtype=compute_dtype(mixed),
-                              device=device)
+                              device=device, mesh=mesh)
         test = source.frames.take(split[k][2])
         probs = predictor.predict_dataset(test)
         lab = np.asarray(test.labels)
@@ -1041,11 +1075,12 @@ def cross_validation_parallel(cfg: Config, verbose: bool = True,
         rows.append({"fold": k, **{key: v for key, v in m.items()
                                    if not isinstance(v, list)}})
     summary = rows + mean_std_rows(rows)
-    out_dir = cfg["PATHS"]["EXPERIMENTS"]
-    os.makedirs(out_dir, exist_ok=True)
-    write_csv(os.path.join(
-        out_dir, f"kfold_parallel_{time.strftime('%Y%m%d-%H%M%S')}.csv"),
-        summary)
+    if mesh_lib.is_main():
+        out_dir = cfg["PATHS"]["EXPERIMENTS"]
+        os.makedirs(out_dir, exist_ok=True)
+        write_csv(os.path.join(
+            out_dir, f"kfold_parallel_{time.strftime('%Y%m%d-%H%M%S')}.csv"),
+            summary)
     return summary
 
 
@@ -1067,21 +1102,21 @@ def train_experiment(cfg: Config, experiment: Optional[str] = None,
     ``single_train`` and the trial-parallel experiments
     (``trial_parallel``: :func:`lr_search_parallel` for
     ``hparam_search``, :func:`cross_validation_parallel` for
-    ``cross_validation``) checkpoint every epoch into ``checkpoint_dir``
-    and resume from it; the serial sweeps resume by trial or fold
-    (``sweep_id`` names the run, default the latest)."""
+    ``cross_validation``, over the ``PARALLEL.MESH`` mesh) checkpoint
+    every epoch into ``checkpoint_dir`` and resume from it; the serial
+    sweeps resume by trial or fold (``sweep_id`` names the run, default
+    the latest)."""
     device = resolve_device(device)
     experiment = experiment or cfg["TRAIN"]["EXPERIMENT_TYPE"]
     if resume and checkpoint_dir is None:
         checkpoint_dir = default_checkpoint_dir(cfg, experiment)
-    if trial_parallel and experiment == "hparam_search":
-        return lr_search_parallel(cfg, verbose=verbose,
-                                  checkpoint_dir=checkpoint_dir,
-                                  resume=resume, device=device)
-    if trial_parallel and experiment == "cross_validation":
-        return cross_validation_parallel(cfg, verbose=verbose,
-                                         checkpoint_dir=checkpoint_dir,
-                                         resume=resume, device=device)
+    if trial_parallel and experiment in ("hparam_search",
+                                         "cross_validation"):
+        run = (lr_search_parallel if experiment == "hparam_search"
+               else cross_validation_parallel)
+        return run(cfg, verbose=verbose, checkpoint_dir=checkpoint_dir,
+                   resume=resume, device=device,
+                   mesh=mesh_lib.mesh_from_config(cfg, device))
     if experiment == "single_train":
         return perform_single_run(cfg, save_weights=save_weights,
                                   verbose=verbose,

@@ -25,6 +25,18 @@ optimizer update, on the trainer's device; the parameters stay float32 and
 a mixed-precision model computes in bfloat16 inside each layer
 (``graph.set_compute_dtype``). The JAX package scans whole epochs as one
 program, a TPU dispatch workaround; the port runs the step eagerly.
+
+With a ``mesh`` (``parallel/mesh.py``) the step is data-parallel over its
+``data`` axis, one process per device: the state is built from the same
+seed and broadcast from rank 0; each rank takes its rows of every batch
+(``batches(rows=)``) and draws the augmentation and dropout of the global
+batch, keeping its rows; batch norms take the global batch's statistics
+(``graph.set_data_parallel``); the loss divides by the global batch's
+valid count and the gradients are summed over the axis (one
+``all_reduce`` a dtype), so every rank applies the same update; the
+metrics are summed once an epoch (``ops.metrics.reduce_metrics``). The
+callbacks' host logic then runs alike on every rank, and only rank 0
+prints and writes the resume file.
 """
 
 from __future__ import annotations
@@ -44,6 +56,7 @@ from ab_line_classifier_torch.models.common import (
     scale_learning_rate)
 from ab_line_classifier_torch.models.preprocess import get_preprocess_fn
 from ab_line_classifier_torch.ops import metrics as M
+from ab_line_classifier_torch.parallel import mesh as mesh_lib
 from ab_line_classifier_torch.train import objective
 from ab_line_classifier_torch.utils.resume import load_resume, save_resume
 
@@ -118,7 +131,8 @@ def _copy_state(module: torch.nn.Module) -> StateDict:
 
 class Trainer:
     """Drives a :class:`ModelSpec` through its phase plan on one device
-    (``cuda`` unless ``device`` says otherwise).
+    (``cuda`` unless ``device`` says otherwise), data-parallel over the
+    ``data`` axis of ``mesh`` when given (this rank's device).
 
     ``compute_dtype`` bfloat16 trains mixed precision (float32 parameters).
     ``seed`` seeds the fresh module and every step's generators.
@@ -130,8 +144,13 @@ class Trainer:
                  class_weight: Optional[Dict[int, float]] = None,
                  class_names: Optional[List[str]] = None,
                  aug_config: Optional[Dict] = None, seed: int = 0,
-                 compute_dtype: torch.dtype = torch.float32, device=None):
+                 compute_dtype: torch.dtype = torch.float32, device=None,
+                 mesh=None):
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.data_group = mesh_lib.axis_group(mesh, mesh_lib.DATA_AXIS)
+        self.shard = (mesh_lib.axis_index(mesh, mesh_lib.DATA_AXIS),
+                      mesh_lib.axis_size(mesh, mesh_lib.DATA_AXIS))
         self.spec = spec
         self.seed = int(seed)
         self.compute_dtype = compute_dtype
@@ -154,6 +173,11 @@ class Trainer:
         G.set_compute_dtype(self.module,
                             None if compute_dtype == torch.float32
                             else compute_dtype)
+        G.set_data_parallel(self.module, self.data_group)
+        if mesh is not None:
+            mesh_lib.broadcast_tensors(
+                list(self.module.state_dict().values()),
+                mesh_lib.world_group())
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.phase_idx = 0
         self.step = 0
@@ -176,22 +200,36 @@ class Trainer:
                 for k, v in self.module.state_dict().items()}
 
     def train_step(self, images: torch.Tensor, labels: torch.Tensor,
-                   mask: torch.Tensor, metrics: M.MetricsState
-                   ) -> torch.Tensor:
+                   mask: torch.Tensor, metrics: M.MetricsState,
+                   denom: Optional[float] = None) -> torch.Tensor:
         """One step on a uint8 ``[B, H, W, 3]`` batch on the device (labels
         ``[B]``, mask ``[B]``): augment, forward, loss, backward, update;
-        accumulates ``metrics``. Returns the loss (on the device)."""
+        accumulates ``metrics``. Returns the loss (on the device).
+
+        Under a mesh the batch is this rank's rows of the global batch,
+        ``denom`` the global batch's valid count (summed over the data
+        group when not given), and the loss returned this rank's share of
+        the global one."""
         self.module.train()
         gen_aug, gen_drop = step_generators(self.seed, self.phase_idx,
                                             self.step, self.device)
         labels_oh = M.one_hot(labels, self.spec.n_classes)
         x = objective.prepare_images(self.preprocess_fn, self.aug_params,
-                                     self.compute_dtype, images, gen_aug)
+                                     self.compute_dtype, images, gen_aug,
+                                     shard=self.shard)
+        if denom is None and self.data_group is not None:
+            total = mask.to(torch.float32).sum().reshape(1)
+            mesh_lib.all_reduce_tensors([total], self.data_group)
+            denom = torch.clamp(total[0], min=1.0)
         loss, probs, per_ex = objective.forward_loss(
             self.module, self.reg_layers, self.reg_lambdas, x, labels_oh,
-            mask, self.class_weight, train=True, generator=gen_drop)
+            mask, self.class_weight, train=True, generator=gen_drop,
+            denom=denom)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        mesh_lib.all_reduce_tensors(
+            [p.grad for p in self.module.parameters() if p.grad is not None],
+            self.data_group)
         self.optimizer.step()
         self.step += 1
         M.update_metrics(metrics, probs.detach(), labels_oh,
@@ -216,14 +254,26 @@ class Trainer:
                   shuffle_seed: int = 0) -> Dict[str, float]:
         """One epoch of ``dataset`` (a device cache: gathers on the device;
         a :class:`FrameDataset`: host batches copied over), shuffled by
-        ``shuffle_seed`` when training. Returns the epoch's metrics."""
+        ``shuffle_seed`` when training; under a mesh this rank's rows of
+        each batch, the metrics summed over the data group at the end.
+        Returns the epoch's metrics."""
         metrics = M.init_metrics(self.spec.n_classes, device=self.device)
-        step = self.train_step if train else self.eval_step
-        for batch in dataset.batches(batch_size, shuffle=train,
-                                     seed=shuffle_seed):
-            step(*(torch.as_tensor(a, device=self.device)
-                   for a in (batch.images, batch.labels, batch.mask)),
-                 metrics)
+        rows = (None if self.mesh is None
+                else mesh_lib.batch_sharding(self.mesh, batch_size))
+        n = len(dataset)
+        for b, batch in enumerate(dataset.batches(
+                batch_size, shuffle=train, seed=shuffle_seed, rows=rows)):
+            args = tuple(torch.as_tensor(a, device=self.device)
+                         for a in (batch.images, batch.labels, batch.mask))
+            if train:
+                # The global batch's valid rows: the epoch table pads only
+                # its last batch.
+                denom = (None if rows is None else
+                         float(max(min(batch_size, n - b * batch_size), 1)))
+                self.train_step(*args, metrics, denom=denom)
+            else:
+                self.eval_step(*args, metrics)
+        M.reduce_metrics(metrics, self.data_group)
         return M.compute_metrics(metrics, self.class_names)
 
     # ------------------------------------------------------------------
@@ -318,7 +368,7 @@ class Trainer:
                     tracker.log_epoch(log)
                 for cb in callbacks or []:
                     cb.on_epoch_end(epoch, self.module.state_dict())
-                if verbose:
+                if verbose and mesh_lib.is_main():
                     vm = {f"val_{k}": round(v, 4) for k, v in val_m.items()}
                     print(f"[{phase.name}] epoch {epoch}: "
                           f"loss={train_m['loss']:.4f} "
@@ -336,9 +386,9 @@ class Trainer:
                         best_vars = _copy_state(self.module)
                     if new_lr is not None:
                         scale_learning_rate(self.optimizer, new_lr / cur)
-                        if verbose:
+                        if verbose and mesh_lib.is_main():
                             print(f"  ReduceLROnPlateau: lr -> {new_lr:.2e}")
-                    if stopped and verbose:
+                    if stopped and verbose and mesh_lib.is_main():
                         print(f"  EarlyStopping at epoch {epoch - 1} "
                               f"(best val_loss {ctl.best_val:.4f})")
                 if checkpoint_dir:

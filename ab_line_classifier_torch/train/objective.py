@@ -21,6 +21,12 @@ through the augmentation and the affine, or through B1, as one
 ``[F * B]`` batch (:func:`prepare_stacked_images`,
 :func:`eval_stacked_images`), each trial's augmentation drawn from its
 own generator (:func:`stacked_parts`).
+
+Data parallelism: a rank's batch is its rows of the global batch. The
+loss then divides the rank's masked sum by the GLOBAL batch's denominator
+(``denom``), as the JAX package's one program does, and the ranks' summed
+gradients are the global loss's; augmentation parts are drawn for the
+global batch and the rank's rows kept (``shard``).
 """
 
 from __future__ import annotations
@@ -31,7 +37,8 @@ import torch
 import torch.nn.functional as F
 
 from ab_line_classifier_torch.data.augment import (Parts, apply_parts,
-                                                  augment_batch, sample_parts)
+                                                  augment_batch, sample_parts,
+                                                  shard_parts)
 from ab_line_classifier_torch.models.common import ModelSpec
 from ab_line_classifier_torch.ops.preprocess_cuda import preprocess_frames
 
@@ -40,12 +47,15 @@ def forward_loss(module: torch.nn.Module, reg_layers: Sequence[str],
                  reg_lambdas: Sequence[float], x: torch.Tensor,
                  labels_oh: torch.Tensor, mask: torch.Tensor,
                  class_w: torch.Tensor, train: bool,
-                 generator: Optional[torch.Generator] = None
+                 generator: Optional[torch.Generator] = None,
+                 denom=None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One forward of ``module`` (a logits module capturing
     ``reg_layers``; its training mode set by the caller) and the loss.
     Returns ``(loss, probs, per_example_total)``; ``class_w`` ``[C]``
-    weights the training loss only."""
+    weights the training loss only. ``denom`` is the loss's denominator
+    (default ``max(sum(mask), 1)``; the global batch's under data
+    parallelism)."""
     out = module(x, generator=generator)
     logits, caps = out if reg_layers else (out, {})
     logits = logits.to(torch.float32)
@@ -55,19 +65,22 @@ def forward_loss(module: torch.nn.Module, reg_layers: Sequence[str],
     for name, lam in zip(reg_layers, reg_lambdas):
         a = caps[name].to(torch.float32)
         per_ex = per_ex + lam * (a * a).sum(dim=tuple(range(1, a.ndim)))
-    loss = (per_ex * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    if denom is None:
+        denom = torch.clamp(mask.sum(), min=1.0)
+    loss = (per_ex * mask).sum() / denom
     return loss, torch.softmax(logits, dim=-1), per_ex
 
 
 def prepare_images(preprocess_fn: Callable, aug_params: Optional[Dict],
                    compute_dtype: torch.dtype, images: torch.Tensor,
-                   generator: Optional[torch.Generator]) -> torch.Tensor:
+                   generator: Optional[torch.Generator],
+                   shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
     """A uint8 training batch -> augmented (when ``aug_params``) and
     normalized model input in ``compute_dtype`` (the reference's
-    augment-then-scale order)."""
+    augment-then-scale order); ``shard`` as :func:`augment_batch`'s."""
     x = images.to(torch.float32)
     if aug_params:
-        x = augment_batch(x, generator, **aug_params)
+        x = augment_batch(x, generator, shard=shard, **aug_params)
     return preprocess_fn(x).to(compute_dtype)
 
 
@@ -82,12 +95,15 @@ def eval_images(spec: ModelSpec, images: torch.Tensor,
 
 def stacked_parts(generators: Sequence[torch.Generator], batch: int,
                   hw: Tuple[int, int], device: torch.device,
-                  aug_params: Dict) -> Parts:
+                  aug_params: Dict, shard: Tuple[int, int] = (0, 1)) -> Parts:
     """The augmentation parts of F trials' batches, trial t's drawn from
     ``generators[t]`` (CPU generators: the draws are made on the host and
-    go over in one copy per part), concatenated to ``[F * batch]``."""
-    parts = [sample_parts(g, batch, hw, torch.device("cpu"), **aug_params)
-             for g in generators]
+    go over in one copy per part), concatenated to ``[F * batch]``; with
+    ``shard`` each trial's batch is that shard of its global batch."""
+    parts = [sample_parts(g, batch * shard[1], hw, torch.device("cpu"),
+                          **aug_params) for g in generators]
+    if shard[1] > 1:
+        parts = [shard_parts(p, shard) for p in parts]
     return Parts(*(torch.cat(p).to(device) for p in zip(*parts)))
 
 

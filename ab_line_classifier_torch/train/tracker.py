@@ -24,6 +24,8 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
+from ab_line_classifier_torch.parallel.mesh import is_main
+
 
 def _jsonable(v):
     try:
@@ -207,10 +209,11 @@ def make_tracker(cfg, *, run_name: Optional[str] = None,
                  group: Optional[str] = None, job_type: str = "train"):
     """The tracker ``TRACKER.BACKEND`` selects (default local). A W&B or
     TensorBoard backend that cannot start (its package does not import)
-    says why and tracks locally."""
+    says why and tracks locally. Under a process group only rank 0
+    tracks: the other ranks get a :class:`NullTracker`."""
     tcfg = cfg.get("TRACKER", {}) or {}
     backend = str(tcfg.get("BACKEND", "local")).lower()
-    if backend == "none":
+    if backend == "none" or not is_main():
         return NullTracker()
     if backend == "wandb":
         try:

@@ -30,12 +30,17 @@ import torch
 def trace(log_dir: str = "results/logs/profiles"):
     """Profile the region with ``torch.profiler`` (CPU activity, and CUDA
     activity when a GPU is present) and write it as a Chrome trace
-    ``trace_<timestamp>.json`` in ``log_dir``; yields that path."""
+    ``trace_<timestamp>.json`` in ``log_dir`` (``trace_<timestamp>_rank<r>
+    .json``, one a rank, under a process group); yields that path."""
     from torch.profiler import ProfilerActivity, profile
 
+    from ab_line_classifier_torch.parallel import mesh as mesh_lib
+
     os.makedirs(log_dir, exist_ok=True)
-    path = os.path.join(log_dir, datetime.datetime.now().strftime(
-        "trace_%Y%m%d-%H%M%S.json"))
+    name = datetime.datetime.now().strftime("trace_%Y%m%d-%H%M%S")
+    if mesh_lib.world_size() > 1:
+        name += f"_rank{mesh_lib.rank()}"
+    path = os.path.join(log_dir, name + ".json")
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)

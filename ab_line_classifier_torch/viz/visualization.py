@@ -7,7 +7,8 @@ the reference's file contract. Curves and matrices come from
 ``predict/metrics.py`` (numpy), not sklearn.
 
 matplotlib is imported by the function that draws, with the ``Agg``
-backend, so the package imports where matplotlib is not installed.
+backend, so the package imports where matplotlib is not installed. Under
+a process group rank 0 alone writes the PNGs.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import os
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+
+from ab_line_classifier_torch.parallel.mesh import is_main
 
 
 def _ts() -> str:
@@ -32,8 +35,9 @@ def _pyplot():
 
 def _save(fig, dir_path: Optional[str], name: str):
     """Write ``fig`` as ``<dir_path>/<name>_<timestamp>.png`` and close it,
-    when ``dir_path`` is given. Returns the figure."""
-    if dir_path:
+    when ``dir_path`` is given (rank 0 alone under a process group).
+    Returns the figure."""
+    if dir_path and is_main():
         os.makedirs(dir_path, exist_ok=True)
         fig.savefig(os.path.join(dir_path, f"{name}_{_ts()}.png"), dpi=120)
         _pyplot().close(fig)

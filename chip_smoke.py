@@ -193,11 +193,37 @@ no result):
    the data's counts); ``publish_all`` with every ``WANDB.LOGGING`` flag.
    The stand-in ``wandb`` module is in ``sys.modules`` for this phase only.
 
-The last three lines of standard output are a JSON line of phases 15-18's
+19. multi-device — the mesh of ``parallel/mesh.py`` at world size 1 under
+   NCCL (a ``TCPStore`` on 127.0.0.1, the collectives run once on the
+   card): cutoffvgg16 (full width, mixed precision, phase 5's weights)
+   through 3 data-parallel steps at global batch 256 and an eval step on a
+   ``(1, 1)`` mesh, against the mesh-free ``Trainer`` by the train-step
+   rule (cuDNN deterministic), and 2048 frames of 480x640 through
+   ``Predictor(mesh=)``, ``torch.equal`` to the mesh-free ``Predictor``;
+   then two ranks sharing cuda:0 under gloo (this script run as
+   ``--md-rank R PORT OUT``, spawned by ``parallel/multihost.py::
+   spawn_ranks`` with one deadline): one cutoffvgg16 step at global 256
+   (128 a rank) against one process by the train-step rule; one float32
+   cnn0 step (config.yml's widths, its batch norms over the data group,
+   dropout on) at global 256 in class order against one process, the
+   parameters by the train-step rule and the running statistics within
+   1e-3 of their move, with a control (rank 0's rows alone) that must be
+   off by 10 times that; a gather of 2048 frames from the cache split
+   over the two ranks bit-equal to the whole cache's; the 2048 frames
+   served over the ``(1, 2)`` mesh (every frame distinct) bit-equal to
+   one process serving at batch 1024 (a rank's forward shape), and unequal
+   with the ranks' rows swapped; a float32 mobilenetv2 LR search
+   of 4 trials over ``TRIAL`` 2 and a cnn0 one over ``DATA`` 2 (the
+   stacked batch norms' all-reduce under ``vmap``), each against one
+   process within 1e-3 relative; each rank prints its paths' wall times
+   and its B1 and B2 launches (both > 0).
+
+The last three lines of standard output are a JSON line of phases 15-19's
 summaries, a JSON line of per-kernel
 numbers (launches per path, ``training``, the trial-parallel, ``deploy``,
-``automask``, ``attribution``, ``export_roundtrip``, ``jpeg_training``
-and ``wandb_sweep`` paths included:
+``automask``, ``attribution``, ``export_roundtrip``, ``jpeg_training``,
+``wandb_sweep`` and the two ``multi_device`` paths included (the gloo
+path's summed over its ranks):
 the wrappers' counts,
 which tick once at a CUDA graph's capture; the kernel's runs in one
 replay of each latency graph, counted by the profiler, and the replays)
@@ -4114,6 +4140,493 @@ def phase_jpeg_wandb(smi, vgg_sd):
                       "sweep_s": sweep_s, "seconds": seconds}
 
 
+# Phase 19 (multi-device). The card is one H100, and NCCL refuses two ranks
+# on one device: the mesh runs at world size 1 under NCCL, and with two
+# ranks sharing cuda:0 under gloo (its CUDA collectives), each a
+# subprocess of this script (``--md-rank``) with one deadline for the pair.
+MD_BATCH = 256
+MD_STEPS = 3
+MD_SERVE = 2048
+MD_GATHER = 2048
+MD_TIMEOUT = 600
+
+
+def md_frames():
+    """The paths' inputs, the same in every process: a labelled training
+    batch, the serving frames (480x640, all distinct) and the cache's
+    frames (128x128)."""
+    images, labels = labelled_frames(MD_BATCH, seed=19)
+    frames480, cache = host_frames(7, MD_SERVE, MD_GATHER)
+    # host_frames tiles 512 frames; each tile XOR'd with its own byte makes
+    # every served frame distinct, so a row served to another row's place
+    # shows in the probabilities.
+    frames480 ^= ((np.arange(MD_SERVE) // 512 * 73) % 256).astype(
+        np.uint8)[:, None, None, None]
+    return images, labels, frames480, cache
+
+
+def md_trainer(spec, sd, mesh, dtype=torch.bfloat16, aug=True):
+    from ab_line_classifier_torch import graph as G
+    from ab_line_classifier_torch.predict.benchmark import TRAIN_AUG
+    from ab_line_classifier_torch.train.loop import Trainer
+
+    tr = Trainer(spec, aug_config=TRAIN_AUG if aug else None, seed=19,
+                 compute_dtype=dtype, device="cuda", mesh=mesh)
+    if dtype == torch.float64:
+        # Batch norms keep float32 through casts; in float64 they take
+        # float64 inputs, so their tensors are made float64 here.
+        for m in tr.module.modules():
+            if isinstance(m, G.BatchNorm):
+                for p in m.parameters(recurse=False):
+                    p.data = p.data.double()
+                for n, b in list(m.named_buffers(recurse=False)):
+                    setattr(m, n, b.double())
+    tr.begin_phase(0, spec.phases[0], sd)
+    return tr
+
+
+def md_cnn0(images, labels):
+    """cnn0 at config.yml's widths (its batch norms train, its head drops
+    out), its seeded initial state, and the batch-norm step's global
+    batch: the training batch in class order, so each rank's half has
+    other statistics than the whole (class 1 frames are ~30 gray levels
+    brighter) and statistics taken per rank would show."""
+    from ab_line_classifier_torch.models import build_model
+    from ab_line_classifier_torch.predict.benchmark import ZOO_HPARAMS
+    from ab_line_classifier_torch.train.loop import Trainer
+
+    spec = build_model("cnn0", ZOO_HPARAMS["cnn0"], OUT_HW + (3,), 2)
+    init = Trainer(spec, seed=19, device="cuda").state()
+    order = np.argsort(labels, kind="stable")
+    return spec, init, images[order], labels[order]
+
+
+def md_one_step(spec, sd, images, labels, dtype, aug=True):
+    """The state after one mesh-free step, and the step's gradients
+    (float64, on the CPU)."""
+    tr = md_trainer(spec, sd, None, dtype, aug)
+    md_step(tr, images, labels, None)
+    grads = {k: p.grad.detach().double().cpu()
+             for k, p in tr.module.named_parameters() if p.grad is not None}
+    return tr.state(), grads
+
+
+def md_bn_rel(got, ref, init):
+    """The batch norms' running statistics after a step: the largest
+    difference of ``got``'s from ``ref``'s over the largest move of
+    ``ref``'s, taken per tensor."""
+    return max(float((got[k] - ref[k]).abs().max())
+               / float((ref[k] - init[k].float()).abs().max())
+               for k in ref if k.endswith(("running_mean", "running_var")))
+
+
+def md_step(tr, images, labels, mesh):
+    """One training step of ``tr`` on this rank's rows of the global batch
+    (all of it without a mesh)."""
+    from ab_line_classifier_torch.ops import metrics as M
+    from ab_line_classifier_torch.parallel import mesh as mesh_lib
+
+    rows = mesh_lib.batch_sharding(mesh, len(labels))
+    mask = torch.ones(len(labels))[rows].cuda()
+    tr.train_step(torch.as_tensor(images[rows]).cuda(),
+                  torch.as_tensor(labels[rows]).cuda(), mask,
+                  M.init_metrics(2, device="cuda"), denom=float(len(labels)))
+
+
+def md_sweep_config(root, mesh_shape=None, model="mobilenetv2"):
+    """Phase 13's LR search (4 trials, one epoch) of ``model``
+    (mobilenetv2, or cnn0 over the same space) in float32, on
+    ``PARALLEL.MESH`` ``mesh_shape`` (data, trial) when given."""
+    from ab_line_classifier_torch.predict.benchmark import ZOO_HPARAMS
+
+    cfg = experiment_config(root, model, "hparam_search").replace(
+        TRAIN={"MIXED_PRECISION": False},
+        HPARAMS={"CNN0": ZOO_HPARAMS["cnn0"]},
+        HPARAM_SEARCH={"CNN0": MBV2_SEARCH})
+    if mesh_shape:
+        cfg = cfg.replace(PARALLEL={"MESH": {"DATA": mesh_shape[0],
+                                             "TRIAL": mesh_shape[1]}})
+    return cfg
+
+
+def md_sweep_source():
+    from ab_line_classifier_torch.data.pipeline import FrameArrays
+    from ab_line_classifier_torch.data.splits import FoldSet
+    from ab_line_classifier_torch.train import experiment as E
+
+    n = EXP_PATIENTS * EXP_FRAMES_PER_PATIENT
+    images, labels = labelled_frames(n, seed=12)
+    patients = np.repeat(np.arange(EXP_PATIENTS), EXP_FRAMES_PER_PATIENT)
+    folds = grouped_folds(patients, EXP_FOLDS, 0.1, seed=42)
+    frames = FrameArrays(images, labels, [f"frame{i:04d}.png"
+                                          for i in range(n)])
+    return E.FoldSource(frames, FoldSet(*([p] for p in folds.fold(0))))
+
+
+def md_rank(rank, port, out):
+    """Rank ``rank`` of phase 19's pair on cuda:0 under gloo: one
+    cutoffvgg16 step at global batch 256 on a (1, 2) mesh, one float32
+    cnn0 step there (batch norms over the data group), a sharded-cache
+    gather of 2048 frames against the replicated cache's, serving 2048
+    frames over the two ranks, a mobilenetv2 LR search of 4 trials over
+    TRIAL 2 and a cnn0 one over DATA 2; each path's wall time and this
+    rank's B1 and B2 launches printed; rank 0 saves the results."""
+    sys.path.insert(0, REPO)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    import torch.distributed as dist
+
+    from ab_line_classifier_torch.data.pipeline import (
+        DeviceCachedDataset, ShardedDeviceCachedDataset)
+    from ab_line_classifier_torch.ops import depthwise_cuda as DC
+    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+    from ab_line_classifier_torch.parallel import mesh as mesh_lib
+    from ab_line_classifier_torch.predict.benchmark import build_flagship
+    from ab_line_classifier_torch.predict.predict import Predictor
+    from ab_line_classifier_torch.train import experiment as E
+    from ab_line_classifier_torch.utils.jax_params import state_dict_from_flax
+
+    dev = mesh_lib.init_process_group(
+        "cuda:0", backend="gloo", init_method=f"tcp://127.0.0.1:{port}",
+        world=2, rank_=rank, timeout=MD_TIMEOUT)
+    try:
+        vgg = build_flagship(OUT_HW)
+        vgg_sd = state_dict_from_flax(serving_weights(vgg))
+        images, labels, frames480, cache = md_frames()
+        source = md_sweep_source()
+        seconds = {}
+        PC.reset_launch_count()
+        DC.reset_launch_count()
+
+        t0 = time.perf_counter()
+        mesh = mesh_lib.make_mesh(n_data=2, n_trial=1, device=dev)
+        tr = md_trainer(vgg, vgg_sd, mesh)
+        md_step(tr, images, labels, mesh)
+        torch.cuda.synchronize()
+        seconds["train_step"] = time.perf_counter() - t0
+        state = tr.state()
+        del tr
+
+        t0 = time.perf_counter()
+        cnn, cnn_init, bn_images, bn_labels = md_cnn0(images, labels)
+        tr = md_trainer(cnn, cnn_init, mesh, torch.float32, aug=False)
+        md_step(tr, bn_images, bn_labels, mesh)
+        torch.cuda.synchronize()
+        seconds["bn_step"] = time.perf_counter() - t0
+        bn_state = tr.state()
+        del tr
+
+        t0 = time.perf_counter()
+        sharded = ShardedDeviceCachedDataset.from_arrays(
+            cache, np.zeros(MD_GATHER, np.int64), dev, mesh)
+        idx = np.random.RandomState(3).permutation(MD_GATHER)
+        got, _ = sharded.gather(idx)
+        torch.cuda.synchronize()
+        seconds["sharded_gather"] = time.perf_counter() - t0
+        whole = DeviceCachedDataset.from_arrays(
+            cache, np.zeros(MD_GATHER, np.int64), dev)
+        gather_equal = bool(torch.equal(got, whole.gather(idx)[0]))
+        shard_rows = int(sharded.frames.shape[0])
+        del sharded, whole, got
+
+        t0 = time.perf_counter()
+        pred = Predictor(vgg, vgg_sd, batch_size=MAIN_BATCH,
+                         compute_dtype=torch.bfloat16, device=dev, mesh=mesh)
+        probs = pred.predict_probs(frames480)
+        torch.cuda.synchronize()
+        seconds["serving"] = time.perf_counter() - t0
+        del pred
+
+        t0 = time.perf_counter()
+        cfg = md_sweep_config(os.path.join(REPO, "build", "phase19",
+                                           "sweep_pair"), (1, 2))
+        sweep = E.lr_search_parallel(
+            cfg, verbose=False, device=dev, source=source,
+            mesh=mesh_lib.mesh_from_config(cfg, dev))
+        torch.cuda.synchronize()
+        seconds["lr_search"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        cfg = md_sweep_config(os.path.join(REPO, "build", "phase19",
+                                           "bn_sweep_pair"), (2, 1), "cnn0")
+        bn_sweep = E.lr_search_parallel(
+            cfg, verbose=False, device=dev, source=source,
+            mesh=mesh_lib.mesh_from_config(cfg, dev))
+        torch.cuda.synchronize()
+        seconds["bn_lr_search"] = time.perf_counter() - t0
+        launches = (PC.launch_count, DC.launch_count)
+        print(json.dumps({"rank": rank, "seconds": seconds,
+                          "preprocess_launches": launches[0],
+                          "depthwise_launches": launches[1],
+                          "depthwise_copies": DC.copy_count,
+                          "shard_rows": shard_rows,
+                          "gather_bit_equal": gather_equal}), flush=True)
+        gathered = mesh_lib.fetch(torch.tensor([launches], device="cpu"))
+        if rank == 0:
+            torch.save({"state": state, "probs": probs,
+                        "bn_state": bn_state,
+                        "history": sweep["history"],
+                        "trials": sweep["trials"],
+                        "best_params": sweep["best_params"],
+                        "bn_trials": bn_sweep["trials"],
+                        "bn_best_params": bn_sweep["best_params"],
+                        "launches": gathered.tolist()}, out)
+        if not gather_equal or min(launches) == 0 or DC.copy_count:
+            raise AssertionError(f"rank {rank}: gather equal {gather_equal},"
+                                 f" launches {launches}, depthwise copies "
+                                 f"{DC.copy_count}")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def md_rule(name, got, want, g64, lr):
+    """The train-step rule: an element whose float64 gradient is above
+    G_FLAT and above 0.1 of its tensor's RMS within 1e-2 of lr, every
+    element within twice the step, a tensor that does not train
+    bit-equal. Returns (largest difference, largest held difference over
+    lr, elements held)."""
+    big = held_err = 0.0
+    n_held = 0
+    for k, w in want.items():
+        d = (got[k].float() - w.float()).abs()
+        big = max(big, float(d.max()))
+        if k not in g64:
+            if not torch.equal(got[k], w):
+                raise AssertionError(f"{name}: {k} moved without a gradient")
+            continue
+        g = g64[k].abs()
+        held = (g > G_FLAT) & (g > 0.1 * g.square().mean().sqrt())
+        n_held += int(held.sum())
+        if held.any():
+            held_err = max(held_err, float(d[held].max()) / lr)
+        if float(d.max()) > 2 * lr + 1e-7:
+            raise AssertionError(f"{name}: {k} apart by {float(d.max())}")
+    if held_err > 1e-2 or n_held == 0:
+        raise AssertionError(f"{name}: held updates {held_err:.3e} of lr "
+                             f"({n_held} held)")
+    return big, held_err, n_held
+
+
+def phase_multi_device(smi, vgg_sd):
+    """Phase 19 (module docstring). Returns each path's (B1, B2) launches
+    and the phase's numbers."""
+    import datetime
+    import shutil
+
+    import torch.distributed as dist
+
+    from ab_line_classifier_torch.ops import depthwise_cuda as DC
+    from ab_line_classifier_torch.ops import metrics as M
+    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+    from ab_line_classifier_torch.parallel import mesh as mesh_lib
+    from ab_line_classifier_torch.parallel.multihost import (free_port,
+                                                             spawn_ranks)
+    from ab_line_classifier_torch.predict.benchmark import build_flagship
+    from ab_line_classifier_torch.predict.predict import Predictor
+    from ab_line_classifier_torch.train import experiment as E
+
+    t_phase = time.perf_counter()
+    root = os.path.join(REPO, "build", "phase19")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    vgg = build_flagship(OUT_HW)
+    images, labels, frames480, _ = md_frames()
+    lr = vgg.phases[0].lr
+    launches, numbers = {}, {"seconds": {}}
+    # The ranks' numerics: cuDNN deterministic, no TF32.
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        # Mesh-free references, outside the counted runs.
+        ref = md_trainer(vgg, vgg_sd, None)
+        for _ in range(MD_STEPS):
+            md_step(ref, images, labels, None)
+        ref_steps = ref.state()
+        del ref
+        ref_one, _ = md_one_step(vgg, vgg_sd, images, labels, torch.bfloat16)
+        _, g64 = md_one_step(vgg, vgg_sd, images, labels, torch.float64)
+        cnn, cnn_init, bn_images, bn_labels = md_cnn0(images, labels)
+        bn_ref, _ = md_one_step(cnn, cnn_init, bn_images, bn_labels,
+                                torch.float32, aug=False)
+        _, bn_g64 = md_one_step(cnn, cnn_init, bn_images, bn_labels,
+                                torch.float64, aug=False)
+        # The control: one process on rank 0's rows alone, the running
+        # statistics that batch norms taking each rank's own rows give.
+        half = MD_BATCH // 2
+        bn_ctrl, _ = md_one_step(cnn, cnn_init, bn_images[:half],
+                                 bn_labels[:half], torch.float32, aug=False)
+        ref_probs = Predictor(vgg, vgg_sd, batch_size=MAIN_BATCH,
+                              compute_dtype=torch.bfloat16,
+                              device="cuda").predict_probs(frames480)
+        # Each rank's forward has this batch's shape (cuDNN picks its
+        # kernels by shape), so the two ranks' gather must equal it.
+        ref_probs_rank = Predictor(
+            vgg, vgg_sd, batch_size=MAIN_BATCH // 2,
+            compute_dtype=torch.bfloat16,
+            device="cuda").predict_probs(frames480)
+        ref_sweep = E.lr_search_parallel(
+            md_sweep_config(os.path.join(root, "sweep_one")), verbose=False,
+            device="cuda", source=md_sweep_source())
+        ref_bn_sweep = E.lr_search_parallel(
+            md_sweep_config(os.path.join(root, "bn_sweep_one"),
+                            model="cnn0"),
+            verbose=False, device="cuda", source=md_sweep_source())
+
+        # (a) World size 1 under NCCL, a (1, 1) mesh.
+        port = free_port()
+        store = dist.TCPStore("127.0.0.1", port, 1, True)
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=300))
+        try:
+            probe = torch.arange(4.0, device="cuda")
+            dist.all_reduce(probe)
+            dist.broadcast(probe, 0)
+            parts = [torch.empty_like(probe)]
+            dist.all_gather(parts, probe)
+            mesh = mesh_lib.make_mesh(1, 1, device="cuda")
+            PC.reset_launch_count()
+            DC.reset_launch_count()
+            t0 = time.perf_counter()
+            tr = md_trainer(vgg, vgg_sd, mesh)
+            for _ in range(MD_STEPS):
+                md_step(tr, images, labels, mesh)
+            metrics = M.init_metrics(2, device="cuda")
+            tr.eval_step(torch.as_tensor(images).cuda(),
+                         torch.as_tensor(labels).cuda(),
+                         torch.ones(MD_BATCH, device="cuda"), metrics)
+            M.reduce_metrics(metrics, tr.data_group)
+            torch.cuda.synchronize()
+            numbers["seconds"]["nccl_steps"] = time.perf_counter() - t0
+            got_steps = tr.state()
+            del tr
+            t0 = time.perf_counter()
+            probs = Predictor(vgg, vgg_sd, batch_size=MAIN_BATCH,
+                              compute_dtype=torch.bfloat16, device="cuda",
+                              mesh=mesh).predict_probs(frames480)
+            numbers["seconds"]["nccl_serving"] = time.perf_counter() - t0
+            launches["multi_device_nccl"] = (PC.launch_count,
+                                             DC.launch_count)
+        finally:
+            dist.destroy_process_group()
+        big, held, n_held = md_rule("world size 1", got_steps, ref_steps,
+                                    g64, lr)
+        equal = np.array_equal(probs, ref_probs)
+        print(f"(a) NCCL world size 1, mesh (1, 1), {smi}: the collectives "
+              f"ran on the card; {MD_STEPS} cutoffvgg16 steps at global "
+              f"batch {MD_BATCH} against the mesh-free Trainer: largest "
+              f"difference {big:.3e} (held {n_held} elements within "
+              f"{held:.3e} of lr); {MD_SERVE} frames of 480x640 served "
+              f"{'torch.equal' if equal else 'DIFFERENT'} to the mesh-free "
+              f"Predictor; {numbers['seconds']['nccl_steps']:.3f} s steps "
+              f"+ eval, {numbers['seconds']['nccl_serving']:.3f} s serving;"
+              f" launches B1 {launches['multi_device_nccl'][0]}, B2 "
+              f"{launches['multi_device_nccl'][1]}", flush=True)
+        if not equal:
+            raise AssertionError("mesh serving differs at world size 1")
+
+        # (b) Two ranks on cuda:0 under gloo.
+        out = os.path.join(root, "pair.pt")
+        t0 = time.perf_counter()
+        outs = spawn_ranks(lambda r, p: [
+            sys.executable, os.path.join(REPO, "chip_smoke.py"), "--md-rank",
+            str(r), str(p), out], 2, timeout=MD_TIMEOUT)
+        numbers["seconds"]["gloo_pair_wall"] = time.perf_counter() - t0
+        per_rank = [json.loads([ln for ln in o.splitlines()
+                                if ln.startswith('{"rank"')][-1])
+                    for o in outs]
+        for r in per_rank:
+            print(f"(b) gloo rank {r['rank']} on cuda:0: seconds "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in r["seconds"].items())
+                  + f"; B1 launches {r['preprocess_launches']}, B2 "
+                  f"{r['depthwise_launches']} (copies "
+                  f"{r['depthwise_copies']}); sharded cache {r['shard_rows']}"
+                  f" of {MD_GATHER} rows, gather bit-equal "
+                  f"{r['gather_bit_equal']}", flush=True)
+        res = torch.load(out, weights_only=False)
+        launches["multi_device_gloo"] = tuple(
+            int(sum(c)) for c in zip(*res["launches"]))
+        big, held, n_held = md_rule("two ranks", res["state"], ref_one, g64,
+                                    lr)
+        serve_equal = np.array_equal(res["probs"], ref_probs_rank)
+        serve_err = float(np.abs(res["probs"] - ref_probs_rank).max())
+        # What a gather that swapped the ranks' rows would give.
+        h = MAIN_BATCH // 2
+        swapped = np.concatenate([ref_probs_rank[h:MAIN_BATCH],
+                                  ref_probs_rank[:h],
+                                  ref_probs_rank[MAIN_BATCH:]])
+        swap_err = float(np.abs(res["probs"] - swapped).max())
+        print(f"(b) one step at global {MD_BATCH} ({MD_BATCH // 2} a rank) "
+              f"against one process: largest difference {big:.3e}, held "
+              f"{n_held} elements within {held:.3e} of lr (bar 1e-2); "
+              f"serving over (1, 2) against one process at batch {h} (a "
+              f"rank's forward): bit-equal {serve_equal}, max abs "
+              f"{serve_err:.3e}; the ranks' rows swapped would be off by "
+              f"{swap_err:.3e}", flush=True)
+        if not serve_equal or swap_err == 0:
+            raise AssertionError(f"two-rank serving off by {serve_err} "
+                                 f"(rows swapped: {swap_err})")
+        bn_params = {k: v for k, v in bn_ref.items()
+                     if not k.endswith(("running_mean", "running_var"))}
+        bn_big, bn_held, bn_n = md_rule("two ranks, cnn0",
+                                        res["bn_state"], bn_params, bn_g64,
+                                        cnn.phases[0].lr)
+        bn_rel = md_bn_rel(res["bn_state"], bn_ref, cnn_init)
+        bn_ctrl_rel = md_bn_rel(bn_ctrl, bn_ref, cnn_init)
+        print(f"(b) cnn0 float32 step at global {MD_BATCH} in class order, "
+              f"batch norms over the data group, against one process: "
+              f"parameters largest difference {bn_big:.3e}, held {bn_n} "
+              f"elements within {bn_held:.3e} of lr (bar 1e-2); running "
+              f"statistics off by {bn_rel:.3e} of their move (bar "
+              f"{F32_RTOL}); statistics of rank 0's rows alone would be "
+              f"off by {bn_ctrl_rel:.3e}", flush=True)
+        if bn_rel > F32_RTOL or bn_ctrl_rel < 10 * F32_RTOL:
+            raise AssertionError(f"batch-norm statistics over two ranks: "
+                                 f"{bn_rel} (control {bn_ctrl_rel})")
+        obj = [t["objective"] for t in res["trials"]]
+        want_obj = [t["objective"] for t in ref_sweep["trials"]]
+        sweep_err = max(abs(a - b) / abs(b) for a, b in zip(obj, want_obj))
+        print(f"(b) LR search, 4 mobilenetv2 trials over TRIAL 2 (2 a "
+              f"rank, float32) against one process: objectives {obj} vs "
+              f"{want_obj}, max relative {sweep_err:.3e} (bar {F32_RTOL}), "
+              f"best {res['best_params']} vs {ref_sweep['best_params']}",
+              flush=True)
+        if (sweep_err > F32_RTOL
+                or res["best_params"] != ref_sweep["best_params"]):
+            raise AssertionError("the two-rank LR search differs")
+        obj = [t["objective"] for t in res["bn_trials"]]
+        want_obj = [t["objective"] for t in ref_bn_sweep["trials"]]
+        bn_sweep_err = max(abs(a - b) / abs(b)
+                           for a, b in zip(obj, want_obj))
+        print(f"(b) LR search, 4 cnn0 trials over DATA 2 (each trial's "
+              f"batch norms over the data group, float32) against one "
+              f"process: objectives {obj} vs {want_obj}, max relative "
+              f"{bn_sweep_err:.3e} (bar {F32_RTOL}), best "
+              f"{res['bn_best_params']} vs {ref_bn_sweep['best_params']}",
+              flush=True)
+        if (bn_sweep_err > F32_RTOL
+                or res["bn_best_params"] != ref_bn_sweep["best_params"]):
+            raise AssertionError("the two-rank cnn0 LR search differs")
+        numbers.update(step_max_diff=big, serve_bit_equal=serve_equal,
+                       serve_max_abs=serve_err, serve_swapped_max_abs=swap_err,
+                       bn_step_max_diff=bn_big, bn_running_rel=bn_rel,
+                       bn_control_rel=bn_ctrl_rel, sweep_max_rel=sweep_err,
+                       bn_sweep_max_rel=bn_sweep_err, per_rank=per_rank)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    numbers["seconds"]["phase"] = time.perf_counter() - t_phase
+    print(f"phase 19: {numbers['seconds']['phase']:.1f} s", flush=True)
+    return launches, numbers
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an "
@@ -4271,6 +4784,11 @@ def main():
     phase("18 JPEG-fed training, pinned W&B split, W&B sweep, trackers")
     paths, jpeg_wandb = phase_jpeg_wandb(smi, vgg_sd)
     launches.update(paths)
+    torch.cuda.synchronize()
+
+    phase("19 multi-device: NCCL at world size 1, two gloo ranks on cuda:0")
+    paths, multi_device = phase_multi_device(smi, vgg_sd)
+    launches.update(paths)
 
     def graph_runs(kernel):
         """Runs on the card of ``kernel`` in one replay of each model's
@@ -4332,7 +4850,7 @@ def main():
         "attribution": {name: {k: v for k, v in a.items() if k != "stages"}
                         for name, a in attribution.items()},
         "export": exports, "dataset_creation_s": dataset_s,
-        "jpeg_wandb": jpeg_wandb}))
+        "jpeg_wandb": jpeg_wandb, "multi_device": multi_device}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -4341,4 +4859,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--md-rank"]:
+        sys.exit(md_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

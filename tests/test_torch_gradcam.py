@@ -22,6 +22,7 @@ import os
 import subprocess
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -266,3 +267,33 @@ def test_explain_cli_writes_a_png_per_frame(tmp_path):
     run("--frames", os.path.join("some", "dir", name))
     pngs = glob.glob(os.path.join(heatmaps, "heatmap_*.png"))
     assert len(pngs) == 1 and os.path.splitext(name)[0] in pngs[0]
+
+
+def test_tap_larger_than_heatmap_matches_jax():
+    """cnn0 at config.yml's stride 1 pads its first conv past the input
+    (a 34x34 tap of a 32x32 frame, the quickstart's model): the heatmap is
+    the tap downsampled as ``jax.image.resize`` does it (the triangle
+    kernel widened by the scale), within the module's tolerances of the
+    JAX package's."""
+    hp = dict(CNN0_HP, STRIDES=1)
+    shape = (32, 32, 3)
+    jax_spec = jax_build_model("cnn0", hp, shape, 2)
+    spec = build_model("cnn0", hp, shape, 2)
+    variables = jax_spec.init_variables(jax.random.PRNGKey(1))
+    d = _config(32, "cnn0")
+    frames = _frames(4, 32, seed=11)
+    want_p, want_c = jax_gradcam.GradCAMExplainer(
+        JaxConfig(d), spec=jax_spec, variables=variables).explain_frames(
+            frames)
+    explainer = gradcam.GradCAMExplainer(
+        Config(d), spec=spec, state_dict=state_dict_from_flax(variables),
+        device="cpu")
+    module = load_module(spec, state_dict_from_flax(variables), CPU)
+    _, caps = module(torch.zeros((1,) + shape), leaf=spec.last_conv_layer)
+    assert caps[spec.last_conv_layer].shape[1] > 32
+    got_p, got_c = explainer.explain_frames(frames)
+    assert got_c.shape == (4, 32, 32)
+    assert np.asarray(want_c).max() > 0.5
+    np.testing.assert_allclose(got_p, want_p, atol=PROB_ATOL)
+    np.testing.assert_allclose(got_c, np.asarray(want_c, np.float32),
+                               atol=CAM_ATOL)

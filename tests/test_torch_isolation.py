@@ -177,3 +177,44 @@ def test_loader_and_tracking_modules_are_covered():
         eval(roots))
     calls, unchanged = eval(built)
     assert calls == [] and unchanged
+
+
+def test_multi_device_modules_are_covered():
+    """The mesh, the multi-process launcher and dryruns, the quickstart
+    and the modules the mesh runs through are among the modules the
+    probe above imports; alone they load no JAX, the JAX package, cv2,
+    pandas, h5py, matplotlib, wandb or tensorboard, and importing them
+    starts no process group and no process."""
+    modules = ("parallel.mesh", "parallel.multihost", "quickstart",
+               "parallel.trial_parallel", "train.loop", "predict.predict",
+               "utils.resume", "data.pipeline")
+    probe = (
+        "import pkgutil, subprocess, sys, importlib\n"
+        "calls = []\n"
+        "real = subprocess.Popen.__init__\n"
+        "def spy(self, *a, **k):\n"
+        "    calls.append(a[0] if a else k.get('args'))\n"
+        "    return real(self, *a, **k)\n"
+        "subprocess.Popen.__init__ = spy\n"
+        "import ab_line_classifier_torch as p\n"
+        "names = {m.name for m in pkgutil.walk_packages(p.__path__, "
+        "'ab_line_classifier_torch.')}\n"
+        f"wanted = {['ab_line_classifier_torch.' + m for m in modules]}\n"
+        "print(sorted(set(wanted) - names))\n"
+        "for m in wanted:\n"
+        "    importlib.import_module(m)\n"
+        "import torch.distributed as dist\n"
+        "roots = {m.split('.')[0] for m in sys.modules}\n"
+        "roots |= {m for m in sys.modules if m.startswith("
+        "'torch.utils.tensorboard')}\n"
+        "print(sorted(roots))\n"
+        "print(repr((calls, dist.is_initialized())))\n")
+    r = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                       text=True, timeout=120, cwd=REPO_ROOT, env=cli_env())
+    assert r.returncode == 0, r.stderr[-2000:]
+    missing, roots, started = r.stdout.splitlines()[:3]
+    assert eval(missing) == []
+    assert not {"jax", "jaxlib", "ab_line_classifier_tpu", "cv2", "pandas",
+                "h5py", "matplotlib", "wandb", "tensorboard",
+                "torch.utils.tensorboard"} & set(eval(roots))
+    assert eval(started) == ([], False)

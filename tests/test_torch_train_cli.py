@@ -7,11 +7,11 @@ validation prediction tables locally, and saves a port checkpoint that
 ``--device cpu`` and without a GPU the command raises. Cross-validation
 and hyperparameter search run on the same workspace, and the local
 artifact store is read as the JAX package reads it; ``--trial-parallel``
-runs both experiments with every fold or trial at once; what waits for
-a later slice (a device mesh with a trial axis) raises
-``NotImplementedError``, a pinned W&B artifact without wandb raises the
-JAX package's ``ImportError``, and the W&B sweep backend reaches the
-sweep service where wandb imports.
+runs both experiments with every fold or trial at once;
+a device mesh with a trial axis at world size 1 trains every trial on
+the one device, as the JAX package does on one device; a pinned W&B
+artifact without wandb raises the JAX package's ``ImportError``, and the
+W&B sweep backend reaches the sweep service where wandb imports.
 """
 
 import glob
@@ -29,7 +29,8 @@ import yaml
 from conftest import REPO_ROOT, cli_env, derive_workspace_config
 
 from ab_line_classifier_tpu.data.synthetic import generate_dataset
-from ab_line_classifier_torch.config import load_config
+from ab_line_classifier_torch.config import Config, load_config
+from ab_line_classifier_torch.parallel.mesh import mesh_from_config
 from ab_line_classifier_torch.train.experiment import (resolve_datasets,
                                                        resolve_kfold_tables,
                                                        train_experiment)
@@ -115,19 +116,34 @@ def test_train_cli_raises_without_a_gpu(workspace):
 
 
 def test_later_slices_raise(workspace, tmp_path, monkeypatch):
-    """What still waits for a later slice raises: trial-parallel
-    experiments on a mesh with a trial axis (multi-device training). A
-    W&B artifact version pinned for the split or the folds that the store
-    does not hold is fetched, so without wandb it raises the JAX package's
-    ImportError; the W&B sweep backend, where wandb imports, registers a
-    sweep and hands it to the agent."""
+    """A trial axis at world size 1 is the JAX package's one device:
+    ``mesh_from_config`` gives no mesh (JAX ``parallel/mesh.py:71-83``)
+    and the trial-parallel experiments train every trial on the one
+    device, as without PARALLEL, bit for bit. A W&B artifact version
+    pinned for the split or the folds that the store does not hold is
+    fetched, so without wandb it raises the JAX package's ImportError; the
+    W&B sweep backend, where wandb imports, registers a sweep and hands it
+    to the agent."""
     ws, cfg_path = workspace
     cfg = load_config(cfg_path)
-    meshed = cfg.replace(PARALLEL={"MESH": {"DATA": 1, "TRIAL": 2}})
+    small = cfg.to_dict()
+    small["DATA"]["K_FOLD_VALIDATION_SPLIT"] = 0.3
+    small["TRAIN"].update({"N_FOLDS": 3, "EPOCHS": 1,
+                           "MIXED_PRECISION": False})
+    small["TRAIN"]["HPARAM_SEARCH"]["N_EVALS"] = 2
+    small["HPARAM_SEARCH"]["CUTOFFVGG16"] = {
+        "LR_EXTRACT": {"TYPE": "float_log", "RANGE": [1e-5, 1e-3]}}
+    small["PATHS"]["EXPERIMENTS"] = str(tmp_path / "experiments")
+    plain = Config(small)
+    meshed = plain.replace(PARALLEL={"MESH": {"DATA": 1, "TRIAL": 2}})
+    assert mesh_from_config(meshed) is None
     for experiment in ("cross_validation", "hparam_search"):
-        with pytest.raises(NotImplementedError, match="multi-device"):
-            train_experiment(meshed, experiment=experiment,
-                             trial_parallel=True, device="cpu")
+        got, want = (train_experiment(c, experiment=experiment,
+                                      trial_parallel=True, verbose=False,
+                                      device="cpu") for c in (meshed, plain))
+        if experiment == "hparam_search":
+            got, want = got["trials"], want["trials"]
+        assert got == want
     monkeypatch.setitem(sys.modules, "wandb", None)  # import raises
     pinned = cfg.replace_path("WANDB.TRAIN_VAL_TEST_ARTIFACT_VERSION", "v3")
     with pytest.raises(ImportError, match="wandb is not importable"):

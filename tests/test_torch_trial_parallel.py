@@ -22,6 +22,11 @@ statistics 1e-7 absolute plus 1e-5 relative, Adam's first moments within
 vmap's grouped conv and batched matmul, the stacked batch norm written out
 where the serial one calls ``F.batch_norm``). Freezes, resumes and the
 stacked depthwise path: bit for bit.
+
+On a device mesh (4 gloo ranks, ``PARALLEL.MESH`` TRIAL 2 x DATA 2,
+``tests/torch_ranks.py``) against one process: a stacked step by the
+train-step rule and the metrics' counts exact; a whole fit and the LR
+search within 1e-5 relative; the resume bit for bit.
 """
 
 import glob
@@ -759,3 +764,160 @@ def test_cross_validation_parallel_matches_jax(workspace, monkeypatch,
         np.testing.assert_allclose(
             np.array(pr[1:], float), np.array(jr[1:], float), rtol=1e-5,
             atol=1e-6)
+
+
+# -- the trial axis over a mesh: 4 gloo ranks, TRIAL 2 x DATA 2 ------------
+def _mesh_config(tmp):
+    d = derive_workspace_config(tmp, tmp + "/f.csv", tmp + "/c.csv", tmp)
+    d = _search_cfg(d, "cnn0", {"LR": {"TYPE": "float_log",
+                                       "RANGE": [1e-4, 1e-2]}},
+                    "epoch/val_loss", "minimize", 4)
+    d["TRAIN"].update({"BATCH_SIZE": BATCH, "PATIENCE": 10, "SEED": 3,
+                       "USE_PRETRAINED": False})
+    d["HPARAMS"]["CNN0"] = dict(HP)
+    d["PARALLEL"]["MESH"] = {"DATA": 2, "TRIAL": 2}
+    return d
+
+
+@pytest.fixture(scope="module")
+def mesh_ranks(tmp_path_factory):
+    """The mesh cases' inputs and rank 0's results
+    (``tests/torch_ranks.py::case_trial_parallel``)."""
+    from torch_ranks import run_ranks
+
+    tmp = str(tmp_path_factory.mktemp("trial_mesh"))
+    frames, labels, train, val = fold_data()
+    jax_spec = jax_build_model("cnn0", HP0, SHAPE, 2)
+    spec = build_model("cnn0", HP0, SHAPE, 2)
+    variables = trial_variables(jax_spec)
+    pt = tp.ParallelFoldTrainer(spec, 2, class_weights=CLASS_W, device="cpu")
+    params, buffers = port_stacked(pt, [state_dict_from_flax(v)
+                                        for v in variables])
+    images, lbs, msk = first_batch(frames, labels, train)
+    msk[1, -3:] = 0.0  # trial 1's batch ends in padding
+    inputs = {"hp": HP, "hp0": HP0, "aug": AUG, "cls_w": CLASS_W,
+              "stacked": {**params, **buffers}, "images": images,
+              "labels": lbs, "mask": msk, "frames": frames,
+              "frame_labels": labels, "train_idx": train, "val_idx": val,
+              "tmp": tmp, "cfg": _mesh_config(tmp)}
+    return inputs, variables, run_ranks("trial_parallel", 4, inputs, tmp)
+
+
+def test_mesh_stacked_step_matches_one_process(mesh_ranks):
+    """One stacked step on the (2, 2) mesh (each rank one trial and half
+    of its batch; batch norms over the trial's global batch; gradients
+    summed over the data pair) against the same step in one process:
+    parameters by the train-step rule (float64 gradients of each trial's
+    serial step), statistics within 1e-5 relative, every count of the
+    metrics exact."""
+    inputs, variables, res = mesh_ranks
+    np.testing.assert_array_equal(res["trials"], [0, 0, 1, 1])
+    spec = build_model("cnn0", HP0, SHAPE, 2)
+    pt = tp.ParallelFoldTrainer(spec, 2, class_weights=CLASS_W, device="cpu")
+    params, buffers = port_stacked(pt, [state_dict_from_flax(v)
+                                        for v in variables])
+    opt = pt.begin_phase(0, spec.phases[0], params)
+    metrics = M.init_metrics(2, trials=2)
+    pt.train_step(params, buffers, opt, torch.from_numpy(inputs["images"]),
+                  torch.from_numpy(inputs["labels"]).long(),
+                  torch.from_numpy(inputs["mask"]), np.ones(2), np.ones(2),
+                  metrics)
+    got = res["step"]
+    lr = spec.phases[0].lr
+    for t in range(2):
+        g64 = grads64(spec, variables[t], inputs["images"][t],
+                      inputs["labels"][t], inputs["mask"][t], CLASS_W[t])
+        mine = leaves(port_trial_tree(got["params"], got["buffers"], t))
+        want = leaves(port_trial_tree(params, buffers, t))
+        for key, w in want.items():
+            if key.startswith("batch_stats"):
+                np.testing.assert_allclose(mine[key], w, rtol=1e-5,
+                                           atol=1e-7, err_msg=key)
+                continue
+            tight = np.abs(g64[key.split("/", 1)[1]]) > G_FLAT
+            assert tight.any(), key
+            np.testing.assert_allclose(mine[key][tight], w[tight], rtol=0,
+                                       atol=1e-2 * lr + 1e-7, err_msg=key)
+            np.testing.assert_allclose(mine[key], w, rtol=0, atol=2 * lr,
+                                       err_msg=key)
+    for k, w in vars(metrics).items():
+        if k == "loss_sum":
+            torch.testing.assert_close(got["metrics"][k], w, rtol=1e-5,
+                                       atol=0)
+        else:
+            assert torch.equal(got["metrics"][k], w), k
+
+
+def test_mesh_fit_matches_one_process(mesh_ranks):
+    """A whole fit (augmentation and dropout on: each trial's global
+    batch's draws, each rank keeping its rows) on the (2, 2) mesh against
+    one process: every epoch's per-trial losses within 1e-5 relative (six
+    steps of float32 sums in another order: 1.6e-7 measured), the same
+    active flags, the weights within 1e-5 of their tensor's largest
+    (8.7e-7 measured)."""
+    inputs, _, res = mesh_ranks
+    spec = build_model("cnn0", HP, SHAPE, 2)
+    best, hist = tp.ParallelFoldTrainer(
+        spec, 2, class_weights=CLASS_W, aug_config=AUG, seed=3,
+        device="cpu").fit(inputs["frames"], inputs["frame_labels"],
+                          inputs["train_idx"], inputs["val_idx"],
+                          batch_size=BATCH, epochs=2, patience=10,
+                          verbose=False)
+    got_best, got_hist = res["fit"]
+    assert len(got_hist) == len(hist) == 2
+    for a, b in zip(got_hist, hist):
+        for key in ("train_loss", "val_loss"):
+            np.testing.assert_allclose(a[key], b[key], rtol=1e-5,
+                                       err_msg=key)
+        np.testing.assert_array_equal(a["active"], b["active"])
+    for part in ("params", "buffers"):
+        for k, v in best[part].items():
+            torch.testing.assert_close(
+                got_best[part][k], v, rtol=0,
+                atol=1e-5 * float(v.detach().abs().max()) + 1e-7, msg=k)
+
+
+def test_mesh_resume_is_bit_equal(mesh_ranks):
+    """On the mesh (JAX ``tests/test_trial_parallel.py:405-445``): the
+    checkpoint is gathered to all F trials and written by rank 0 alone,
+    into a directory only rank 0 has; every rank resumes from rank 0's
+    bytes, and the resumed fit lands bit for bit where the uninterrupted
+    one does, with the whole history."""
+    _, _, res = mesh_ranks
+    np.testing.assert_array_equal(res["ck_ranks"], [1, 0, 0, 0])
+    (full, hist_full), (resumed, hist_res) = res["fit"], res["resumed"]
+    assert [h["epoch"] for h in hist_res] == [0, 1]
+    for a, b in zip(hist_full, hist_res):
+        for key in ("val_loss", "train_loss", "active"):
+            np.testing.assert_array_equal(a[key], b[key])
+    for part in ("params", "buffers"):
+        for k, v in full[part].items():
+            assert torch.equal(v, resumed[part][k]), k
+
+
+def test_mesh_lr_search_matches_one_process(mesh_ranks):
+    """``lr_search_parallel`` with ``PARALLEL.MESH`` TRIAL 2 x DATA 2: 4
+    LR trials, 2 on each trial slice, the same candidates, per-trial
+    objectives within 1e-5 relative and the same winner as one process."""
+    from ab_line_classifier_torch.config import Config
+    from ab_line_classifier_torch.data.pipeline import FrameArrays
+    from ab_line_classifier_torch.data.splits import FoldSet
+    from ab_line_classifier_torch.train.experiment import (FoldSource,
+                                                           lr_search_parallel)
+
+    inputs, _, res = mesh_ranks
+    n = len(inputs["frame_labels"])
+    source = FoldSource(
+        FrameArrays(inputs["frames"], inputs["frame_labels"],
+                    [str(i) for i in range(n)]),
+        FoldSet([inputs["train_idx"][0]], [inputs["val_idx"][0]],
+                [inputs["val_idx"][0]]))
+    want = lr_search_parallel(Config(inputs["cfg"]), n_trials=4,
+                              verbose=False, device="cpu", source=source)
+    got = res["lr_search"]
+    assert len(got["trials"]) == 4
+    for a, b in zip(got["trials"], want["trials"]):
+        assert a["LR"] == b["LR"]
+        np.testing.assert_allclose(a["objective"], b["objective"],
+                                   rtol=1e-5)
+    assert got["best_params"] == want["best_params"]
