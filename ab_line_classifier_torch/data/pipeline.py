@@ -20,6 +20,14 @@ package's ``data/pipeline.py``), and the device-resident cache.
   of a zeroed uint8 batch and one uint8 ``all_reduce`` completes it,
   exactly, since one rank supplies each row.
 
+A graphed epoch (``train/graphed.py``, the JAX package's scanned epoch)
+uploads the epoch's index and mask tables once and gathers each step's
+batch from a device row of them (:meth:`DeviceCachedDataset.gather` of a
+device tensor; the sharded cache's one ``all_reduce`` under NCCL is
+captured with it). A streamed epoch's host batches go over through
+pinned buffers without a synchronizing copy (:class:`PinnedStaging`),
+one batch ahead of the step (:func:`drain_behind`).
+
 Under a mesh every rank iterates the same epoch, and ``batches(rows=)``
 hands it only its rows of each batch (the data-parallel trainer's and the
 serving path's shard), decoded or gathered for those rows alone.
@@ -294,6 +302,53 @@ def drain_behind(launched: Iterable, consume: Callable) -> None:
         consume(pending)
 
 
+class PinnedStaging:
+    """Host arrays to ``device`` without a synchronizing copy: on CUDA each
+    call's arrays go into one of ``slots`` pinned buffers, taken in turn,
+    and over with ``non_blocking=True``; a buffer is refilled only after
+    its previous copies have finished (an event recorded after them), so
+    the host never overwrites bytes in flight and runs at most ``slots``
+    copies ahead. On the CPU the arrays become tensors as they are."""
+
+    def __init__(self, device, slots: int = 2):
+        self.device = torch.device(device)
+        self._slots = [([], None) for _ in range(slots)]
+        self._next = 0
+
+    def __call__(self, *arrays, out: Optional[Sequence[torch.Tensor]] = None
+                 ) -> Tuple[torch.Tensor, ...]:
+        """Each of ``arrays`` on the device: new tensors, or copied into
+        ``out`` (device tensors of the arrays' shapes)."""
+        host = [torch.as_tensor(a) for a in arrays]
+        if self.device.type != "cuda":
+            if out is None:
+                return tuple(t.to(self.device) for t in host)
+            for o, t in zip(out, host):
+                o.copy_(t)
+            return tuple(out)
+        i = self._next
+        self._next = (i + 1) % len(self._slots)
+        bufs, event = self._slots[i]
+        if event is not None:
+            event.synchronize()
+        if [(b.shape, b.dtype) for b in bufs] != [(t.shape, t.dtype)
+                                                  for t in host]:
+            bufs = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                    for t in host]
+        for b, t in zip(bufs, host):
+            b.copy_(t)
+        if out is None:
+            res = tuple(b.to(self.device, non_blocking=True) for b in bufs)
+        else:
+            for o, b in zip(out, bufs):
+                o.copy_(b, non_blocking=True)
+            res = tuple(out)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        self._slots[i] = (bufs, event)
+        return res
+
+
 def epoch_index_table(n: int, batch_size: int, *, shuffle: bool = False,
                       seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
     """One epoch of ``n`` rows as a ``[n_batches, batch_size]`` row-index
@@ -363,7 +418,10 @@ class DeviceCachedDataset:
         """The frames and labels of rows ``idx``, on the device: ``idx`` of
         any shape (the trial-parallel trainer's ``[F, B]`` table) gives
         frames ``idx.shape + (H, W, 3)`` and labels ``idx.shape``, one
-        gather each."""
+        gather each. ``idx`` may be a device tensor, a row of an epoch's
+        table on the device (``train/graphed.py``): then nothing goes
+        over from the host, and the gather can be captured (the JAX
+        package's ``make_scan_gather``)."""
         rows = torch.as_tensor(idx, dtype=torch.int64).to(self.device)
         flat = rows.reshape(-1)
         return (self.frames.index_select(0, flat).view(

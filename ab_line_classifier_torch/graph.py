@@ -71,9 +71,11 @@ with ``-inf``); ``padding='same'`` in PyTorch refuses stride > 1.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, Iterator, List, Optional, Sequence,
+                    Tuple)
 
 import torch
 import torch.distributed as dist
@@ -514,6 +516,17 @@ class DepthwiseConv(nn.Module):
         return y
 
 
+def drop_packed_weights(module: nn.Module) -> None:
+    """Forget every :class:`DepthwiseConv`'s packed weight, so the next
+    forward packs anew. A CUDA graph's capture must record the packing
+    (its replays update the weight without the host seeing a new version),
+    and a pack made at a capture lives in the graph's memory, which later
+    replays overwrite."""
+    for m in module.modules():
+        if isinstance(m, DepthwiseConv):
+            m._packed = (None, None)
+
+
 def depthwise_conv2d(name: str, inp: str, channels: int,
                      kernel: Tuple[int, int],
                      strides: Tuple[int, int] = (1, 1), padding: str = "SAME",
@@ -712,6 +725,25 @@ class BatchNorm(_Float32State):
             var = _AllReduceSum.apply(
                 (xf - mean.view(shape)).square().sum(dims), self.group) / n
         return self._normalize(x, mean, var), mean, var
+
+
+@contextlib.contextmanager
+def buffers_in_place(module: nn.Module) -> Iterator[None]:
+    """Keep each buffer of ``module`` in the tensor that holds it now: a
+    layer that replaces a buffer inside the block (a training
+    :class:`BatchNorm` hands its running statistics on as new tensors,
+    since autograd holds the old ones) has the new values copied into the
+    old tensor at the end, and the old tensor put back. The values are the
+    same; a CUDA graph's step needs its state at fixed addresses."""
+    before = [(m, name, t) for m in module.modules()
+              for name, t in m._buffers.items() if t is not None]
+    yield
+    with torch.no_grad():
+        for m, name, old in before:
+            new = m._buffers.get(name)
+            if new is not old:
+                old.copy_(new)
+                m._buffers[name] = old
 
 
 def adapt_batch_norm(module: nn.Module, x: torch.Tensor) -> None:

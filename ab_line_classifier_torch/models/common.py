@@ -9,16 +9,21 @@ The optimizer plan, as the JAX package's optax one:
   the *uncorrected* second moment, ``p -= lr * m * sqrt(1 - b2^t) / (1 -
   b1^t) / (sqrt(v) + eps)``; ``torch.optim.Adam`` adds it to that of the
   corrected one.
-* **RMSprop**: rho 0.9, eps 1e-7 outside the square root (tf.keras 2.9,
-  which the reference pins): ``torch.optim.RMSprop(alpha=0.9, eps=1e-7)``.
-* **SGD**: ``p -= lr * g``.
+* **RMSprop** (:class:`RMSprop`): rho 0.9, eps 1e-7 outside the square
+  root (tf.keras 2.9, which the reference pins).
+* **SGD** (:class:`SGD`): ``p -= lr * g``.
 
 A layer frozen in a phase (``TrainPhase.trainable`` False) is left out of
 the optimizer and its parameters stop requiring grad: no update, no moment
 buffers, and autograd records nothing that only it needs (optax's
 ``set_to_zero`` plus XLA's dead-code elimination). The learning rate lives
 in the optimizer's ``param_groups``, where ReduceLROnPlateau scales it
-(:func:`scale_learning_rate`).
+(:func:`scale_learning_rate`), and in a device tensor beside it that the
+update reads (:class:`DeviceLROptimizer`); the step counts and Adam's bias
+correction (a table of its float32 host values, :func:`adam_alpha_table`)
+are read on the device too. So an optimizer step does no host work that a
+CUDA graph would freeze (``train/graphed.py``): optax's state, which the
+JAX package's scanned epoch carries, is device state here as well.
 
 :class:`StackedOptimizer` applies the same three rules to F trials'
 parameters stacked along a leading axis, each tensor once for all trials,
@@ -40,10 +45,101 @@ import torch.nn.functional as F
 from ab_line_classifier_torch import graph as G
 
 
-class KerasAdam(torch.optim.Optimizer):
+#: Keras Adam's bias correction ``alpha(t)`` by step, per ``(b1, b2)``.
+_ALPHA_TABLES: Dict[Tuple[float, float], np.ndarray] = {}
+_ALPHA_DEVICE: Dict[Tuple[float, float, torch.device], torch.Tensor] = {}
+
+
+def adam_alpha_table(b1: float = 0.9, b2: float = 0.999) -> np.ndarray:
+    """Keras Adam's bias correction ``sqrt(1 - b2^t) / (1 - b1^t)`` for t
+    = 0, 1, ..., T - 1 (entry 0 unused), each computed on the host in
+    numpy float32 scalars, as the one-step formula always computed it;
+    from T on both powers have rounded ``1 - b^t`` to 1, and every later
+    step's value is the last entry, 1.0 (:func:`adam_alpha` clamps the
+    step there). T is 17322 at the defaults."""
+    key = (float(b1), float(b2))
+    table = _ALPHA_TABLES.get(key)
+    if table is None:
+        one, fb1, fb2 = np.float32(1), np.float32(b1), np.float32(b2)
+        vals = [np.float32(0)]
+        t = 0
+        while True:
+            t += 1
+            ft = np.float32(t)
+            p1, p2 = fb1 ** ft, fb2 ** ft
+            vals.append(np.float32(np.sqrt(one - p2) / (one - p1)))
+            if one - p1 == one and one - p2 == one:
+                break
+        table = np.asarray(vals, np.float32)
+        _ALPHA_TABLES[key] = table
+    return table
+
+
+def adam_alpha(step: torch.Tensor, b1: float, b2: float) -> torch.Tensor:
+    """``alpha(step)`` of :func:`adam_alpha_table`, read on ``step``'s
+    device from the table kept there (uploaded once per device), for an
+    integer ``step`` tensor of any shape: a gather, no host value, so a
+    captured step reads each replay's own count."""
+    key = (float(b1), float(b2), step.device)
+    table = _ALPHA_DEVICE.get(key)
+    if table is None:
+        table = torch.as_tensor(adam_alpha_table(b1, b2)).to(step.device)
+        _ALPHA_DEVICE[key] = table
+    flat = step.reshape(-1).clamp(max=table.shape[0] - 1)
+    return table.index_select(0, flat).view(step.shape)
+
+
+class DeviceLROptimizer(torch.optim.Optimizer):
+    """An optimizer whose learning rate the update reads from the device.
+
+    ``param_groups`` keep each group's rate as a float, which
+    :func:`get_learning_rate`, :func:`scale_learning_rate` and the resume
+    files read; :meth:`sync_lr` mirrors each group's negated rate into a
+    float32 device tensor (``float32(-lr)``, what an ``alpha=-lr`` scalar
+    argument became), and the update multiplies by that tensor. A step
+    captured in a CUDA graph then follows a ReduceLROnPlateau cut with no
+    recapture. The step counts live on the device too."""
+
+    def __init__(self, params, defaults):
+        super().__init__(params, defaults)
+        self._neg_lr = [
+            torch.zeros((), dtype=torch.float32,
+                        device=(g["params"][0].device if g["params"]
+                                else None))
+            for g in self.param_groups]
+        self.sync_lr()
+
+    @torch.no_grad()
+    def sync_lr(self) -> None:
+        """Copy each group's float rate into its device tensor."""
+        for t, group in zip(self._neg_lr, self.param_groups):
+            t.fill_(-float(group["lr"]))
+
+    def load_state_dict(self, state_dict) -> None:
+        super().load_state_dict(state_dict)
+        for p, state in self.state.items():
+            if "step" in state:  # a count saved as an int or on the host
+                state["step"] = torch.as_tensor(
+                    state["step"], dtype=torch.int64).to(p.device)
+        self.sync_lr()
+
+    def _state(self, p: torch.Tensor, *slots: str) -> Dict:
+        """``p``'s state, made on its first step: a device step count and
+        zeroed ``slots``."""
+        state = self.state[p]
+        if not state:
+            state["step"] = torch.zeros((), dtype=torch.int64,
+                                        device=p.device)
+            for k in slots:
+                state[k] = torch.zeros_like(p)
+        return state
+
+
+class KerasAdam(DeviceLROptimizer):
     """Adam with Keras's epsilon placement (defaults b1 0.9, b2 0.999, eps
-    1e-7). The bias correction is computed in float32, as the JAX
-    package's optax transform computes it."""
+    1e-7). The bias correction is the float32 host value of the JAX
+    package's optax transform, read by step from a table on the device
+    (:func:`adam_alpha`)."""
 
     def __init__(self, params, lr: float, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-7):
@@ -51,25 +147,59 @@ class KerasAdam(torch.optim.Optimizer):
 
     @torch.no_grad()
     def step(self, closure=None):
-        for group in self.param_groups:
+        for group, neg_lr in zip(self.param_groups, self._neg_lr):
             b1, b2, eps = group["b1"], group["b2"], group["eps"]
             for p in group["params"]:
                 if p.grad is None:
                     continue
-                state = self.state[p]
-                if not state:
-                    state["step"] = 0
-                    state["m"] = torch.zeros_like(p)
-                    state["v"] = torch.zeros_like(p)
+                state = self._state(p, "m", "v")
                 g, m, v = p.grad, state["m"], state["v"]
                 state["step"] += 1
                 m.mul_(b1).add_(g, alpha=1.0 - b1)
                 v.mul_(b2).addcmul_(g, g, value=1.0 - b2)
-                t = np.float32(state["step"])
-                alpha = float(np.sqrt(np.float32(1) - np.float32(b2) ** t)
-                              / (np.float32(1) - np.float32(b1) ** t))
+                alpha = adam_alpha(state["step"], b1, b2)
                 update = (m * alpha) / (v.sqrt() + eps)
-                p.add_(update, alpha=-group["lr"])
+                p.addcmul_(update, neg_lr)
+
+
+class RMSprop(DeviceLROptimizer):
+    """RMSprop with tf.keras 2.9's rho 0.9 and eps 1e-7 outside the square
+    root, ``torch.optim.RMSprop(alpha=0.9, eps=1e-7)``'s arithmetic with
+    the rate on the device: ``square_avg = alpha * square_avg + (1 -
+    alpha) * g^2``, ``p += (g * -lr) / (sqrt(square_avg) + eps)``. The
+    decay keeps torch's name, ``alpha``, and the state torch's keys, so a
+    ``torch.optim.RMSprop`` state dict loads and steps on."""
+
+    def __init__(self, params, lr: float, alpha: float = 0.9,
+                 eps: float = 1e-7):
+        super().__init__(params, dict(lr=lr, alpha=alpha, eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group, neg_lr in zip(self.param_groups, self._neg_lr):
+            rho, eps = group["alpha"], group["eps"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self._state(p, "square_avg")
+                g, sq = p.grad, state["square_avg"]
+                state["step"] += 1
+                sq.mul_(rho).addcmul_(g, g, value=1.0 - rho)
+                p.addcdiv_(g * neg_lr, sq.sqrt().add_(eps))
+
+
+class SGD(DeviceLROptimizer):
+    """Plain SGD, ``p += g * -lr``, the rate on the device."""
+
+    def __init__(self, params, lr: float):
+        super().__init__(params, dict(lr=lr))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group, neg_lr in zip(self.param_groups, self._neg_lr):
+            for p in group["params"]:
+                if p.grad is not None:
+                    p.addcmul_(p.grad, neg_lr)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,10 +235,18 @@ def make_optimizer(phase: TrainPhase, module: torch.nn.Module
     if phase.optimizer == "adam":
         return KerasAdam(params, lr=phase.lr)
     if phase.optimizer == "rmsprop":
-        return torch.optim.RMSprop(params, lr=phase.lr, alpha=0.9, eps=1e-7)
+        return RMSprop(params, lr=phase.lr)
     if phase.optimizer == "sgd":
-        return torch.optim.SGD(params, lr=phase.lr)
+        return SGD(params, lr=phase.lr)
     raise ValueError(f"unknown optimizer {phase.optimizer!r}")
+
+
+def trial_vector(x, device) -> torch.Tensor:
+    """A per-trial ``[F]`` vector (a host array or a tensor) as float32 on
+    ``device``: the same values either way."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device, torch.float32)
+    return torch.as_tensor(np.asarray(x, np.float32)).to(device)
 
 
 class StackedOptimizer:
@@ -117,16 +255,17 @@ class StackedOptimizer:
     require grad and get moments, the frozen ones stop requiring grad.
 
     :meth:`step` takes each trial's learning-rate factor and active flag
-    (host arrays ``[F]``). Per element it computes what the one-trial
-    optimizer computes (Keras Adam, RMSprop, SGD; the same operations in
-    the same order), with the update multiplied by ``lr_factor * active``
-    before the learning rate: for a trial at factor 1 the result is the
-    one-trial optimizer's, and factor f is training at ``f * lr``, the
-    updates being linear in the rate. Where ``active`` is 0 the trial's
-    moments and step count keep their values (the parameters then move by
-    ``0 * update``: not at all). Keras Adam's bias correction takes each
-    trial's own step count, computed in float32 as :class:`KerasAdam`
-    does."""
+    (``[F]``, host arrays or float32 device tensors). Per element it
+    computes what the one-trial optimizer computes (Keras Adam, RMSprop,
+    SGD; the same operations in the same order), with the rate ``-lr``
+    multiplied by ``lr_factor * active`` first: for a trial at factor 1
+    the result is the one-trial optimizer's, bit for bit, and factor f is
+    training at ``f * lr``, the updates being linear in the rate. Where
+    ``active`` is 0 the trial's moments and step count keep their values
+    (the parameters then move by ``0 * update``: not at all). Keras Adam's
+    bias correction takes each trial's own step count (:func:`adam_alpha`).
+    The counts live on the device (:attr:`count` reads them back), and
+    ``lr`` is the phase's constant, so a step does no host work."""
 
     def __init__(self, phase: TrainPhase, params: Dict[str, torch.Tensor],
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-7):
@@ -141,66 +280,73 @@ class StackedOptimizer:
             p.requires_grad_(train)
             if train:
                 self.names.append(name)
-        n_trials = next(iter(params.values())).shape[0]
-        self.count = np.zeros(n_trials, np.int64)
+        first = next(iter(params.values()))
+        self._count = torch.zeros(first.shape[0], dtype=torch.int64,
+                                  device=first.device)
+        self._neg_lr = torch.full((), -self.lr, dtype=torch.float32,
+                                  device=first.device)
         slots = {"adam": ("m", "v"), "rmsprop": ("sq",), "sgd": ()}
         self.state = {name: {k: torch.zeros_like(params[name])
                              for k in slots[self.kind]}
                       for name in self.names}
 
+    @property
+    def count(self) -> np.ndarray:
+        """Each trial's step count (a host copy)."""
+        return self._count.cpu().numpy()
+
     @torch.no_grad()
-    def step(self, params: Dict[str, torch.Tensor], lr_factor: np.ndarray,
-             active: np.ndarray) -> None:
+    def step(self, params: Dict[str, torch.Tensor], lr_factor,
+             active) -> None:
         """One update of every trainable parameter from its ``.grad``."""
-        lr_factor = np.asarray(lr_factor, np.float32)
-        active = np.asarray(active, np.float32)
-        dev = params[self.names[0]].device if self.names else None
-        gate = torch.as_tensor(lr_factor * active).to(dev)
-        on = torch.as_tensor(active > 0).to(dev)
+        dev = self._count.device
+        active = trial_vector(active, dev)
+        on = active > 0
+        rate = trial_vector(lr_factor, dev) * active * self._neg_lr
         if self.kind == "adam":
-            t = (self.count + 1).astype(np.float32)
-            alpha = (np.sqrt(np.float32(1) - np.float32(self.b2) ** t)
-                     / (np.float32(1) - np.float32(self.b1) ** t))
-            alpha = torch.as_tensor(alpha.astype(np.float32)).to(dev)
+            alpha = adam_alpha(self._count + 1, self.b1, self.b2)
         for name in self.names:
             p, g, st = params[name], params[name].grad, self.state[name]
             if g is None:
                 continue
             shape = (-1,) + (1,) * (p.ndim - 1)
             keep = on.view(shape)
+            scale = rate.view(shape)
             if self.kind == "adam":
                 m = st["m"].mul(self.b1).add_(g, alpha=1.0 - self.b1)
                 v = st["v"].mul(self.b2).addcmul_(g, g, value=1.0 - self.b2)
                 update = (m * alpha.view(shape)) / (v.sqrt() + self.eps)
-                p.add_(update * gate.view(shape), alpha=-self.lr)
+                p.addcmul_(update, scale)
                 st["m"].copy_(torch.where(keep, m, st["m"]))
                 st["v"].copy_(torch.where(keep, v, st["v"]))
             elif self.kind == "rmsprop":
                 sq = st["sq"].mul(self.rho).addcmul_(g, g,
                                                      value=1.0 - self.rho)
-                avg = sq.sqrt().add_(self.eps)
-                p.addcdiv_(g * gate.view(shape), avg, value=-self.lr)
+                p.addcdiv_(g * scale, sq.sqrt().add_(self.eps))
                 st["sq"].copy_(torch.where(keep, sq, st["sq"]))
             else:
-                p.add_(g * gate.view(shape), alpha=-self.lr)
-        self.count += (active > 0).astype(np.int64)
+                p.addcmul_(g, scale)
+        self._count += on.to(torch.int64)
 
     def state_dict(self) -> Dict:
         return {"count": torch.as_tensor(self.count),
                 "state": {n: dict(s) for n, s in self.state.items()}}
 
     def load_state_dict(self, sd: Dict) -> None:
-        self.count = np.asarray(sd["count"], np.int64).copy()
+        self._count.copy_(torch.as_tensor(
+            np.asarray(sd["count"], np.int64)))
         for name, slots in sd["state"].items():
             for k, v in slots.items():
                 self.state[name][k].copy_(v)
 
 
-def scale_learning_rate(optimizer: torch.optim.Optimizer,
+def scale_learning_rate(optimizer: DeviceLROptimizer,
                         factor: float) -> None:
-    """Multiply the learning rate in place (ReduceLROnPlateau)."""
+    """Multiply the learning rate in place (ReduceLROnPlateau), on the
+    host and on the device."""
     for group in optimizer.param_groups:
         group["lr"] *= factor
+    optimizer.sync_lr()
 
 
 def get_learning_rate(optimizer: torch.optim.Optimizer) -> Optional[float]:

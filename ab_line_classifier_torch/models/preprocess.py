@@ -20,12 +20,20 @@ import torch
 
 # ImageNet channel means in BGR order (keras 'caffe' mode).
 CAFFE_MEAN_BGR = np.array([103.939, 116.779, 123.68], dtype=np.float32)
+# The means as a tensor, per (dtype, device): made once, so a training step
+# copies nothing from the host (a CUDA graph's capture cannot).
+_CAFFE_MEANS: Dict = {}
 
 
 def preprocess_caffe(x: torch.Tensor) -> torch.Tensor:
     """VGG16 preprocessing: RGB->BGR and zero-center by ImageNet BGR means."""
     x = x.flip(-1)
-    return x - torch.as_tensor(CAFFE_MEAN_BGR, dtype=x.dtype, device=x.device)
+    key = (x.dtype, x.device)
+    mean = _CAFFE_MEANS.get(key)
+    if mean is None:
+        mean = torch.as_tensor(CAFFE_MEAN_BGR, dtype=x.dtype).to(x.device)
+        _CAFFE_MEANS[key] = mean
+    return x - mean
 
 
 def preprocess_tf(x: torch.Tensor) -> torch.Tensor:

@@ -18,6 +18,10 @@ output row it touches (see the note at the top of the source). See
 layer to float32 ``[K, K, C]`` (:func:`pack_weight`). The output is NHWC
 memory, returned as the NCHW view, on PyTorch's current stream.
 :func:`launch_geometry` decides how the kernel's threads tile the output.
+A launch reads nothing back to the host and allocates only its output,
+so a CUDA graph's capture records it (``train/graphed.py``); a layer's
+packed weight is then packed inside the graph, and the backward stays
+the grouped conv's.
 """
 
 from __future__ import annotations
@@ -29,8 +33,10 @@ from typing import Tuple
 
 import torch
 
-#: Kernel launches since the last :func:`reset_launch_count`; only the
-#: launch site below adds to it.
+#: Kernel launches since the last :func:`reset_launch_count`; the launch
+#: site below adds to it, and ``ops/launches.py`` takes a CUDA graph's
+#: capture's calls back off and adds them again at each replay, where the
+#: captured launches run.
 launch_count = 0
 #: Inputs :func:`cuda_depthwise` had to copy to channels_last memory since
 #: the last :func:`reset_launch_count`.

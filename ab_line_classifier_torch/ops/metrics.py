@@ -9,10 +9,12 @@ correct counts, loss totals), so a batch updates it on the device inside
 the step, and :func:`compute_metrics` finalizes it to floats at the end of
 an epoch. With ``trials``, the state has a leading trial axis and
 :func:`update_stacked_metrics` accumulates a stacked batch ``[F, B, C]``
-of all trials at once (the trial-parallel trainer's). Under a device mesh
-each rank accumulates its own rows, and :func:`reduce_metrics` sums the
-states over the ``data`` axis once an epoch, before
-:func:`compute_metrics`.
+of all trials at once (the trial-parallel trainer's). Every update is
+device work with no host value (no host copy, no read-back), so a
+captured step (``train/graphed.py``) accumulates on every replay. Under a
+device mesh each rank accumulates its own rows, and
+:func:`reduce_metrics` sums the states over the ``data`` axis once an
+epoch, before :func:`compute_metrics`.
 """
 
 from __future__ import annotations
@@ -70,6 +72,15 @@ def init_metrics(n_classes: int, num_thresholds: int = 200,
                         cls_fn=z(n_classes))
 
 
+@torch.no_grad()
+def reset_metrics(state: MetricsState) -> MetricsState:
+    """Zero every accumulator in place (a CUDA graph's epoch keeps one
+    state at fixed addresses). Returns ``state``."""
+    for f in dataclasses.fields(state):
+        getattr(state, f.name).zero_()
+    return state
+
+
 def one_hot(labels: torch.Tensor, n_classes: int) -> torch.Tensor:
     """float32 one-hot rows of integer ``labels`` (``F.one_hot`` would read
     the labels back to check their range: a device sync per batch)."""
@@ -98,7 +109,7 @@ def update_metrics(state: MetricsState, probs: torch.Tensor,
     th = auc_thresholds(state.auc_tp.shape[0], probs.device)
     p_flat = probs.reshape(-1)
     y_flat = labels.reshape(-1)
-    m_flat = m.repeat_interleave(n_classes)
+    m_flat = m[:, None].expand(-1, n_classes).reshape(-1)
     pred_pos = (p_flat[None, :] > th[:, None]).to(torch.float32)
     w_pos = y_flat * m_flat
     w_neg = (1.0 - y_flat) * m_flat
@@ -136,7 +147,7 @@ def update_stacked_metrics(state: MetricsState, probs: torch.Tensor,
     th = auc_thresholds(state.auc_tp.shape[-1], probs.device)
     p_flat = probs.reshape(f, -1)
     y_flat = labels.reshape(f, -1)
-    m_flat = m.repeat_interleave(n_classes, dim=1)
+    m_flat = m[..., None].expand(-1, -1, n_classes).reshape(f, -1)
     pred_pos = (p_flat[:, None, :] > th[None, :, None]).to(torch.float32)
     w_pos = y_flat * m_flat
     w_neg = (1.0 - y_flat) * m_flat

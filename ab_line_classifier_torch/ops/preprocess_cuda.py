@@ -13,7 +13,12 @@ convolutions read. It takes any source size.
 
 :func:`preprocess_frames` launches the kernel for a CUDA tensor and runs
 the plain version (``ops/image.py::fused_preprocess``) for a CPU tensor.
-A CUDA tensor never falls back: the kernel runs or the call raises.
+A CUDA tensor never falls back: the kernel runs or the call raises. A
+launch reads the host nothing back and allocates only its output, on the
+current stream, so a CUDA graph's capture records it (the graphed
+epochs' validation step, ``train/graphed.py``); the index vectors are
+made at the first call for a shape, which a capture's eager warm-up
+makes.
 """
 
 from __future__ import annotations
@@ -27,8 +32,10 @@ from ab_line_classifier_torch.models.preprocess import preprocess_affine_params
 from ab_line_classifier_torch.ops.image import (UI_BLANK_HW, fused_preprocess,
                                                 nearest_indices)
 
-#: Kernel launches since the last :func:`reset_launch_count`; only the
-#: launch site below adds to it.
+#: Kernel launches since the last :func:`reset_launch_count`; the launch
+#: site below adds to it, and ``ops/launches.py`` takes a CUDA graph's
+#: capture's calls back off and adds them again at each replay, where the
+#: captured launches run.
 launch_count = 0
 
 _indices: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}

@@ -23,7 +23,10 @@ dtype: the gradient sum), :func:`broadcast_tensors` (replicated state from
 rank 0), :func:`all_gather_rows` (serving's and :func:`fetch`'s gather),
 :func:`broadcast_object` (rank 0's host decisions: a run's name, its
 records). Each takes the process group it runs over; ``None`` (an axis of
-one rank, or no process group) makes it a no-op.
+one rank, or no process group) makes it a no-op. Under NCCL
+:func:`all_reduce_tensors` and :func:`broadcast_tensors` run inside a
+CUDA graph's capture as well (``train/graphed.py``:
+:func:`graph_capturable`); gloo's run only eagerly.
 """
 
 from __future__ import annotations
@@ -260,6 +263,14 @@ def host_local_batch(mesh, *arrays):
 
 
 # -- collectives --------------------------------------------------------------
+def graph_capturable(group) -> bool:
+    """Whether ``group``'s collectives can run inside a CUDA graph: no
+    group or no process group (nothing runs), or NCCL, whose collectives a
+    capture records on the current stream; gloo's cannot be captured."""
+    return (group is None or not dist.is_initialized()
+            or dist.get_backend(group) == "nccl")
+
+
 def _size(group) -> int:
     return 1 if group is None or not dist.is_initialized() else (
         dist.get_world_size(group))

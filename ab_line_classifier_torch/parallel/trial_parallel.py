@@ -43,6 +43,17 @@ trial t's augmentation parts and dropout masks come from CPU generators
 seeded from ``(seed, phase, step, t)`` (:func:`trial_generators`), as the
 serial ``Trainer``'s come from ``(seed, phase, step)``.
 
+An epoch is a graphed epoch (``train/graphed.py``; the JAX package's
+``make_epoch_fns`` scans the vmapped step over the ``[nb, F, B]`` tables):
+the tables go over once, each step gathers its ``[F, B]`` batch from its
+device row, and the stacked step, captured once a phase (and once for
+evaluation), is replayed for every batch. Before each replay the step's
+host draws are copied into fixed device buffers through pinned memory;
+``lr_factor`` and ``active`` are device tensors set once an epoch, and the
+optimizer's counts live on the device. On the CPU and under gloo the same
+step runs uncaptured; :meth:`ParallelFoldTrainer.run_epoch_per_step`
+dispatches it from the host a batch at a time.
+
 With a device mesh (``parallel/mesh.py``), as in the JAX package, the
 trial axis shards over the mesh's ``trial`` axis and each trial's batch
 over its ``data`` axis: a rank holds F/T trials (all F, replicated, when T
@@ -61,6 +72,7 @@ returned weights are gathered to all F trials; rank 0 writes.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -70,16 +82,20 @@ from torch.func import functional_call, vmap
 
 from ab_line_classifier_torch import graph as G
 from ab_line_classifier_torch import resolve_device
-from ab_line_classifier_torch.data.augment import affine_params_from_config
+from ab_line_classifier_torch.data.augment import (Parts,
+                                                  affine_params_from_config)
 from ab_line_classifier_torch.data.pipeline import (
-    DeviceCachedDataset, ShardedDeviceCachedDataset, device_cache_budget)
+    DeviceCachedDataset, PinnedStaging, ShardedDeviceCachedDataset,
+    device_cache_budget)
 from ab_line_classifier_torch.models.common import (ModelSpec,
                                                     StackedOptimizer,
-                                                    TrainPhase)
+                                                    TrainPhase, trial_vector)
 from ab_line_classifier_torch.models.preprocess import get_preprocess_fn
 from ab_line_classifier_torch.ops import metrics as M
 from ab_line_classifier_torch.parallel import mesh as mesh_lib
 from ab_line_classifier_torch.train import objective
+from ab_line_classifier_torch.train.graphed import (EpochTables, StepGraph,
+                                                    capturable, step_seeds)
 from ab_line_classifier_torch.utils.resume import load_resume, save_resume
 
 Stacked = Dict[str, torch.Tensor]
@@ -115,13 +131,26 @@ def trial_generators(seed: int, phase_idx: int, step: int, n_trials: int
                      ) -> List[Tuple[torch.Generator, torch.Generator]]:
     """Trial t's augmentation and dropout generators for one step (on the
     CPU), seeded from ``(seed, phase_idx, step, t)``."""
-    out = []
-    for t in range(n_trials):
-        states = np.random.SeedSequence(
-            [seed, phase_idx, step, t]).generate_state(2, np.uint64)
-        out.append(tuple(torch.Generator().manual_seed(int(s))
-                         for s in states))
-    return out
+    return [tuple(torch.Generator().manual_seed(int(s))
+                  for s in step_seeds(seed, phase_idx, step, t))
+            for t in range(n_trials)]
+
+
+@dataclasses.dataclass
+class _StackedEpoch:
+    """A graphed stacked epoch's program: train (with its optimizer) or
+    eval over one cache at one table shape, its tables, metrics, the
+    device buffers the host fills before each replay (``lr_factor`` and
+    ``active`` once an epoch, the draws each step) and its step."""
+
+    owners: Tuple
+    shape: Tuple[int, ...]
+    tables: EpochTables
+    metrics: M.MetricsState
+    gates: Optional[torch.Tensor]
+    draws: List[torch.Tensor]
+    staging: PinnedStaging
+    step: StepGraph
 
 
 def _stack(tensors: Sequence[torch.Tensor], device) -> torch.Tensor:
@@ -215,6 +244,12 @@ class ParallelFoldTrainer:
             spec.logits_module(), torch.zeros((1,) + tuple(spec.input_shape)))
         self.phase_idx = 0
         self.step = 0
+        #: The path of the last epoch: ``graphed`` or ``uncaptured`` (the
+        #: CPU, a gloo group), or ``per-step``.
+        self.epoch_mode: Optional[str] = None
+        #: The graphed epochs' programs, ``train`` (this phase's) and
+        #: ``eval``; released at the end of :meth:`fit`.
+        self.epoch_programs: Dict[str, _StackedEpoch] = {}
 
     # ------------------------------------------------------------------
     def trial_seeds(self) -> List[int]:
@@ -259,12 +294,13 @@ class ParallelFoldTrainer:
         a fresh optimizer (its trainability on ``params``), step 0."""
         self.module.set_inference_bn(self.spec.frozen_bn_layers(phase))
         self.phase_idx, self.step = phase_idx, 0
+        self.epoch_programs.pop("train", None)
         return StackedOptimizer(phase, params)
 
     # ------------------------------------------------------------------
-    def _dropout_masks(self, generators, batch: int) -> Stacked:
+    def _dropout_masks(self, generators, batch: int, device) -> Stacked:
         """Each trial's keep masks, drawn for its global batch (``batch``
-        times the data axis), this rank's rows kept."""
+        times the data axis), this rank's rows kept, on ``device``."""
         i, count = self.shard
         masks = {}
         for name, shape in self.drop_shapes.items():
@@ -272,8 +308,21 @@ class ParallelFoldTrainer:
             masks[name] = torch.stack([
                 torch.rand([batch * count] + shape[1:],
                            generator=g)[i * batch:(i + 1) * batch] < keep
-                for _, g in generators]).to(self.device)
+                for _, g in generators]).to(device)
         return masks
+
+    def _draws(self, batch: int, hw: Tuple[int, int], device
+               ) -> Tuple[Optional[Parts], Stacked]:
+        """This step's augmentation parts (None without augmentation) and
+        dropout masks for this rank's trials, ``batch`` rows each, drawn
+        on the host from :func:`trial_generators` and put on ``device``."""
+        gens = trial_generators(self.seed, self.phase_idx, self.step,
+                                self.n_folds)[self.trials]
+        parts = (objective.stacked_parts([g for g, _ in gens], batch, hw,
+                                         device, self.aug_params,
+                                         shard=self.shard)
+                 if self.aug_params else None)
+        return parts, self._dropout_masks(gens, batch, device)
 
     def _forward(self, params, buffers, **kw):
         """A forward callable of one trial's slice, for
@@ -287,31 +336,38 @@ class ParallelFoldTrainer:
     def train_step(self, params: Stacked, buffers: Stacked,
                    opt: StackedOptimizer, images: torch.Tensor,
                    labels: torch.Tensor, mask: torch.Tensor,
-                   lr_factor: np.ndarray, active: np.ndarray,
-                   metrics: M.MetricsState,
+                   lr_factor, active, metrics: M.MetricsState,
                    denom: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One step of every trial on a stacked uint8 batch ``[F, B, H, W,
         3]`` on the device (labels and mask ``[F, B]``): augment, vmapped
         forward and loss, one backward, the stacked update gated by
-        ``lr_factor * active``; a trial's new batch-norm statistics only
-        where it is active. Accumulates ``metrics`` (stacked). Returns the
-        per-trial losses ``[F]``.
+        ``lr_factor * active`` (``[F]`` host arrays or device tensors); a
+        trial's new batch-norm statistics only where it is active.
+        Accumulates ``metrics`` (stacked). Returns the per-trial losses
+        ``[F]``.
 
         Under a mesh: this rank's trials and rows; ``denom`` ``[F]`` is
         each trial's global valid count (summed over the data group when
         not given); the losses are this rank's shares."""
+        parts, drop = self._draws(images.shape[1], tuple(images.shape[2:4]),
+                                  self.device)
+        loss = self._train_core(params, buffers, opt, images, labels, mask,
+                                trial_vector(lr_factor, self.device),
+                                trial_vector(active, self.device), metrics,
+                                denom, parts, drop)
+        self.step += 1
+        return loss
+
+    def _train_core(self, params, buffers, opt, images, labels, mask,
+                    lr_factor: torch.Tensor, active: torch.Tensor, metrics,
+                    denom, parts: Optional[Parts], drop: Stacked
+                    ) -> torch.Tensor:
+        """:meth:`train_step`'s device work, from given draws and device
+        gates: no host value, so a graphed epoch captures it."""
         f, b = images.shape[:2]
-        gens = trial_generators(self.seed, self.phase_idx, self.step,
-                                self.n_folds)[self.trials]
-        parts = (objective.stacked_parts([g for g, _ in gens], b,
-                                         tuple(images.shape[2:4]),
-                                         self.device, self.aug_params,
-                                         shard=self.shard)
-                 if self.aug_params else None)
         x = objective.prepare_stacked_images(
             self.preprocess_fn, self.aug_params, self.compute_dtype, images,
             parts)
-        drop = self._dropout_masks(gens, b)
         labels_oh = M.one_hot(labels.reshape(-1), self.spec.n_classes).view(
             f, b, -1)
         self.module.train()
@@ -339,14 +395,13 @@ class ParallelFoldTrainer:
             self.data_group)
         opt.step(params, lr_factor, active)
         with torch.no_grad():
-            on = torch.as_tensor(np.asarray(active) > 0).to(self.device)
+            on = active > 0
             for name, (mean, var) in stats.items():
                 for key, new in ((f"{name}.running_mean", mean),
                                  (f"{name}.running_var", var)):
                     old = buffers[key]
                     keep = on.view((-1,) + (1,) * (old.ndim - 1))
                     old.copy_(torch.where(keep, new, old))
-        self.step += 1
         M.update_stacked_metrics(metrics, probs.detach(), labels_oh,
                                  per_ex.detach(), mask)
         return loss.detach()
@@ -395,24 +450,112 @@ class ParallelFoldTrainer:
                   idx_tab, mask_tab, *, train: bool, lr_factor=None,
                   active=None) -> List[Dict[str, float]]:
         """One epoch over ``[nb, F, B]`` tables (this rank's trials, whole
-        batches: it takes its rows); every trial's metrics (all F)."""
+        batches: it takes its rows) as a graphed epoch (uncaptured on the
+        CPU or under gloo); every trial's metrics (all F)."""
+        prog = self._program(params, buffers, opt, cache,
+                             tuple(idx_tab.shape), train)
+        prog.tables.load(idx_tab, mask_tab)
+        M.reset_metrics(prog.metrics)
+        if train:
+            prog.gates.copy_(torch.as_tensor(np.stack([
+                np.asarray(lr_factor, np.float32)[self.trials],
+                np.asarray(active, np.float32)[self.trials]])))
+        b = len(range(idx_tab.shape[-1])[self._rows(idx_tab.shape[-1])])
+        for _ in range(prog.tables.n_steps):
+            if train:
+                parts, drop = self._draws(b, tuple(cache.img_dim),
+                                          torch.device("cpu"))
+                prog.staging(*(parts or ()), *drop.values(), out=prog.draws)
+            prog.step()
+            if train:
+                self.step += 1
+        prog.step.end_epoch()
+        self.epoch_mode = prog.step.mode
+        M.reduce_metrics(prog.metrics, self.data_group)
+        return M.compute_stacked_metrics(self._gather_trials(prog.metrics))
+
+    def run_epoch_per_step(self, params, buffers, opt,
+                           cache: DeviceCachedDataset, idx_tab, mask_tab, *,
+                           train: bool, lr_factor=None, active=None
+                           ) -> List[Dict[str, float]]:
+        """:meth:`run_epoch` dispatched from the host a step at a time:
+        the same batches, draws and arithmetic."""
         metrics = M.init_metrics(self.spec.n_classes, device=self.device,
                                  trials=len(idx_tab[0]))
-        rows = (None if self.mesh is None
-                else mesh_lib.batch_sharding(self.mesh, idx_tab.shape[-1]))
-        sel = slice(None) if rows is None else rows
+        rows = self._rows(idx_tab.shape[-1])
         for idx, msk in zip(idx_tab, mask_tab):
             images, labels = cache.gather_rows(idx, rows)
             if train:
                 self.train_step(params, buffers, opt, images, labels,
-                                msk[:, sel], lr_factor[self.trials],
+                                msk[:, rows], lr_factor[self.trials],
                                 active[self.trials], metrics,
                                 denom=msk.sum(-1))
             else:
-                self.eval_step(params, buffers, images, labels, msk[:, sel],
+                self.eval_step(params, buffers, images, labels, msk[:, rows],
                                metrics)
+        self.epoch_mode = "per-step"
         M.reduce_metrics(metrics, self.data_group)
         return M.compute_stacked_metrics(self._gather_trials(metrics))
+
+    def _rows(self, batch: int) -> slice:
+        """This rank's rows of a ``batch``-row batch (all without a
+        mesh)."""
+        return (slice(None) if self.mesh is None
+                else mesh_lib.batch_sharding(self.mesh, batch))
+
+    def _program(self, params, buffers, opt, cache, shape, train: bool
+                 ) -> _StackedEpoch:
+        """The graphed epoch's program (made on first use; the train one
+        anew each phase)."""
+        key = "train" if train else "eval"
+        owners = (params, buffers, opt, cache)
+        prog = self.epoch_programs.get(key)
+        if (prog is not None and prog.shape == shape
+                and all(a is b for a, b in zip(prog.owners, owners))):
+            return prog
+        tables = EpochTables(shape, self.device)
+        metrics = M.init_metrics(self.spec.n_classes, device=self.device,
+                                 trials=shape[1])
+        rows = self._rows(shape[-1])
+        groups = [self.data_group]
+        if isinstance(cache, ShardedDeviceCachedDataset):
+            groups.append(cache.group if cache.group is not None
+                          else mesh_lib.world_group())
+        gates = draws = None
+        n_parts = 0
+        if train:
+            gates = torch.zeros((2, shape[1]), dtype=torch.float32,
+                                device=self.device)
+            b = len(range(shape[-1])[rows])
+            parts, drop = self._draws(b, tuple(cache.img_dim),
+                                      torch.device("cpu"))
+            host = list(parts or ()) + list(drop.values())
+            draws = [torch.empty(t.shape, dtype=t.dtype, device=self.device)
+                     for t in host]
+            n_parts = len(parts or ())
+            names = list(drop)
+
+        def body():
+            idx, msk = tables.row()
+            images, labels = cache.gather_rows(idx, rows)
+            if not train:
+                self.eval_step(params, buffers, images, labels, msk[:, rows],
+                               metrics)
+            else:
+                self._train_core(
+                    params, buffers, opt, images, labels, msk[:, rows],
+                    gates[0], gates[1], metrics, msk.sum(-1),
+                    Parts(*draws[:n_parts]) if n_parts else None,
+                    dict(zip(names, draws[n_parts:])))
+            tables.advance()
+
+        prog = _StackedEpoch(owners, shape, tables, metrics, gates,
+                             draws or [], PinnedStaging(self.device),
+                             StepGraph(body, self.device,
+                                       capture=capturable(self.device,
+                                                          groups)))
+        self.epoch_programs[key] = prog
+        return prog
 
     def _gather_trials(self, tree):
         """Every tensor of ``tree`` (dicts, a :class:`MetricsState`), this
@@ -631,6 +774,7 @@ class ParallelFoldTrainer:
 
             carry = self._end_vars(params, buffers, best, wait, patience)
 
+        self.epoch_programs.clear()  # the graphs and their memory
         if carry is None:
             raise ValueError("the phase plan ran no epoch (EPOCHS 0?)")
         return self._gather_trials({"params": carry[0],

@@ -52,7 +52,7 @@ import torch
 from ab_line_classifier_torch import graph as G
 from ab_line_classifier_torch import resolve_device
 from ab_line_classifier_torch.models.common import ModelSpec
-from ab_line_classifier_torch.ops import depthwise_cuda
+from ab_line_classifier_torch.ops import launches
 from ab_line_classifier_torch.predict.benchmark import (
     build_zoo, clip_inference_benchmark, flops_per_frame, seeded_state, timers)
 
@@ -217,7 +217,8 @@ def _capture(fn: Callable[[], torch.Tensor], device: torch.device
              ) -> Tuple[Callable[[], None], int]:
     """``fn`` captured as a CUDA graph (after two warm-up calls on a side
     stream, which fill the kernel wrappers' caches); returns ``(replay, B2
-    launches recorded in the graph)``. On the CPU, ``(fn, 0)``."""
+    launches one replay makes)``, each replay counted in the kernels'
+    launch counts (``ops/launches.py``). On the CPU, ``(fn, 0)``."""
     if device.type != "cuda":
         return fn, 0
     side = torch.cuda.Stream(device)
@@ -227,10 +228,13 @@ def _capture(fn: Callable[[], torch.Tensor], device: torch.device
             fn()
     torch.cuda.current_stream(device).wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    launches = depthwise_cuda.launch_count
-    with torch.cuda.graph(graph):
+    with launches.capture() as captured, torch.cuda.graph(graph):
         fn()
-    return graph.replay, depthwise_cuda.launch_count - launches
+
+    def replay():
+        graph.replay()
+        captured.replayed()
+    return replay, captured.per_replay["depthwise"]
 
 
 def attribute_stages(spec: ModelSpec,
@@ -250,7 +254,7 @@ def attribute_stages(spec: ModelSpec,
     clamped to [-1, 1]), ``gflops``, ``tflops_per_sec``, ``gb_accessed``,
     ``gb_per_sec`` and ``flops_per_byte`` (defined in the module
     docstring), unrounded; and ``depthwise_launches``, kernel B2's
-    launches in one execution of the segment (counted at its capture; 0
+    launches in one execution of the segment (recorded at its capture; 0
     on the CPU).
 
     The first segment is fed zeros, the others standard-normal

@@ -302,11 +302,11 @@ def single_frame_latency_benchmark(img_dim: Tuple[int, int] = (128, 128),
     being at most 1), so no step can start before the one before it ends.
 
     On CUDA the chain is captured once as a CUDA graph and replayed (the
-    JAX package compiles it into one ``lax.scan`` program); the kernel
-    wrappers' launch counters tick once, at capture, so the result gives
-    the launches captured per step (``graph_launches_per_step``), the
-    number of steps replayed and the graph itself (``graph``; each
-    ``graph.replay()`` runs the chain once more). Capture needs the
+    JAX package compiles it into one ``lax.scan`` program); the result
+    gives the launches captured per step (``graph_launches_per_step``),
+    the number of steps replayed and ``replay`` (each call runs the chain
+    once more). Every replay is counted in the kernels' launch counts
+    (``ops/launches.py``). Capture needs the
     wrappers' caches warm (B1's index vectors, B2's packed weights and
     launch geometry): the chain runs ``n_warmup`` times on a side stream
     first. A failed capture raises. The same chain run eagerly
@@ -318,7 +318,7 @@ def single_frame_latency_benchmark(img_dim: Tuple[int, int] = (128, 128),
     3]``) and ``check_probs`` (float32 ``[2, C]``) are the chain's output
     on each, eager; the replayed graph, given each frame as its input,
     must reproduce them exactly, or the benchmark raises."""
-    from ab_line_classifier_torch.ops import depthwise_cuda, preprocess_cuda
+    from ab_line_classifier_torch.ops import launches
     from ab_line_classifier_torch.predict.predict import Predictor
 
     device = resolve_device(device)
@@ -357,15 +357,15 @@ def single_frame_latency_benchmark(img_dim: Tuple[int, int] = (128, 128),
             for _ in range(n_warmup):
                 chain(frame)
         torch.cuda.current_stream(device).wait_stream(side)
-        counts = (preprocess_cuda.launch_count, depthwise_cuda.launch_count)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with launches.capture() as captured, torch.cuda.graph(graph):
             out = chain(frame)
         replays = 0
 
         def replay():
             nonlocal replays
             graph.replay()
+            captured.replayed()
             replays += 1
 
         for _ in range(n_warmup):
@@ -381,12 +381,9 @@ def single_frame_latency_benchmark(img_dim: Tuple[int, int] = (128, 128),
                     f"the replayed chain differs from the eager one by "
                     f"{float((out - want).abs().max())}")
         result["graph_launches_per_step"] = {
-            "preprocess": (preprocess_cuda.launch_count - counts[0])
-            / chain_len,
-            "depthwise": (depthwise_cuda.launch_count - counts[1])
-            / chain_len}
+            name: n / chain_len for name, n in captured.per_replay.items()}
         result["replayed_steps"] = replays * chain_len
-        result["graph"] = graph
+        result["replay"] = replay
     if verbose:
         graph_ms = result["graph_ms_per_frame"]
         print(f"{spec.name} batch-1 latency on {result['device']}: "

@@ -40,6 +40,7 @@ import torch
 from ab_line_classifier_torch import resolve_device
 from ab_line_classifier_torch.config import Config
 from ab_line_classifier_torch.data.pipeline import (FRAME_PATH, FrameDataset,
+                                                    PinnedStaging,
                                                     drain_behind)
 from ab_line_classifier_torch.models import build_model
 from ab_line_classifier_torch.models.common import ModelSpec
@@ -126,8 +127,7 @@ class Predictor:
         self.compute_dtype = compute_dtype
         self.weights = state_dict
         self.module = load_module(spec, state_dict, self.device)
-        self._staging: List[Optional[torch.Tensor]] = [None, None]
-        self._slot = 0
+        self._staging = PinnedStaging(self.device)
 
     @classmethod
     def restore(cls, model_path: str, *, batch_size: int = 64,
@@ -179,21 +179,10 @@ class Predictor:
             return self.module(x.to(self.spec.dtype)).to(torch.float32)
 
     def _to_device(self, host: np.ndarray) -> torch.Tensor:
-        """Copy a uint8 host chunk to the device. On CUDA it goes through
-        one of two pinned staging buffers, asynchronously: buffer k is
-        reused by chunk k+2, whose launch ``drain_behind`` orders after
-        chunk k's readback, so its copy has finished by then."""
-        t = torch.from_numpy(np.ascontiguousarray(host))
-        if self.device.type != "cuda":
-            return t.to(self.device)
-        slot = self._slot
-        self._slot ^= 1
-        buf = self._staging[slot]
-        if buf is None or buf.shape[1:] != t.shape[1:] or len(buf) < len(t):
-            buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            self._staging[slot] = buf
-        buf[:len(t)].copy_(t)
-        return buf[:len(t)].to(self.device, non_blocking=True)
+        """Copy a uint8 host chunk to the device: on CUDA through one of
+        two pinned staging buffers, asynchronously (:class:`PinnedStaging`),
+        so chunk k+1's copy overlaps chunk k's work."""
+        return self._staging(np.ascontiguousarray(host))[0]
 
     def predict_probs(self, frames_u8: np.ndarray) -> np.ndarray:
         """Probabilities for a uint8 ``[N, H, W, 3]`` host frame array, swept

@@ -23,8 +23,24 @@ Semantics kept from the JAX package:
 A training step is one augmentation -> forward -> loss -> backward ->
 optimizer update, on the trainer's device; the parameters stay float32 and
 a mixed-precision model computes in bfloat16 inside each layer
-(``graph.set_compute_dtype``). The JAX package scans whole epochs as one
-program, a TPU dispatch workaround; the port runs the step eagerly.
+(``graph.set_compute_dtype``).
+
+Epochs follow the JAX package's split (``_run_epoch``): the JAX package
+runs an epoch over a device cache as one compiled program
+(``make_epoch_fns``: a ``lax.scan`` of the step over the epoch's index
+table), which takes the per-step dispatch off the host; a streamed
+dataset goes step by step. Here an epoch over a ``DeviceCachedDataset``
+(or its sharded form) is a graphed epoch (``train/graphed.py``): the
+index and mask tables go over once, each step gathers its batch on the
+device from its row, and the step, captured once a phase as a CUDA graph
+(and once for evaluation), is replayed for every batch, the two
+generators re-seeded from ``(seed, phase index, step)`` before each
+replay, so a replay draws what the step would draw eagerly. On the CPU,
+and where a collective of the step runs under gloo, the same step runs
+uncaptured. A streamed ``FrameDataset`` (or ``FrameArrays``) runs the
+step per batch from the host, batch k+1's copy issued through pinned
+buffers before step k (:meth:`Trainer.run_epoch_per_step`).
+:attr:`Trainer.epoch_mode` says which path the last epoch took.
 
 With a ``mesh`` (``parallel/mesh.py``) the step is data-parallel over its
 ``data`` axis, one process per device: the state is built from the same
@@ -51,6 +67,9 @@ import torch
 from ab_line_classifier_torch import graph as G
 from ab_line_classifier_torch import resolve_device
 from ab_line_classifier_torch.data.augment import affine_params_from_config
+from ab_line_classifier_torch.data.pipeline import (
+    DeviceCachedDataset, PinnedStaging, ShardedDeviceCachedDataset,
+    drain_behind)
 from ab_line_classifier_torch.models.common import (
     ModelSpec, TrainPhase, get_learning_rate, make_optimizer,
     scale_learning_rate)
@@ -58,6 +77,8 @@ from ab_line_classifier_torch.models.preprocess import get_preprocess_fn
 from ab_line_classifier_torch.ops import metrics as M
 from ab_line_classifier_torch.parallel import mesh as mesh_lib
 from ab_line_classifier_torch.train import objective
+from ab_line_classifier_torch.train.graphed import (EpochTables, StepGraph,
+                                                    capturable, step_seeds)
 from ab_line_classifier_torch.utils.resume import load_resume, save_resume
 
 StateDict = Dict[str, torch.Tensor]
@@ -119,14 +140,24 @@ def step_generators(seed: int, phase_idx: int, step: int,
                     ) -> Tuple[torch.Generator, torch.Generator]:
     """The augmentation and dropout generators of one training step, on
     ``device``, seeded from ``(seed, phase_idx, step)``."""
-    states = np.random.SeedSequence([seed, phase_idx, step]).generate_state(
-        2, np.uint64)
     return tuple(torch.Generator(device=device).manual_seed(int(s))
-                 for s in states)
+                 for s in step_seeds(seed, phase_idx, step))
 
 
 def _copy_state(module: torch.nn.Module) -> StateDict:
     return {k: v.detach().clone() for k, v in module.state_dict().items()}
+
+
+@dataclasses.dataclass
+class _CachedEpoch:
+    """A graphed epoch's program: one kind (train or eval) over one device
+    cache at one batch size, its tables, metrics and step."""
+
+    dataset: DeviceCachedDataset
+    batch_size: int
+    tables: EpochTables
+    metrics: M.MetricsState
+    step: StepGraph
 
 
 class Trainer:
@@ -181,6 +212,15 @@ class Trainer:
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.phase_idx = 0
         self.step = 0
+        #: The path of the last epoch: ``graphed`` (a device cache, the
+        #: step captured and replayed), ``uncaptured`` (a device cache, the
+        #: same step run each batch: the CPU, a gloo group) or
+        #: ``per-step`` (a streamed dataset).
+        self.epoch_mode: Optional[str] = None
+        #: The graphed epochs' programs, ``train`` (this phase's) and
+        #: ``eval``; released at the end of :meth:`fit`.
+        self.epoch_programs: Dict[str, _CachedEpoch] = {}
+        self._generators: Optional[Tuple[torch.Generator, ...]] = None
 
     # ------------------------------------------------------------------
     def begin_phase(self, phase_idx: int, phase: TrainPhase,
@@ -193,6 +233,9 @@ class Trainer:
         self.optimizer = make_optimizer(phase, self.module)
         self.phase_idx = phase_idx
         self.step = 0
+        # Trainability, frozen batch norms and the optimizer are the
+        # phase's: its training step is captured anew.
+        self.epoch_programs.pop("train", None)
 
     def state(self) -> StateDict:
         """The module's state dict, copied to the CPU."""
@@ -210,9 +253,20 @@ class Trainer:
         ``denom`` the global batch's valid count (summed over the data
         group when not given), and the loss returned this rank's share of
         the global one."""
-        self.module.train()
         gen_aug, gen_drop = step_generators(self.seed, self.phase_idx,
                                             self.step, self.device)
+        loss = self._train_core(images, labels, mask, metrics, gen_aug,
+                                gen_drop, denom)
+        self.step += 1
+        return loss
+
+    def _train_core(self, images, labels, mask, metrics, gen_aug, gen_drop,
+                    denom) -> torch.Tensor:
+        """:meth:`train_step`'s device work, drawing from the given
+        generators: no host value, so a graphed epoch captures it. The
+        batch norms' running statistics stay in their tensors
+        (``graph.buffers_in_place``), where a captured step reads them."""
+        self.module.train()
         labels_oh = M.one_hot(labels, self.spec.n_classes)
         x = objective.prepare_images(self.preprocess_fn, self.aug_params,
                                      self.compute_dtype, images, gen_aug,
@@ -221,17 +275,17 @@ class Trainer:
             total = mask.to(torch.float32).sum().reshape(1)
             mesh_lib.all_reduce_tensors([total], self.data_group)
             denom = torch.clamp(total[0], min=1.0)
-        loss, probs, per_ex = objective.forward_loss(
-            self.module, self.reg_layers, self.reg_lambdas, x, labels_oh,
-            mask, self.class_weight, train=True, generator=gen_drop,
-            denom=denom)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        with G.buffers_in_place(self.module):
+            loss, probs, per_ex = objective.forward_loss(
+                self.module, self.reg_layers, self.reg_lambdas, x, labels_oh,
+                mask, self.class_weight, train=True, generator=gen_drop,
+                denom=denom)
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
         mesh_lib.all_reduce_tensors(
             [p.grad for p in self.module.parameters() if p.grad is not None],
             self.data_group)
         self.optimizer.step()
-        self.step += 1
         M.update_metrics(metrics, probs.detach(), labels_oh,
                          loss=per_ex.detach(), sample_mask=mask)
         return loss.detach()
@@ -252,19 +306,41 @@ class Trainer:
 
     def run_epoch(self, dataset, batch_size: int, *, train: bool,
                   shuffle_seed: int = 0) -> Dict[str, float]:
-        """One epoch of ``dataset`` (a device cache: gathers on the device;
-        a :class:`FrameDataset`: host batches copied over), shuffled by
-        ``shuffle_seed`` when training; under a mesh this rank's rows of
+        """One epoch of ``dataset``, shuffled by ``shuffle_seed`` when
+        training: a device cache's as a graphed epoch (uncaptured on the
+        CPU or under gloo), a streamed dataset's per step
+        (:meth:`run_epoch_per_step`); under a mesh this rank's rows of
         each batch, the metrics summed over the data group at the end.
         Returns the epoch's metrics."""
+        if isinstance(dataset, DeviceCachedDataset):
+            return self._cached_epoch(dataset, batch_size, train=train,
+                                      shuffle_seed=shuffle_seed)
+        return self.run_epoch_per_step(dataset, batch_size, train=train,
+                                       shuffle_seed=shuffle_seed)
+
+    def run_epoch_per_step(self, dataset, batch_size: int, *, train: bool,
+                           shuffle_seed: int = 0) -> Dict[str, float]:
+        """One epoch dispatched from the host a step at a time (the
+        streaming tier; a device cache's batches are its gathers): host
+        batches go over through pinned buffers, batch k+1's copy issued
+        before step k (:func:`drain_behind`). The same batches, draws and
+        arithmetic as the graphed epoch."""
         metrics = M.init_metrics(self.spec.n_classes, device=self.device)
         rows = (None if self.mesh is None
                 else mesh_lib.batch_sharding(self.mesh, batch_size))
         n = len(dataset)
-        for b, batch in enumerate(dataset.batches(
-                batch_size, shuffle=train, seed=shuffle_seed, rows=rows)):
-            args = tuple(torch.as_tensor(a, device=self.device)
-                         for a in (batch.images, batch.labels, batch.mask))
+        staging = PinnedStaging(self.device)
+
+        def launch(item):
+            b, batch = item
+            arrays = (batch.images, batch.labels, batch.mask)
+            if isinstance(batch.images, torch.Tensor):  # a cache's gather
+                return b, tuple(torch.as_tensor(a, device=self.device)
+                                for a in arrays)
+            return b, staging(*arrays)
+
+        def consume(item):
+            b, args = item
             if train:
                 # The global batch's valid rows: the epoch table pads only
                 # its last batch.
@@ -273,8 +349,77 @@ class Trainer:
                 self.train_step(*args, metrics, denom=denom)
             else:
                 self.eval_step(*args, metrics)
+
+        drain_behind((launch(item) for item in enumerate(dataset.batches(
+            batch_size, shuffle=train, seed=shuffle_seed, rows=rows))),
+            consume)
+        self.epoch_mode = "per-step"
         M.reduce_metrics(metrics, self.data_group)
         return M.compute_metrics(metrics, self.class_names)
+
+    def _cached_program(self, dataset: DeviceCachedDataset, batch_size: int,
+                        train: bool) -> _CachedEpoch:
+        """The graphed epoch's program for ``dataset`` at ``batch_size``
+        (made on first use; the train one anew each phase)."""
+        key = "train" if train else "eval"
+        prog = self.epoch_programs.get(key)
+        if (prog is not None and prog.dataset is dataset
+                and prog.batch_size == batch_size):
+            return prog
+        tables = EpochTables((dataset.n_batches(batch_size), batch_size),
+                             self.device)
+        metrics = M.init_metrics(self.spec.n_classes, device=self.device)
+        rows = (None if self.mesh is None
+                else mesh_lib.batch_sharding(self.mesh, batch_size))
+        groups = [self.data_group]
+        if isinstance(dataset, ShardedDeviceCachedDataset):
+            groups.append(dataset.group if dataset.group is not None
+                          else mesh_lib.world_group())
+        if train and self._generators is None:
+            self._generators = (torch.Generator(device=self.device),
+                                torch.Generator(device=self.device))
+        gens = self._generators if train else ()
+
+        def body():
+            idx, mask_all = tables.row()
+            images, labels = dataset.gather_rows(idx, rows)
+            mask = mask_all if rows is None else mask_all[rows]
+            if not train:
+                self.eval_step(images, labels, mask, metrics)
+            else:
+                # Under a mesh: the global batch's valid rows.
+                denom = (None if rows is None
+                         else torch.clamp(mask_all.sum(), min=1.0))
+                self._train_core(images, labels, mask, metrics, *gens, denom)
+            tables.advance()
+
+        prog = _CachedEpoch(dataset, batch_size, tables, metrics, StepGraph(
+            body, self.device, capture=capturable(self.device, groups),
+            generators=gens, modules=(self.module,)))
+        self.epoch_programs[key] = prog
+        return prog
+
+    def _cached_epoch(self, dataset: DeviceCachedDataset, batch_size: int,
+                      *, train: bool, shuffle_seed: int) -> Dict[str, float]:
+        """The graphed epoch (module note): the tables uploaded once, one
+        replay (or uncaptured run) a batch, the metrics read once."""
+        prog = self._cached_program(dataset, batch_size, train)
+        idx, mask = dataset.epoch_index_table(batch_size, shuffle=train,
+                                              seed=shuffle_seed)
+        prog.tables.load(idx, mask)
+        M.reset_metrics(prog.metrics)
+        for _ in range(prog.tables.n_steps):
+            if train:
+                for g, s in zip(self._generators, step_seeds(
+                        self.seed, self.phase_idx, self.step)):
+                    g.manual_seed(int(s))
+            prog.step()
+            if train:
+                self.step += 1
+        prog.step.end_epoch()
+        self.epoch_mode = prog.step.mode
+        M.reduce_metrics(prog.metrics, self.data_group)
+        return M.compute_metrics(prog.metrics, self.class_names)
 
     # ------------------------------------------------------------------
     def _save_resume(self, path: str, *, epoch: int, epoch_in_phase: int,
@@ -405,4 +550,5 @@ class Trainer:
             # weights (cutoffvgg16's extract hands its last epoch on).
             if stopped and best_vars is not None:
                 self.module.load_state_dict(best_vars)
+        self.epoch_programs.clear()  # the graphs and their memory
         return self.state(), history

@@ -105,9 +105,10 @@ no result):
    whose fourth suggestion must equal what the same controller suggests
    on the CPU after replaying the card's three observations. Per fold and
    trial: wall and setup seconds, training frames/s, B1 and B2 launches
-   (held to the counts the data gives; B2's input copies 0) and
+   (held to the counts the data gives; B2's input copies 0),
    ``max_memory_allocated``, the last run's peak within 5% of the
-   first's;
+   first's, and the path its epochs took (``Trainer.epoch_mode``: every
+   fold's cached data must take the graphed one);
 13. trial-parallel cross-validation and LR search — kernel B2's launch
    over F trials (``torch.func.vmap`` of the depthwise entry point, the
    trials as F * C channels) at every stride-1 mobilenetv2 shape at batch
@@ -127,8 +128,9 @@ no result):
    4 trials over config.yml's LR range, DROPOUT ignored with the JAX
    package's message) and both again at config.yml's counts (5 folds, 10
    trials): B1 and B2 launches held to the counts the data gives, no
-   input copied, wall and setup seconds, training frames/s and peak
-   memory beside phase 12's serial numbers;
+   input copied, the path the epochs took (``ParallelFoldTrainer.
+   epoch_mode``, graphed), wall and setup seconds, training frames/s and
+   peak memory beside phase 12's serial numbers;
 14. the raw-clip path — deploy serving: full-width cutoffvgg16 and
    mobilenetv2 (phases 5-6's weights, saved as port checkpoints) served by
    ``predict_wavebase_mp4`` over a 256-frame 480x640 clip and a 64-frame
@@ -158,7 +160,7 @@ no result):
    each stage a module of its own layers, timed as a CUDA graph replayed
    8 and 16 times less a null graph; every stage row printed with the
    stages' sum beside phase 8's served batch; B2's launches per stage
-   (counted at each stage's capture) summing to 0 / 10 / 34 / 51 and no
+   (recorded at each stage's capture) summing to 0 / 10 / 34 / 51 and no
    B1; the stages' FLOPs summing to ``flops_per_frame`` times the batch;
    the stages chained on 256 frames against the whole forward by the
    serving bar (bit-equality reported), with hooks showing that no stage
@@ -217,17 +219,37 @@ no result):
    stacked batch norms' all-reduce under ``vmap``), each against one
    process within 1e-3 relative; each rank prints its paths' wall times
    and its B1 and B2 launches (both > 0).
+20. graphed epochs — the training step as a CUDA graph (``train/
+   graphed.py``), full width, 128x128, bf16, config.yml's hyperparameters,
+   augmentation and dropout on, cuDNN deterministic, from phase 5-6's
+   weights: (a) cutoffvgg16 at batch 64 and 256 over 1024 cached frames
+   (256 validation frames), two ``extract`` epochs with the rate halved
+   between them (a forced ReduceLROnPlateau cut) and one ``finetune``
+   epoch; (b) mobilenetv2 at 64 and 256, two epochs with the cut between;
+   (c) a 3-fold stacked cutoffvgg16 (3 x 64, the same plan) and a 4-trial
+   mobilenetv2 LR search (4 x 64, trial 0's factor halved before the
+   second epoch); each run eagerly twice (per step) and graphed once: the
+   graphed run takes the graphed path, and where the eager runs are
+   bit-equal it must be (parameters, batch-norm statistics, optimizer
+   state, metrics), else no farther from the first eager run than the
+   second is; B1 and B2 launches counted inside the replays (captured x
+   replays) equal the eager runs' and the data's; ms per step of one more
+   epoch graphed and eager, each's device idle share (profiler) and the
+   capture seconds; (d) case (a) at 64 under NCCL at world size 1, the
+   frames split over a (1, 1) mesh's data axis (each gather's uint8
+   ``all_reduce`` captured), bit-equal to the mesh-free graphed run.
 
-The last three lines of standard output are a JSON line of phases 15-19's
+The last three lines of standard output are a JSON line of phases 15-20's
 summaries, a JSON line of per-kernel
 numbers (launches per path, ``training``, the trial-parallel, ``deploy``,
 ``automask``, ``attribution``, ``export_roundtrip``, ``jpeg_training``,
-``wandb_sweep`` and the two ``multi_device`` paths included (the gloo
-path's summed over its ranks):
-the wrappers' counts,
-which tick once at a CUDA graph's capture; the kernel's runs in one
-replay of each latency graph, counted by the profiler, and the replays)
-and ``{"ok": true, "device": {...}}``.
+``wandb_sweep``, the two ``multi_device`` paths (the gloo
+path's summed over its ranks) and ``graphed_epochs`` included:
+the launches that ran on the card: the wrappers' eager calls, and for
+every CUDA graph (latency chains, attribution segments, graphed epochs)
+its captured launches once per replay, ``ops/launches.py``; the kernel's
+runs in one replay of each latency graph, counted by the profiler, and
+the replays) and ``{"ok": true, "device": {...}}``.
 """
 
 import concurrent.futures
@@ -348,7 +370,11 @@ def cuda_ms(fn, iters=ITERS, warmup=WARMUP):
 def graph_ms(fn, iters=ITERS, warmup=WARMUP):
     """Mean milliseconds per replay of ``fn`` captured once as a CUDA graph
     (warmed on a side stream first): the device's time for work whose
-    eager launches take longer on the host than on the card."""
+    eager launches take longer on the host than on the card. Its replays
+    time a kernel against its plain version and do not count as
+    launches."""
+    from ab_line_classifier_torch.ops import launches
+
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -356,7 +382,7 @@ def graph_ms(fn, iters=ITERS, warmup=WARMUP):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with launches.capture(), torch.cuda.graph(graph):
         fn()
     return cuda_ms(graph.replay, iters=iters, warmup=warmup)
 
@@ -1331,12 +1357,12 @@ def phase_latency(spec, state_dict, per_forward, smi):
     per_step = r["graph_launches_per_step"]
     if per_step != {"preprocess": 1, "depthwise": per_forward}:
         raise AssertionError(f"{spec.name}: captured per step {per_step}")
-    calls = device_time_by_kernel(r["graph"].replay, n_iters=1)["calls"]
+    calls = device_time_by_kernel(r["replay"], n_iters=1)["calls"]
     per_replay = {label: sum(n for k, n in calls.items()
                              if any(key in k for key in keys))
                   for label, keys in KERNEL_KEYS.items()}
-    # The wrappers count at capture only: the profiler shows that the
-    # replays run the kernels on the card.
+    # The counts add a replay's captured launches per replay: the profiler
+    # shows that a replay runs the kernels on the card.
     for label, n in per_step.items():
         if (per_replay[label] > 0) != (n > 0):
             raise AssertionError(f"{spec.name}: one replay ran "
@@ -1363,8 +1389,9 @@ def phase_latency(spec, state_dict, per_forward, smi):
           f"{per_replay['preprocess']:g}, depthwise "
           f"{per_replay['depthwise']:g} kernels (profiler; "
           f"{r['chain_len']} steps captured); "
-          f"{r['replayed_steps'] // r['chain_len']} replays; wrapper counts "
-          f"{pre} / {dw}; replayed graph equal to the eager chain on 2 "
+          f"{r['replayed_steps'] // r['chain_len']} replays; launch counts "
+          f"(eager calls and replays) {pre} / {dw}; replayed graph equal "
+          f"to the eager chain on 2 "
           f"frames, against the CPU max |dp| {err:.2e} (bar {bar:.2e}; CPU "
           f"bf16 vs float32 {floor:.2e})", flush=True)
     if not err <= bar:
@@ -1939,8 +1966,11 @@ class RunMeter:
     copied): wall and setup seconds (to ``Trainer.fit``'s start: model
     build, weight upload, the run's frames cached on the card), training
     frames/s (frames over the training epochs' time, synchronized), the
-    kernels' launches, B2's input copies and the peak of
-    ``torch.cuda.max_memory_allocated``. ``stop_at`` makes that run raise
+    kernels' launches, B2's input copies, the peak of
+    ``torch.cuda.max_memory_allocated``, the paths its epochs took, the
+    seconds its CUDA graphs' captures took and the caching allocator's
+    retries (``num_alloc_retries``: a failed ``cudaMalloc`` that freed the
+    cache and tried again). ``stop_at`` makes that run raise
     :class:`Interrupted` as it starts."""
 
     def __init__(self, stop_at=None):
@@ -1964,7 +1994,10 @@ class RunMeter:
             torch.cuda.reset_peak_memory_stats()
             rec = {"run": key, "t0": time.perf_counter(), "train_s": 0.0,
                    "frames": 0, "pre": PC.launch_count,
-                   "dw": DC.launch_count, "copies": DC.copy_count}
+                   "dw": DC.launch_count, "copies": DC.copy_count,
+                   "paths": set(), "captures": {},
+                   "retries": alloc_retries(),
+                   "reserved": torch.cuda.memory_reserved()}
             meter.runs.append(rec)
             result = run_fn(cfg, **kw)
             torch.cuda.synchronize()
@@ -1973,6 +2006,7 @@ class RunMeter:
                        dw=DC.launch_count - rec["dw"],
                        copies=DC.copy_count - rec["copies"],
                        peak=torch.cuda.max_memory_allocated(),
+                       retries=alloc_retries() - rec["retries"],
                        result=result)
             return result
 
@@ -1982,15 +2016,19 @@ class RunMeter:
             return fit(trainer, *a, **kw)
 
         def timed_epoch(trainer, dataset, batch_size, *, train, **kw):
+            rec = meter.runs[-1]
             if not train:
-                return run_epoch(trainer, dataset, batch_size, train=train,
-                                 **kw)
+                out = run_epoch(trainer, dataset, batch_size, train=train,
+                                **kw)
+                note_programs(rec, trainer)
+                return out
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = run_epoch(trainer, dataset, batch_size, train=train, **kw)
             torch.cuda.synchronize()
-            meter.runs[-1]["train_s"] += time.perf_counter() - t0
-            meter.runs[-1]["frames"] += len(dataset)
+            rec["train_s"] += time.perf_counter() - t0
+            rec["frames"] += len(dataset)
+            note_programs(rec, trainer)
             return out
 
         E.perform_single_run = perform_single_run
@@ -2005,12 +2043,26 @@ class RunMeter:
         return False
 
 
-def check_runs(label, runs, source, per_forward, smi):
+def alloc_retries():
+    return torch.cuda.memory_stats().get("num_alloc_retries", 0)
+
+
+def note_programs(rec, trainer):
+    """The path ``trainer``'s last epoch took, and each of its graphed
+    programs' capture seconds (by program) into ``rec``."""
+    rec["paths"].add(trainer.epoch_mode)
+    for prog in trainer.epoch_programs.values():
+        if prog.step.capture_seconds is not None:
+            rec["captures"][id(prog.step)] = prog.step.capture_seconds
+
+
+def check_runs(label, runs, source, per_forward, smi, path=None):
     """Print each run's numbers; hold its launches to the count its data
     gives (B1: each validation batch of each epoch, the prediction table's
     one batch an epoch and each test batch; B2: ``per_forward`` in each of
-    those and each training forward), no input copied, and the last run's
-    peak memory within MEM_DRIFT of the first's."""
+    those and each training forward), no input copied, the last run's
+    peak memory within MEM_DRIFT of the first's, and, given ``path``,
+    every epoch's ``Trainer.epoch_mode`` to it."""
     def nb(n):
         return -(-n // TRAIN_BATCH)
 
@@ -2025,8 +2077,15 @@ def check_runs(label, runs, source, per_forward, smi):
               f"{len(te)}; preprocess launches {rec['pre']}, depthwise "
               f"{rec['dw']}, input copies {rec['copies']}; "
               f"max_memory_allocated {rec['peak']} bytes; test "
-              f"accuracy {rec['result'].test_metrics['accuracy']:.4f}",
-              flush=True)
+              f"accuracy {rec['result'].test_metrics['accuracy']:.4f}; "
+              f"epochs {'/'.join(sorted(rec['paths']))}, "
+              f"{len(rec['captures'])} captures in "
+              f"{sum(rec['captures'].values()):.3f} s, allocator retries "
+              f"{rec['retries']} (reserved at the start "
+              f"{rec['reserved'] / 2 ** 30:.2f} GiB)", flush=True)
+        if path is not None and rec["paths"] != {path}:
+            raise AssertionError(f"{label} {rec['run']}: epochs took "
+                                 f"{rec['paths']}, not {path}")
         if (rec["pre"], rec["dw"]) != want or rec["copies"]:
             raise AssertionError(f"{label} {rec['run']}: launches "
                                  f"{(rec['pre'], rec['dw'])}, want {want}, "
@@ -2096,7 +2155,8 @@ def phase_experiments(smi):
         raise AssertionError(f"cross-validation resume: runs "
                              f"{[r['run'] for r in runs]}, records {after!r}")
     check_runs("cross_validation fold", runs,
-               [folds.fold(k) for k in range(EXP_FOLDS)], 0, smi)
+               [folds.fold(k) for k in range(EXP_FOLDS)], 0, smi,
+               path="graphed")
     if (sum(r["pre"] for r in runs), sum(r["dw"] for r in runs)) != (
             PC.launch_count, DC.launch_count):
         raise AssertionError("launches outside the folds' runs")
@@ -2128,7 +2188,7 @@ def phase_experiments(smi):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     check_runs("hparam_search trial", sweep.runs, [split.fold(0)] * len(
-        sweep.runs), ZOO["mobilenetv2"][1], smi)
+        sweep.runs), ZOO["mobilenetv2"][1], smi, path="graphed")
     launches["hparam_search"] = (PC.launch_count, DC.launch_count)
     serial["hparam_search"] = serial_stats(sweep.runs, seconds)
     trials = out["trials"]
@@ -2420,7 +2480,8 @@ class TrialMeter:
     def __init__(self, stop_after=None):
         self.stop_after, self.saves = stop_after, 0
         self.rec = {"train_s": 0.0, "frames": 0, "setup": None,
-                    "t0": time.perf_counter()}
+                    "t0": time.perf_counter(), "paths": set(),
+                    "captures": {}, "retries": alloc_retries()}
 
     def __enter__(self):
         from ab_line_classifier_torch.parallel.trial_parallel import (
@@ -2441,8 +2502,10 @@ class TrialMeter:
             if meter.rec["setup"] is None:
                 meter.rec["setup"] = time.perf_counter() - meter.rec["t0"]
             if not train:
-                return run_epoch(trainer, params, buffers, opt, cache,
-                                 idx_tab, mask_tab, train=train, **kw)
+                out = run_epoch(trainer, params, buffers, opt, cache,
+                                idx_tab, mask_tab, train=train, **kw)
+                note_programs(meter.rec, trainer)
+                return out
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = run_epoch(trainer, params, buffers, opt, cache, idx_tab,
@@ -2450,6 +2513,7 @@ class TrialMeter:
             torch.cuda.synchronize()
             meter.rec["train_s"] += time.perf_counter() - t0
             meter.rec["frames"] += int(mask_tab.sum())
+            note_programs(meter.rec, trainer)
             return out
 
         def counted_save(trainer, *a, **kw):
@@ -2472,16 +2536,17 @@ class TrialMeter:
         torch.cuda.synchronize()
         self.rec["wall"] = time.perf_counter() - self.rec["t0"]
         self.rec["peak"] = torch.cuda.max_memory_allocated()
+        self.rec["retries"] = alloc_retries() - self.rec["retries"]
         P.fit, P.run_epoch, P._save_resume = self.saved
         return False
 
 
 def run_trial_parallel(label, fn, want, smi, serial=None, **kw):
     """Run one trial-parallel experiment with the launch counts set to 0
-    just before and read just after; hold them to ``want`` (B1, B2) and no
-    input copied; print its wall, setup, training frames/s and peak memory
-    beside ``serial``'s (phase 12's). Returns (result, meter record,
-    launches)."""
+    just before and read just after; hold them to ``want`` (B1, B2), no
+    input copied and every epoch graphed; print its wall, setup, training
+    frames/s and peak memory beside ``serial``'s (phase 12's). Returns
+    (result, meter record, launches)."""
     import contextlib
     import io
 
@@ -2501,16 +2566,19 @@ def run_trial_parallel(label, fn, want, smi, serial=None, **kw):
           f"{rec['frames'] / rec['train_s']:.1f} frames/s ({rec['frames']} "
           f"frames of every trial in {rec['train_s']:.3f} s), "
           f"max_memory_allocated {rec['peak']} bytes; launches B1 {got[0]} "
-          f"B2 {got[1]} (want {want}), input copies {DC.copy_count}",
-          flush=True)
+          f"B2 {got[1]} (want {want}), input copies {DC.copy_count}; "
+          f"epochs {'/'.join(sorted(rec['paths']))}, "
+          f"{len(rec['captures'])} captures in "
+          f"{sum(rec['captures'].values()):.3f} s, allocator retries "
+          f"{rec['retries']}", flush=True)
     if serial is not None:
         print(f"  phase 12's serial run of the same model and data: wall "
               f"{serial['wall']:.3f} s for {serial['runs']} runs, training "
               f"{serial['fps']:.1f} frames/s, peak {serial['peak']} bytes",
               flush=True)
-    if got != tuple(want) or DC.copy_count:
+    if got != tuple(want) or DC.copy_count or rec["paths"] != {"graphed"}:
         raise AssertionError(f"{label}: launches {got}, want {want}, copies "
-                             f"{DC.copy_count}")
+                             f"{DC.copy_count}, epochs {rec['paths']}")
     return result, rec, got, text
 
 
@@ -3240,7 +3308,7 @@ def attribution_chain(name, spec, state, segs, smi):
 def phase_attribution(smi, models, serve_ms):
     """Phase 15: ``attribute_stages`` of each model in ``models`` ({name:
     (spec, state)}) at its ATTR_MODELS batch, the counts reset just before
-    each call: B1 none, B2's launches per stage (counted at each stage's
+    each call: B1 none, B2's launches per stage (recorded at each stage's
     capture) summing to the model's launches per forward, no input copy;
     the FLOPs of the stages summing to ``flops_per_frame`` times the
     batch; the chain check. Prints every stage row and the stages' sum
@@ -4627,6 +4695,406 @@ def phase_multi_device(smi, vgg_sd):
     return launches, numbers
 
 
+# Phase 20 (graphed epochs): full width, 128x128, bf16 compute, config.yml's
+# hyperparameters, augmentation and dropout on. Serial cases run a plan of
+# epochs (phase index per epoch; the rate halved before a phase's second
+# epoch: a forced ReduceLROnPlateau cut), eagerly twice (per step) and
+# graphed once; the stacked cases alike with per-trial factors.
+G20_FRAMES, G20_VAL = 1024, 256
+G20_FOLD_TRAIN, G20_FOLD_VAL = 512, 128
+G20_PLANS = {"cutoffvgg16": (0, 0, 1), "mobilenetv2": (0, 0)}
+G20_FOLDS, G20_TRIALS = 3, 4
+G20_FACTORS = (0.25, 0.5, 1.0, 2.0)
+G20_BATCHES = (TRAIN_BATCH, 256)
+
+
+def g20_drive(trainer, plan, train_ds, val_ds, batch, per_step, sd):
+    """``trainer`` through ``plan`` (the phase of each epoch; from weights
+    ``sd``), each epoch's training and validation run graphed
+    (``run_epoch``) or per step. Returns the epochs' metrics, the paths
+    the epochs took and the graphed programs' summaries by phase."""
+    from ab_line_classifier_torch.models.common import scale_learning_rate
+
+    run = trainer.run_epoch_per_step if per_step else trainer.run_epoch
+    logs, modes, programs = [], set(), {}
+    prev = None
+    for epoch, p in enumerate(plan):
+        if p != prev:
+            trainer.begin_phase(p, trainer.spec.phases[p],
+                                sd if prev is None else None)
+        else:
+            scale_learning_rate(trainer.optimizer, 0.5)
+        prev = p
+        logs.append(run(train_ds, batch, train=True, shuffle_seed=epoch))
+        modes.add(trainer.epoch_mode)
+        logs.append(run(val_ds, batch, train=False))
+        modes.add(trainer.epoch_mode)
+        for key, prog in trainer.epoch_programs.items():
+            programs[f"{key}{p}" if key == "train" else key] = (
+                prog.step.summary())
+    return logs, modes, programs
+
+
+def g20_snapshot(tensors, logs):
+    """CPU copies of the named tensors, and the epochs' metrics."""
+    return ({k: v.detach().to("cpu", copy=True) for k, v in tensors.items()},
+            logs)
+
+
+def g20_trainer_tensors(trainer):
+    out = {f"model.{k}": v for k, v in trainer.module.state_dict().items()}
+    for i, slots in trainer.optimizer.state_dict()["state"].items():
+        out.update({f"opt.{i}.{k}": v for k, v in slots.items()})
+    return out
+
+
+def g20_rule(label, eager1, eager2, graphed, lr, n_steps):
+    """The equality rule: where the two eager runs are bit-equal, the
+    graphed run must be; otherwise each tensor of the graphed run no
+    farther from the first eager run than the second is, every element
+    within twice a step of lr per step (the train-step rule's bound), and
+    the metrics finite. Returns which held."""
+    (e1, l1), (e2, l2), (g, lg) = eager1, eager2, graphed
+    for logs in (l1, l2, lg):
+        for m in logs:
+            for ms in (m if isinstance(m, list) else [m]):
+                if not all(np.isfinite(v) for v in ms.values()):
+                    raise AssertionError(f"{label}: non-finite metrics {ms}")
+    if all(torch.equal(e1[k], e2[k]) for k in e1) and l1 == l2:
+        bad = [k for k in e1 if not torch.equal(g[k], e1[k])]
+        if bad or lg != l1:
+            raise AssertionError(
+                f"{label}: eager runs bit-equal, the graphed run differs in "
+                f"{bad[:5]} (metrics equal: {lg == l1})")
+        return "bit-equal to eager (eager bit-equal to itself)"
+    worst = 0.0
+    for k in e1:
+        if not e1[k].is_floating_point():
+            continue
+        d_g = float((g[k].float() - e1[k].float()).abs().max())
+        d_e = float((e2[k].float() - e1[k].float()).abs().max())
+        if d_g > d_e or (k.startswith("model.")
+                         and d_g > 2 * lr * n_steps + 1e-7):
+            raise AssertionError(f"{label}: {k} graphed {d_g:.3e} from "
+                                 f"eager, eager {d_e:.3e} from itself")
+        worst = max(worst, d_g)
+    return f"within eager's own spread (largest {worst:.3e})"
+
+
+def g20_idle(fn):
+    """The device's idle share over one call of ``fn`` (after a warm one):
+    1 - the union of the intervals of its kernels, copies and fills on the
+    device's timeline (``torch.profiler``) over the wall (CUDA events).
+    The union, not the sum: a graph's independent nodes may overlap."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
+    busy, reach = 0.0, None
+    for a, b in spans:
+        if reach is None or a > reach:
+            busy += b - a
+            reach = b
+        elif b > reach:
+            busy += b - reach
+            reach = b
+    return 1 - busy / 1e3 / start.elapsed_time(end)
+
+
+def g20_time(fn, n_steps):
+    """ms per step of one more epoch ``fn`` (host clock after a
+    synchronize), and the device's idle share over another
+    (:func:`g20_idle`)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n_steps, g20_idle(fn)
+
+
+def g20_launches(programs):
+    """``captured x replays`` of each program, by kernel."""
+    return {k: {n: f"{c} x {s['replays']}"
+                for n, c in (s["captured_launches"] or {}).items()}
+            for k, s in programs.items()}
+
+
+def g20_release(*trainers):
+    """Drop each trainer's graphed programs (a program's step refers back
+    to its trainer: without this the graphs' memory waits for the cycle
+    collector), then return the cached memory, so each case starts from
+    an empty pool. Returns the GiB reserved before the release."""
+    import gc
+
+    reserved = torch.cuda.memory_reserved() / 2 ** 30
+    for t in trainers:
+        t.epoch_programs.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return reserved
+
+
+def g20_serial(name, spec, sd, train_ds, val_ds, batch, per_forward, smi,
+               timing=True):
+    """Case (a) or (b): eager twice, graphed once; the rule, the launches
+    (equal across the runs and to the data's counts), times."""
+    from ab_line_classifier_torch.ops import depthwise_cuda as DC
+    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+    from ab_line_classifier_torch.predict.benchmark import TRAIN_AUG
+    from ab_line_classifier_torch.train.loop import Trainer
+
+    plan = G20_PLANS[name]
+    nb, nv = train_ds.n_batches(batch), val_ds.n_batches(batch)
+    runs, counts, trainers = [], [], []
+    for per_step in (True, True, False):
+        tr = Trainer(spec, aug_config=TRAIN_AUG, seed=2020,
+                     compute_dtype=torch.bfloat16, device="cuda")
+        PC.reset_launch_count()
+        DC.reset_launch_count()
+        logs, modes, programs = g20_drive(tr, plan, train_ds, val_ds, batch,
+                                          per_step, sd)
+        torch.cuda.synchronize()
+        counts.append((PC.launch_count, DC.launch_count, DC.copy_count))
+        if modes != {"per-step" if per_step else "graphed"}:
+            raise AssertionError(f"{name} at {batch}: paths {modes}")
+        runs.append(g20_snapshot(g20_trainer_tensors(tr), logs))
+        trainers.append(tr)
+    want = (len(plan) * nv, per_forward * len(plan) * (nb + nv), 0)
+    if any(c != want for c in counts):
+        raise AssertionError(f"{name} at {batch}: launches {counts}, the "
+                             f"data's {want}")
+    lr = max(p.lr for p in spec.phases)
+    verdict = g20_rule(f"{name} at {batch}", *runs, lr, len(plan) * nb)
+    out = {"path": "graphed", "verdict": verdict,
+           "capture_s": {k: s["capture_seconds"] for k, s in
+                         programs.items()},
+           "launches": g20_launches(programs),
+           "b1_b2": counts[-1][:2], "state": runs[-1][0],
+           "logs": runs[-1][1]}
+    if timing:
+        p = plan[-1]
+        g_ms, g_idle = g20_time(lambda: trainers[2].run_epoch(
+            train_ds, batch, train=True, shuffle_seed=50), nb)
+        e_ms, e_idle = g20_time(lambda: trainers[1].run_epoch_per_step(
+            train_ds, batch, train=True, shuffle_seed=50), nb)
+        out.update(phase=spec.phases[p].name, graphed_ms=g_ms,
+                   eager_ms=e_ms, graphed_idle=g_idle, eager_idle=e_idle)
+        print(f"graphed epochs on {smi}: {name} batch {batch} "
+              f"[{spec.phases[p].name}] ms/step graphed {g_ms:.4f} eager "
+              f"{e_ms:.4f} (x{e_ms / g_ms:.2f}); idle share graphed "
+              f"{g_idle:.4f} eager {e_idle:.4f}", flush=True)
+    out["reserved_gib"] = g20_release(*trainers)
+    print(f"  {name} batch {batch}: {len(plan)} epochs ({nb} steps and "
+          f"{nv} validation batches each), path graphed, {verdict}; "
+          f"capture s {out['capture_s']}; launches (captured x replays) "
+          f"{out['launches']}, B1 {counts[-1][0]} B2 {counts[-1][1]} in "
+          f"all, as eager and as the data gives them", flush=True)
+    return out
+
+
+def g20_stacked(name, spec, sd, cache, train, val, factors, batch,
+                per_forward, smi):
+    """Case (c): ``len(train)`` trials of ``name`` stacked over ``plan``,
+    eager twice and graphed once; the second epoch of a phase with trial
+    0's factor halved (a forced per-trial cut)."""
+    from ab_line_classifier_torch.ops import depthwise_cuda as DC
+    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+    from ab_line_classifier_torch.parallel.trial_parallel import (
+        ParallelFoldTrainer)
+    from ab_line_classifier_torch.predict.benchmark import TRAIN_AUG
+
+    plan, f = G20_PLANS[name], len(train)
+    runs, counts, summaries, times = [], [], [], {}
+    for per_step in (True, True, False):
+        pt = ParallelFoldTrainer(spec, f, class_weights=np.ones((f, 2)),
+                                 aug_config=TRAIN_AUG, seed=2020,
+                                 compute_dtype=torch.bfloat16,
+                                 device="cuda")
+        params, buffers = pt.init_stacked(warm_start=(sd, None))
+        run = pt.run_epoch_per_step if per_step else pt.run_epoch
+        v_idx, v_mask = pt._batch_tables(val, batch)
+        factor = np.asarray(factors, np.float32)
+        active = np.ones(f, np.float32)
+        PC.reset_launch_count()
+        DC.reset_launch_count()
+        logs, prev, programs = [], None, {}
+        for epoch, p in enumerate(plan):
+            if p != prev:
+                opt = pt.begin_phase(p, spec.phases[p], params)
+            else:
+                factor = factor.copy()
+                factor[0] *= 0.5
+            prev = p
+            rng = np.random.RandomState(epoch)
+            idx, mask = pt._batch_tables([rng.permutation(ix)
+                                          for ix in train], batch)
+            logs.append(run(params, buffers, opt, cache, idx, mask,
+                            train=True, lr_factor=factor, active=active))
+            logs.append(run(params, buffers, None, cache, v_idx, v_mask,
+                            train=False))
+            if pt.epoch_mode != ("per-step" if per_step else "graphed"):
+                raise AssertionError(f"stacked {name}: {pt.epoch_mode}")
+            for key, prog in pt.epoch_programs.items():
+                programs[f"{key}{p}" if key == "train" else key] = (
+                    prog.step.summary())
+        torch.cuda.synchronize()
+        counts.append((PC.launch_count, DC.launch_count, DC.copy_count))
+        tensors = {**{f"p.{k}": v for k, v in params.items()},
+                   **{f"b.{k}": v for k, v in buffers.items()},
+                   **{f"opt.{n}.{k}": v for n, slots in opt.state.items()
+                      for k, v in slots.items()},
+                   "opt.count": torch.as_tensor(opt.count)}
+        runs.append(g20_snapshot(tensors, logs))
+        summaries.append(programs)
+        nb, nv = idx.shape[0], v_idx.shape[0]
+        timed = (lambda: run(params, buffers, opt, cache, idx, mask,
+                             train=True, lr_factor=factor, active=active))
+        times["eager" if per_step else "graphed"] = g20_time(timed, nb)
+        reserved = g20_release(pt)
+    want = (len(plan) * nv, per_forward * len(plan) * (nb + nv), 0)
+    if any(c != want for c in counts):
+        raise AssertionError(f"stacked {name}: launches {counts}, the "
+                             f"data's {want}")
+    lr = max(p.lr for p in spec.phases) * max(factors)
+    verdict = g20_rule(f"stacked {name}", *runs, lr, len(plan) * nb)
+    (g_ms, g_idle), (e_ms, e_idle) = times["graphed"], times["eager"]
+    print(f"graphed epochs on {smi}: stacked {name} {f} x {batch} "
+          f"[{spec.phases[plan[-1]].name}] ms/step graphed {g_ms:.4f} eager "
+          f"{e_ms:.4f} (x{e_ms / g_ms:.2f}); idle share graphed "
+          f"{g_idle:.4f} eager {e_idle:.4f}", flush=True)
+    print(f"  stacked {name}: {len(plan)} epochs ({nb} steps and {nv} "
+          f"validation batches each), path graphed, {verdict}; capture s "
+          f"{ {k: s['capture_seconds'] for k, s in summaries[-1].items()} }; "
+          f"launches (captured x replays) {g20_launches(summaries[-1])}, "
+          f"B1 {counts[-1][0]} B2 {counts[-1][1]} in all", flush=True)
+    return {"verdict": verdict, "graphed_ms": g_ms, "eager_ms": e_ms,
+            "graphed_idle": g_idle, "eager_idle": e_idle,
+            "b1_b2": counts[-1][:2], "reserved_gib": reserved,
+            "capture_s": {k: s["capture_seconds"]
+                          for k, s in summaries[-1].items()}}
+
+
+def phase_graphed_epochs(smi, vgg_sd, mbv2_sd):
+    """Phase 20 (module docstring). Returns the graphed runs' (B1, B2)
+    launches and the phase's numbers."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from ab_line_classifier_torch.data.pipeline import (
+        DeviceCachedDataset, ShardedDeviceCachedDataset)
+    from ab_line_classifier_torch.models import build_model
+    from ab_line_classifier_torch.ops import depthwise_cuda as DC
+    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+    from ab_line_classifier_torch.parallel import mesh as mesh_lib
+    from ab_line_classifier_torch.parallel.multihost import free_port
+    from ab_line_classifier_torch.predict.benchmark import ZOO_HPARAMS
+
+    t_phase = time.perf_counter()
+    images, labels = labelled_frames(G20_FRAMES + G20_VAL, seed=20)
+    train_ds = DeviceCachedDataset.from_arrays(
+        images[:G20_FRAMES], labels[:G20_FRAMES], "cuda")
+    val_ds = DeviceCachedDataset.from_arrays(
+        images[G20_FRAMES:], labels[G20_FRAMES:], "cuda")
+    cache = DeviceCachedDataset.from_arrays(images, labels, "cuda")
+    specs = {"cutoffvgg16": build_model(
+        "cutoffvgg16", dict(ZOO_HPARAMS["cutoffvgg16"], EXTRACT_EPOCHS=2),
+        OUT_HW + (3,), 2, mixed_precision=True, total_epochs=3),
+        "mobilenetv2": build_model("mobilenetv2", ZOO_HPARAMS["mobilenetv2"],
+                                   OUT_HW + (3,), 2, mixed_precision=True)}
+    weights = {"cutoffvgg16": vgg_sd, "mobilenetv2": mbv2_sd}
+    per_forward = {"cutoffvgg16": 0, "mobilenetv2": ZOO["mobilenetv2"][1]}
+    numbers, b1, b2 = {}, 0, 0
+    flags = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name in ("cutoffvgg16", "mobilenetv2"):
+            for batch in G20_BATCHES:
+                r = g20_serial(name, specs[name], weights[name], train_ds,
+                               val_ds, batch, per_forward[name], smi)
+                b1, b2 = b1 + r["b1_b2"][0], b2 + r["b1_b2"][1]
+                numbers[f"{name} {batch}"] = r
+        perm = np.random.RandomState(7).permutation(G20_FRAMES)
+        folds = [np.roll(perm, -k * G20_FOLD_VAL) for k in range(G20_FOLDS)]
+        stacked = {
+            "cutoffvgg16": ([fo[G20_FOLD_VAL:G20_FOLD_VAL + G20_FOLD_TRAIN]
+                             for fo in folds],
+                            [fo[:G20_FOLD_VAL] for fo in folds],
+                            np.ones(G20_FOLDS)),
+            "mobilenetv2": ([perm[:G20_FOLD_TRAIN]] * G20_TRIALS,
+                            [np.arange(G20_FRAMES, G20_FRAMES + G20_VAL)]
+                            * G20_TRIALS, np.asarray(G20_FACTORS))}
+        for name, (tr_rows, va_rows, factors) in stacked.items():
+            r = g20_stacked(name, specs[name], weights[name], cache, tr_rows,
+                            va_rows, factors, TRAIN_BATCH, per_forward[name],
+                            smi)
+            b1, b2 = b1 + r["b1_b2"][0], b2 + r["b1_b2"][1]
+            numbers[f"stacked {name}"] = r
+
+        # (d) NCCL at world size 1: the frames split over a (1, 1) mesh's
+        # data axis, each gather's uint8 all_reduce captured in the graph.
+        store = dist.TCPStore("127.0.0.1", free_port(), 1, True)
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", store=store, rank=0,
+                                world_size=1,
+                                timeout=datetime.timedelta(seconds=300))
+        try:
+            from ab_line_classifier_torch.predict.benchmark import TRAIN_AUG
+            from ab_line_classifier_torch.train.loop import Trainer
+
+            mesh = mesh_lib.make_mesh(1, 1, device="cuda")
+            sharded = ShardedDeviceCachedDataset.from_arrays(
+                images[:G20_FRAMES], labels[:G20_FRAMES], "cuda", mesh)
+            tr = Trainer(specs["cutoffvgg16"], aug_config=TRAIN_AUG,
+                         seed=2020, compute_dtype=torch.bfloat16,
+                         device="cuda", mesh=mesh)
+            PC.reset_launch_count()
+            DC.reset_launch_count()
+            logs, modes, programs = g20_drive(
+                tr, G20_PLANS["cutoffvgg16"], sharded, val_ds, TRAIN_BATCH,
+                False, vgg_sd)
+            torch.cuda.synchronize()
+            b1, b2 = b1 + PC.launch_count, b2 + DC.launch_count
+            got = g20_snapshot(g20_trainer_tensors(tr), logs)[0]
+            g20_release(tr)
+        finally:
+            dist.destroy_process_group()
+        ref = numbers[f"cutoffvgg16 {TRAIN_BATCH}"]
+        bad = [k for k in ref["state"]
+               if not torch.equal(got[k], ref["state"][k])]
+        if modes != {"graphed"} or bad or logs != ref["logs"]:
+            raise AssertionError(f"NCCL world size 1: paths {modes}, "
+                                 f"differs from the mesh-free graphed run "
+                                 f"in {bad[:5]}")
+        print(f"  cutoffvgg16 batch {TRAIN_BATCH} under NCCL at world size "
+              f"1 (frames split over the data axis, the gather's all_reduce "
+              f"in the graph): path graphed, bit-equal to the mesh-free "
+              f"graphed run; capture s "
+              f"{ {k: s['capture_seconds'] for k, s in programs.items()} }",
+              flush=True)
+    finally:
+        torch.backends.cudnn.deterministic = flags
+    for r in numbers.values():
+        r.pop("state", None)
+        r.pop("logs", None)
+    numbers["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 20: {numbers['seconds']:.1f} s", flush=True)
+    return (b1, b2), numbers
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an "
@@ -4789,6 +5257,11 @@ def main():
     phase("19 multi-device: NCCL at world size 1, two gloo ranks on cuda:0")
     paths, multi_device = phase_multi_device(smi, vgg_sd)
     launches.update(paths)
+    torch.cuda.synchronize()
+
+    phase("20 graphed epochs: CUDA graphs of the training step")
+    launches["graphed_epochs"], graphed = phase_graphed_epochs(
+        smi, vgg_sd, weights["mobilenetv2"])
 
     def graph_runs(kernel):
         """Runs on the card of ``kernel`` in one replay of each model's
@@ -4850,7 +5323,8 @@ def main():
         "attribution": {name: {k: v for k, v in a.items() if k != "stages"}
                         for name, a in attribution.items()},
         "export": exports, "dataset_creation_s": dataset_s,
-        "jpeg_wandb": jpeg_wandb, "multi_device": multi_device}))
+        "jpeg_wandb": jpeg_wandb, "multi_device": multi_device,
+        "graphed_epochs": graphed}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

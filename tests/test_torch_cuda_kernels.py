@@ -271,3 +271,151 @@ def test_mobilenetv2_training_step_through_the_depthwise_kernel():
         err = float((got[n] - want[n]).norm() / want[n].norm().clamp_min(
             1e-30))
         assert err <= 1e-4, (n, err)
+
+
+# -- graphed epochs (train/graphed.py): CUDA graphs of the training step ----
+GRAPH_HP = {
+    "cnn0": {"LR": 1e-3, "DROPOUT": 0.1, "L2_LAMBDA": 1e-4,
+             "NODES_DENSE0": 8, "KERNEL_SIZE": 3, "STRIDES": 2,
+             "MAXPOOL_SIZE": 2, "BLOCKS": 1, "INIT_FILTERS": 4,
+             "FILTER_EXP_BASE": 2},
+    "mobilenetv2": {"DROPOUT": 0.2, "CUTOFF_IDX": 53, "FREEZE_IDX": -1}}
+GRAPH_AUG = {"ZOOM_RANGE": 0.1, "ROTATION_RANGE": 45, "HORIZONTAL_FLIP": True,
+             "WIDTH_SHIFT_RANGE": 0.2, "HEIGHT_SHIFT_RANGE": 0.2,
+             "BRIGHTNESS_RANGE": 0.3}
+
+
+def _graph_case(name):
+    """A 32x32 model of ``name``, 40 frames cached on the card, cuDNN
+    deterministic (restored by the caller from the returned flags)."""
+    import numpy as np
+
+    from ab_line_classifier_torch.data.pipeline import DeviceCachedDataset
+    from ab_line_classifier_torch.models import build_model
+    from ab_line_classifier_torch.predict.benchmark import ZOO_HPARAMS
+
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    hp = dict(ZOO_HPARAMS.get(name, {}), **GRAPH_HP[name])
+    spec = build_model(name, hp, (32, 32, 3), 2)
+    rng = np.random.RandomState(0)
+    images = rng.randint(0, 256, (40, 32, 32, 3)).astype(np.uint8)
+    labels = rng.randint(0, 2, 40)
+    return spec, images, labels, DeviceCachedDataset.from_arrays(
+        images, labels, "cuda"), flags
+
+
+def _launches():
+    return preprocess_cuda.launch_count, depthwise_cuda.launch_count
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["cnn0", "mobilenetv2"])
+def test_graphed_epoch_equals_the_eager_epoch(name):
+    """Two epochs over a device cache at batch 16 (the last batch padded;
+    augmentation and dropout on; the rate halved between them), graphed
+    (one capture for training, one for evaluation, the rest replays) and
+    per step: weights, statistics, optimizer state and metrics bit-equal,
+    and the kernels' launches (the replays' counted in) equal."""
+    _need_cuda()
+    from ab_line_classifier_torch.models.common import scale_learning_rate
+    from ab_line_classifier_torch.predict.benchmark import (
+        depthwise_layer_shapes)
+    from ab_line_classifier_torch.train.loop import Trainer
+
+    spec, _, _, cache, flags = _graph_case(name)
+    try:
+        runs = []
+        for per_step in (False, True):
+            preprocess_cuda.reset_launch_count()
+            depthwise_cuda.reset_launch_count()
+            t = Trainer(spec, seed=1, aug_config=GRAPH_AUG, device="cuda")
+            t.begin_phase(0, spec.phases[0])
+            run = t.run_epoch_per_step if per_step else t.run_epoch
+            logs = []
+            for epoch in range(2):
+                logs.append(run(cache, 16, train=True, shuffle_seed=epoch))
+                logs.append(run(cache, 16, train=False))
+                assert t.epoch_mode == ("per-step" if per_step
+                                        else "graphed")
+                if epoch == 0:
+                    scale_learning_rate(t.optimizer, 0.5)
+            if not per_step:
+                steps = {k: p.step.summary()
+                         for k, p in t.epoch_programs.items()}
+                assert steps["train"]["replays"] == 5
+                assert steps["eval"]["replays"] == 5
+            runs.append((t, logs, _launches()))
+        (g, g_logs, g_n), (e, e_logs, e_n) = runs
+        assert g_logs == e_logs
+        assert g_n == e_n and g_n[0] == 6
+        assert g_n[1] == 12 * len(depthwise_layer_shapes(spec))
+        sg, se = g.module.state_dict(), e.module.state_dict()
+        for k in se:
+            assert torch.equal(sg[k], se[k]), k
+        og, oe = g.optimizer.state_dict(), e.optimizer.state_dict()
+        for i, slots in oe["state"].items():
+            for k, v in slots.items():
+                assert torch.equal(og["state"][i][k], v), (i, k)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["cnn0", "mobilenetv2"])
+def test_graphed_stacked_epoch_equals_the_eager_epoch(name):
+    """Two trials' stacked epoch (their host draws copied in before each
+    replay; trial 1 at half the rate and stopped in the second epoch),
+    graphed and per step: bit-equal, the same launches (B2 once a forward
+    over both trials' channels)."""
+    _need_cuda()
+    import numpy as np
+
+    from ab_line_classifier_torch.parallel import trial_parallel as tp
+    from ab_line_classifier_torch.predict.benchmark import (
+        depthwise_layer_shapes)
+
+    spec, _, _, cache, flags = _graph_case(name)
+    train = [np.arange(0, 21), np.arange(14, 40)]
+    val = [np.arange(0, 8), np.arange(21, 30)]
+    try:
+        runs = []
+        for per_step in (False, True):
+            preprocess_cuda.reset_launch_count()
+            depthwise_cuda.reset_launch_count()
+            pt = tp.ParallelFoldTrainer(
+                spec, 2, class_weights=np.ones((2, 2), np.float32), seed=4,
+                aug_config=GRAPH_AUG, device="cuda")
+            params, buffers = pt.init_stacked()
+            opt = pt.begin_phase(0, spec.phases[0], params)
+            run = pt.run_epoch_per_step if per_step else pt.run_epoch
+            v_idx, v_mask = pt._batch_tables(val, 16)
+            logs = []
+            for epoch, active in enumerate(([1.0, 1.0], [1.0, 0.0])):
+                rng = np.random.RandomState(epoch)
+                idx, mask = pt._batch_tables(
+                    [rng.permutation(ix) for ix in train], 16)
+                logs.append(run(params, buffers, opt, cache, idx, mask,
+                                train=True,
+                                lr_factor=np.array([1.0, 0.5], np.float32),
+                                active=np.array(active, np.float32)))
+                logs.append(run(params, buffers, None, cache, v_idx, v_mask,
+                                train=False))
+                assert pt.epoch_mode == ("per-step" if per_step
+                                         else "graphed")
+            runs.append(({**params, **buffers}, opt, logs, _launches()))
+        (g, g_opt, g_logs, g_n), (e, e_opt, e_logs, e_n) = runs
+        assert g_logs == e_logs and g_n == e_n
+        assert g_n == (2, 6 * len(depthwise_layer_shapes(spec)))
+        for k in e:
+            assert torch.equal(g[k], e[k]), k
+        assert g_opt.count.tolist() == e_opt.count.tolist() == [4, 2]
+        for n, slots in e_opt.state.items():
+            for k, v in slots.items():
+                assert torch.equal(g_opt.state[n][k], v), (n, k)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags

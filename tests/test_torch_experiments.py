@@ -248,12 +248,26 @@ def test_fold_data_cached_within_the_run_budget(workspace, kind, limit_mb):
 
 
 def test_cross_validation_matches_jax(workspace, monkeypatch, tmp_path):
+    from ab_line_classifier_torch.train.loop import Trainer
+
     jax_path = config(workspace, "kfold_jax")
     port_path = config(workspace, "kfold_port")
     run_jax(jax_path, "cross_validation")
+    paths = []
+    run_epoch = Trainer.run_epoch
+
+    def recorded(trainer, *args, **kw):
+        out = run_epoch(trainer, *args, **kw)
+        paths.append(trainer.epoch_mode)
+        return out
+
+    monkeypatch.setattr(Trainer, "run_epoch", recorded)
     summary, records, done, before, resumed = run_port_interrupted(
         monkeypatch, port_path, "cross_validation")
     assert before == [0, 1] and resumed == [1, 2]
+    # Every fold's cached data takes the graphed epoch runner (uncaptured
+    # on the CPU), not the streamed per-step one.
+    assert paths and set(paths) == {"uncaptured"}
     with open(records, "rb") as f:
         assert f.read().startswith(done) and done.count(b"\n") == 1
 

@@ -13,6 +13,8 @@ moves it by ~3e-5 relative), and numpy's and XLA's float32 powers may
 differ by an ulp.
 """
 
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -114,3 +116,59 @@ def test_keras_adam_is_not_torch_adam():
     keras = -0.1 * g.numpy() * 0.31622776 / (0.031622776 * g.numpy() + 1e-7)
     np.testing.assert_allclose(steps["keras"], keras, rtol=1e-5)
     assert abs(steps["keras"][0] - steps["torch"][0]) > 0.1
+
+
+def _torch_optimizer(optimizer, params):
+    """The optimizers the port used before its rates and step counts moved
+    to the device: ``torch.optim``'s RMSprop and SGD, and Keras Adam
+    counting its steps in a host int."""
+    if optimizer == "rmsprop":
+        return torch.optim.RMSprop(params, lr=LR, alpha=0.9, eps=1e-7)
+    if optimizer == "sgd":
+        return torch.optim.SGD(params, lr=LR)
+    return C.KerasAdam(params, lr=LR)
+
+
+@pytest.mark.parametrize("optimizer", ["adam", "rmsprop", "sgd"])
+def test_optimizer_resumes_older_state_dict(optimizer):
+    """A resume file written by the earlier optimizers (``torch.optim``'s
+    group keys and float step tensors; Adam's step an int) loads into
+    ``make_optimizer``'s optimizer, which then steps as the old one goes
+    on stepping, across a rate cut."""
+    phase = C.TrainPhase(name="t", optimizer=optimizer, lr=LR,
+                         trainable=TRAINABLE)
+    old_m = module(params())
+    old = _torch_optimizer(optimizer, [old_m.conv.weight,
+                                       old_m.dense.weight])
+    for step in range(3):
+        for name in ("conv", "dense"):
+            getattr(old_m, name).weight.grad = torch.tensor(
+                grads(step)[name]["kernel"])
+        old.step()
+    saved = copy.deepcopy(old.state_dict())
+    if optimizer == "adam":
+        for st in saved["state"].values():
+            st["step"] = int(st["step"])
+    new_m = module(params())
+    new_m.load_state_dict(old_m.state_dict())
+    new = C.make_optimizer(phase, new_m)
+    new.load_state_dict(saved)
+    if isinstance(old, C.DeviceLROptimizer):
+        C.scale_learning_rate(old, 0.5)
+    else:
+        for group in old.param_groups:
+            group["lr"] *= 0.5
+    C.scale_learning_rate(new, 0.5)
+    for step in range(3, STEPS):
+        for m, opt in ((old_m, old), (new_m, new)):
+            for name in ("conv", "dense"):
+                getattr(m, name).weight.grad = torch.tensor(
+                    grads(step)[name]["kernel"])
+            opt.step()
+        for name in ("conv", "dense"):
+            np.testing.assert_allclose(
+                getattr(new_m, name).weight.detach().numpy(),
+                getattr(old_m, name).weight.detach().numpy(), rtol=1e-6,
+                atol=1e-4 * LR, err_msg=f"{optimizer} step {step} {name}")
+    if optimizer != "sgd":
+        assert all(int(st["step"]) == STEPS for st in new.state.values())
