@@ -5,8 +5,11 @@ frames named on the command line (matched by file name), or for the first
 ``--limit`` frames of the frames table, into ``PATHS.HEATMAPS``. ``--device``
 picks the device (default ``cuda``; ``cpu`` runs the plain PyTorch path),
 ``--profile`` writes a ``torch.profiler`` trace under
-``<PATHS.LOGS>/profiles``. Under ``torchrun`` every rank runs the pass
-(the JAX package's Grad-CAM has no mesh) and rank 0 writes the PNGs.
+``<PATHS.LOGS>/profiles``. The frames go in batches of up to 32, one CUDA
+graph per batch shape on the card (replayed from the shape's second
+batch); the CLI prints the path the pass took (``graphed`` or
+``uncaptured``). Under ``torchrun`` every rank runs the pass (the JAX
+package's Grad-CAM has no mesh) and rank 0 writes the PNGs.
 """
 
 import argparse
@@ -58,6 +61,13 @@ def main():
         explainer = GradCAMExplainer(cfg, mode=args.mode, device=device)
         run_maybe_traced(lambda: explainer.apply_gradcam(frame_df),
                          args.profile, cfg)
+        fused = explainer.fused
+        line = f"Grad-CAM pass: {fused.graph_mode}"
+        if fused.graphed:
+            line += " (" + ", ".join(
+                f"{shape}: {s['eager_steps']} eager, {s['replays']} "
+                f"replayed" for shape, s in fused.summaries().items()) + ")"
+        print(line)
         if is_main():
             print(f"wrote {len(frame_df)} heatmaps to "
                   f"{cfg['PATHS']['HEATMAPS']}")

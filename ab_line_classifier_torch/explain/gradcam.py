@@ -25,6 +25,13 @@ weighting). In a bfloat16 model the tap, its gradient and the heatmap math
 stay in bfloat16, as the JAX package's dtype promotion keeps them; the
 heatmaps come back as float32.
 
+On CUDA the pass runs as one CUDA graph per input shape
+(:class:`FusedGradCAM`, on ``train/graphed.py``'s ``StepGraph``), the
+counterpart of the JAX package's one jitted program: eager for a shape's
+first batch, captured at its second, replayed from then on, with B1's and
+B2's launches counted per replay (``ops/launches.py``). On the CPU the
+same body runs uncaptured.
+
 pandas, PIL and matplotlib are imported only by the table and figure
 methods of :class:`GradCAMExplainer`.
 """
@@ -32,7 +39,7 @@ methods of :class:`GradCAMExplainer`.
 from __future__ import annotations
 
 import os
-from typing import Callable, Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,11 +47,13 @@ import torch.nn.functional as F
 
 from ab_line_classifier_torch import resolve_device
 from ab_line_classifier_torch.config import Config
+from ab_line_classifier_torch.data.pipeline import PinnedStaging
 from ab_line_classifier_torch.models import build_model
 from ab_line_classifier_torch.models.common import ModelSpec
 from ab_line_classifier_torch.ops.image import linear_resize
 from ab_line_classifier_torch.ops.preprocess_cuda import preprocess_frames
 from ab_line_classifier_torch.predict.predict import load_module
+from ab_line_classifier_torch.train.graphed import StepGraph, capturable
 from ab_line_classifier_torch.utils import checkpoint as ckpt
 from ab_line_classifier_torch.utils.profiling import annotate
 
@@ -76,45 +85,136 @@ def heatmap_overlay(orig_img: np.ndarray, cam: np.ndarray,
     return np.clip(blend, 0, 255).astype(np.uint8)
 
 
+class FusedGradCAM:
+    """The batched Grad-CAM pass of one module in one mode; see
+    :func:`build_fused_gradcam`. ``fused(frames_u8) -> (probs, heatmaps)``.
+
+    Like the JAX package's ``jax.jit``, one program is made per input
+    shape: on CUDA a :class:`~ab_line_classifier_torch.train.graphed.
+    StepGraph` whose body reads a fixed uint8 input and leaves its outputs
+    in fixed tensors. A shape's first call runs the pass eagerly on the
+    shared side stream (B1's index tables, the libraries' handles and
+    workspaces, the autograd engine are made there), its second captures
+    the pass as a CUDA graph and every later call replays it. The depthwise
+    layers' packed weights are packed inside the graph, so a replay sees
+    weights copied into the module in place (``load_state_dict``). All of a
+    pass's graphs share one memory pool, which holds the pass's peak
+    memory for as long as the pass lives, and go with the pass. On the CPU
+    the same body runs uncaptured each call. A capture that fails raises;
+    nothing reruns the pass eagerly in its place.
+
+    Each call copies its frames into the shape's fixed input (host frames
+    through pinned staging buffers) and returns clones of the fixed
+    outputs, so a later call never overwrites what an earlier one
+    returned. :meth:`eager` is the same pass dispatched op by op on the
+    frames themselves."""
+
+    def __init__(self, spec: ModelSpec, module: torch.nn.Module,
+                 mode: str = "normal",
+                 out_hw: Optional[Tuple[int, int]] = None):
+        if mode not in MODES:
+            raise ValueError(f"Grad-CAM mode {mode!r} not one of {MODES}")
+        self.spec = spec
+        self.module = module
+        self.mode = mode
+        self.out_hw = tuple(out_hw or spec.input_shape[:2])
+        self.device = next(module.parameters()).device
+        self.graphed = capturable(self.device)
+        module.requires_grad_(False)
+        self._pool = torch.cuda.graph_pool_handle() if self.graphed else None
+        self._staging = PinnedStaging(self.device)
+        self._programs: Dict[tuple, tuple] = {}
+
+    @property
+    def graph_mode(self) -> str:
+        """``graphed`` or ``uncaptured``: the path the pass takes."""
+        return "graphed" if self.graphed else "uncaptured"
+
+    def summaries(self) -> Dict[str, Dict]:
+        """:meth:`StepGraph.summary` of each input shape's program, keyed
+        ``"BxHxWx3"``."""
+        return {"x".join(map(str, shape)): step.summary()
+                for (shape, _), (_, _, step) in self._programs.items()}
+
+    def eager(self, frames_u8: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The pass op by op on ``frames_u8`` (on the module's device)."""
+        return _gradcam_pass(self.spec, self.module, self.mode, self.out_hw,
+                             frames_u8)
+
+    def __call__(self, frames_u8) -> Tuple[torch.Tensor, torch.Tensor]:
+        frames = torch.as_tensor(frames_u8)
+        fixed, out, step = self._program(frames)
+        if frames.device == self.device:
+            fixed.copy_(frames)
+        else:
+            self._staging(frames, out=[fixed])
+        step()
+        probs, cams = out
+        if self.graphed:
+            return probs.clone(), cams.clone()
+        return probs, cams
+
+    def _program(self, frames: torch.Tensor):
+        """The input shape's fixed input, output list and step."""
+        key = (tuple(frames.shape), frames.dtype)
+        prog = self._programs.get(key)
+        if prog is None:
+            fixed = torch.empty(key[0], dtype=frames.dtype,
+                                device=self.device)
+            out = []
+            # The body holds what it reads, not the pass: dropping the
+            # pass frees its graphs without the cycle collector.
+            spec, module, mode, hw = (self.spec, self.module, self.mode,
+                                      self.out_hw)
+
+            def body():
+                out[:] = _gradcam_pass(spec, module, mode, hw, fixed)
+
+            prog = self._programs[key] = (fixed, out, StepGraph(
+                body, self.device, capture=self.graphed, modules=(module,),
+                pool=self._pool))
+        return prog
+
+
+def _gradcam_pass(spec: ModelSpec, module: torch.nn.Module, mode: str,
+                  hw: Tuple[int, int], frames_u8: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Probabilities and heatmaps of one batch, op by op."""
+    tap = spec.last_conv_layer
+    with annotate("gradcam.preprocess"):
+        x = preprocess_frames(frames_u8, out_hw=tuple(spec.input_shape[:2]),
+                              preprocess_mode=spec.preprocess_mode,
+                              out_dtype=spec.dtype)
+    with torch.enable_grad():
+        with annotate("gradcam.forward"):
+            probs, caps = module(x, leaf=tap)
+        a = caps[tap]                                      # [B, h, w, C]
+        cls = probs.argmax(dim=-1, keepdim=True)
+        # d probs[b, cls_b] / d a: the vjp of the one-hot cotangent.
+        with annotate("gradcam.gradient"):
+            grads, = torch.autograd.grad(probs.gather(1, cls).sum(), a)
+    a = a.detach()
+    with annotate("gradcam.heatmap"):
+        return probs.detach(), _heatmaps(a, grads, mode, hw)
+
+
 def build_fused_gradcam(spec: ModelSpec, module: torch.nn.Module,
                         mode: str = "normal",
                         out_hw: Optional[Tuple[int, int]] = None
-                        ) -> Callable[[torch.Tensor],
-                                      Tuple[torch.Tensor, torch.Tensor]]:
+                        ) -> FusedGradCAM:
     """The batched Grad-CAM pass of ``spec`` through ``module`` (its graph
-    module, in eval mode, on the device the frames will lie on; see
+    module, in eval mode, on the device it runs on; see
     ``predict.load_module``). Returns ``fn(frames_u8) -> (probs float32
     [B, C], heatmaps float32 [B, H, W] in [0, 1])`` for uint8 ``[B, H_src,
-    W_src, 3]`` frames on that device; ``(H, W)`` is ``out_hw`` (default
-    the model's input size).
+    W_src, 3]`` frames, on the module's device or on the host; ``(H, W)``
+    is ``out_hw`` (default the model's input size). On CUDA each input
+    shape runs as a CUDA graph from its second call
+    (:class:`FusedGradCAM`); ``fn.eager`` is the pass op by op.
 
     The module's parameters are set not to require grad. ``fn`` records
     autograd itself: do not call it under ``torch.inference_mode``."""
-    if mode not in MODES:
-        raise ValueError(f"Grad-CAM mode {mode!r} not one of {MODES}")
-    tap = spec.last_conv_layer
-    in_hw = tuple(spec.input_shape[:2])
-    hw = tuple(out_hw or in_hw)
-    module.requires_grad_(False)
-
-    def fused(frames_u8: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        with annotate("gradcam.preprocess"):
-            x = preprocess_frames(frames_u8, out_hw=in_hw,
-                                  preprocess_mode=spec.preprocess_mode,
-                                  out_dtype=spec.dtype)
-        with torch.enable_grad():
-            with annotate("gradcam.forward"):
-                probs, caps = module(x, leaf=tap)
-            a = caps[tap]                                  # [B, h, w, C]
-            cls = probs.argmax(dim=-1, keepdim=True)
-            # d probs[b, cls_b] / d a: the vjp of the one-hot cotangent.
-            with annotate("gradcam.gradient"):
-                grads, = torch.autograd.grad(probs.gather(1, cls).sum(), a)
-        a = a.detach()
-        with annotate("gradcam.heatmap"):
-            return probs.detach(), _heatmaps(a, grads, mode, hw)
-
-    return fused
+    return FusedGradCAM(spec, module, mode, out_hw)
 
 
 def _heatmaps(a: torch.Tensor, grads: torch.Tensor, mode: str,
@@ -179,15 +279,16 @@ class GradCAMExplainer:
         self.hm_intensity = 0.5
         self.mode = (mode or cfg["EXPLAINABILITY"]["GRAD_CAM"]["MODE"]).lower()
         self.conv_layer = spec.last_conv_layer
-        self._fused = build_fused_gradcam(spec, self.module, self.mode,
+        self.fused = build_fused_gradcam(spec, self.module, self.mode,
                                           out_hw=self.img_dim)
 
     def explain_frames(self, frames_u8: np.ndarray
                        ) -> Tuple[np.ndarray, np.ndarray]:
         """uint8 host frames ``[B, H, W, 3]`` -> (probabilities ``[B, C]``,
-        heatmaps ``[B, IMG_DIM]`` in [0, 1]), float32, from one pass."""
-        frames = torch.from_numpy(np.ascontiguousarray(frames_u8))
-        probs, cams = self._fused(frames.to(self.device))
+        heatmaps ``[B, IMG_DIM]`` in [0, 1]), float32, from one pass (one
+        CUDA graph per batch shape from its second batch; the frames go
+        to the card through pinned staging)."""
+        probs, cams = self.fused(np.ascontiguousarray(frames_u8))
         return probs.cpu().numpy(), cams.cpu().numpy()
 
     def heatmap_overlay(self, orig_img: np.ndarray,

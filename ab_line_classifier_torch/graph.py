@@ -301,6 +301,17 @@ class GraphModule(nn.Module):
             generator = torch.Generator().manual_seed(0)
         self.graph = graph
         self.capture = tuple(capture)
+        # After each layer, the activations no later layer reads: the
+        # forward lets them go there (the output and the captures stay),
+        # so a pass holds what is live, not every activation of the graph.
+        last = {}
+        for i, spec in enumerate(graph.layers[1:]):
+            last.update((n, i) for n in spec.inputs)
+        keep = {graph.output, *self.capture}
+        self._dead_after = [[] for _ in graph.layers[1:]]
+        for n, i in last.items():
+            if n not in keep:
+                self._dead_after[i].append(n)
         for spec in graph.layers[1:]:
             if spec.module_fn is not None:
                 self.add_module(spec.name, spec.module_fn(generator))
@@ -338,9 +349,11 @@ class GraphModule(nn.Module):
         acts: Dict[str, torch.Tensor] = {INPUT: _to_internal(x)}
         overrides = overrides or {}
         captured = {}
-        for spec in self.graph.layers[1:]:
+        for i, spec in enumerate(self.graph.layers[1:]):
             if spec.name in overrides:
                 acts[spec.name] = _to_internal(overrides[spec.name])
+                for n in self._dead_after[i]:
+                    del acts[n]
                 continue
             ins = [acts[n] for n in spec.inputs]
             if spec.kind == KIND_DROPOUT:
@@ -361,6 +374,8 @@ class GraphModule(nn.Module):
                 captured[leaf] = _to_public(y).detach().requires_grad_()
                 y = _to_internal(captured[leaf])
             acts[spec.name] = y
+            for n in self._dead_after[i]:
+                del acts[n]
         out = _to_public(acts[self.graph.output])
         if leaf is not None and leaf not in captured:
             raise GraphError(f"no computed layer named {leaf!r}")

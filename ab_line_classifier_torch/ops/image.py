@@ -17,7 +17,7 @@ kernel against it, and the serving path only reaches it for CPU tensors.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -127,6 +127,22 @@ def linear_resize_weights(src: int, dst: int,
     return np.where(inside[None, :], w, f32(0.0)).astype(f32)
 
 
+_resize_weights: Dict[tuple, torch.Tensor] = {}
+
+
+def _device_resize_weights(src: int, dst: int, antialias: bool,
+                           device: torch.device) -> torch.Tensor:
+    """:func:`linear_resize_weights` on ``device``, made once per
+    ``(src, dst, antialias, device)``: a call after the first copies
+    nothing from the host, so a CUDA graph can capture it."""
+    key = (src, dst, antialias, device)
+    w = _resize_weights.get(key)
+    if w is None:
+        w = _resize_weights[key] = torch.as_tensor(
+            linear_resize_weights(src, dst, antialias), device=device)
+    return w
+
+
 def linear_resize(x: torch.Tensor, out_hw: Tuple[int, int],
                   antialias: bool = True) -> torch.Tensor:
     """``jax.image.resize(x, (B,) + out_hw, method="linear", antialias=)``
@@ -135,12 +151,10 @@ def linear_resize(x: torch.Tensor, out_hw: Tuple[int, int],
     x = x.to(torch.float32)
     h, w = x.shape[1:]
     if h != out_hw[0]:
-        wh = torch.as_tensor(linear_resize_weights(h, out_hw[0], antialias),
-                             device=x.device)
+        wh = _device_resize_weights(h, out_hw[0], antialias, x.device)
         x = torch.einsum("bhw,hi->biw", x, wh)
     if w != out_hw[1]:
-        ww = torch.as_tensor(linear_resize_weights(w, out_hw[1], antialias),
-                             device=x.device)
+        ww = _device_resize_weights(w, out_hw[1], antialias, x.device)
         x = torch.einsum("bhw,wj->bhj", x, ww)
     return x
 

@@ -7,7 +7,8 @@
   timed with CUDA events and the n-vs-2n check
   (:func:`dispatch_guarded_seconds`).
 * :func:`gradcam_benchmark` — frames/sec of the batched Grad-CAM pass
-  (preprocess -> forward -> tap gradient -> heatmaps), timed the same way.
+  (preprocess -> forward -> tap gradient -> heatmaps) as users run it (a
+  CUDA graph per batch shape on the card), timed the same way.
 * :func:`single_frame_latency_benchmark` — serial batch-1 latency through
   the serving forward, as a dependency-chained loop: captured once as a
   CUDA graph and replayed, beside the same loop run eagerly.
@@ -259,7 +260,11 @@ def gradcam_benchmark(batch_size: int = 256,
     """Frames/sec of the batched Grad-CAM pass of ``spec`` (default:
     mixed-precision cutoffvgg16) in ``mode``: device-resident uint8 frames
     -> preprocess -> forward -> tap gradient -> heatmaps, one pass per
-    batch (the JAX package's ``gradcam_benchmark``)."""
+    batch (the JAX package's ``gradcam_benchmark``). The pass is the one
+    users run: on CUDA a CUDA graph, the warm-up calls (at least two
+    there) running its eager step and its capture, then replays; the
+    result gives its ``graph_mode`` and ``capture_seconds`` (None
+    uncaptured)."""
     from ab_line_classifier_torch.explain.gradcam import build_fused_gradcam
     from ab_line_classifier_torch.predict.predict import load_module
 
@@ -270,19 +275,23 @@ def gradcam_benchmark(batch_size: int = 256,
     fused = build_fused_gradcam(spec, module, mode)
     src = tuple(src_hw or img_dim)
     frames = random_frames(batch_size, src, seed, device)
-    for _ in range(n_warmup):
+    for _ in range(max(n_warmup, 2 if fused.graphed else 0)):
         fused(frames)
     run_many, fallback = timers(lambda: fused(frames), device)
     dt = dispatch_guarded_seconds(run_many, fallback, n_iters)
     fps = batch_size * n_iters / dt
+    summary, = fused.summaries().values()
     result = {"gradcam_frames_per_sec": float(fps),
               "batch_size": batch_size, "mode": mode,
               "ms_per_batch": float(dt / n_iters * 1000),
               "model": spec.name, "src_hw": list(src),
-              "device": _device_name(device)}
+              "device": _device_name(device),
+              "graph_mode": fused.graph_mode,
+              "capture_seconds": summary["capture_seconds"]}
     if verbose:
         print(f"{spec.name} Grad-CAM [{mode}] on {result['device']}: "
-              f"{fps:,.0f} frames/sec (batch {batch_size})")
+              f"{fps:,.0f} frames/sec (batch {batch_size}, "
+              f"{fused.graph_mode})")
     return result
 
 

@@ -6,10 +6,15 @@ first ``max_rows`` validation frames (``epoch, idx, frame, label, probs,
 pred``, a CSV per epoch under the tracker's run directory) through the
 port's :class:`~ab_line_classifier_torch.predict.predict.Predictor`
 (kernel B1 on CUDA), and Grad-CAM heatmap PNGs of the first
-``n_heatmaps`` rows through the port's Grad-CAM pass. The CSV is written
-with the standard library: no pandas. Under a device mesh every rank runs
-the same pass (a sharded cache's gathers are collectives) and rank 0
-writes.
+``n_heatmaps`` rows through the port's Grad-CAM pass. As the JAX
+package compiles its table forward and Grad-CAM pass once a run, the
+logger keeps one ``Predictor`` and one Grad-CAM pass for its life: each
+epoch's weights are copied into the same module in place
+(``load_state_dict``), so the heatmap pass, a CUDA graph on the card, is
+captured once a run (at the second epoch) and replayed in every later
+epoch. The CSV is written with the standard library: no pandas. Under a
+device mesh every rank runs the same pass (a sharded cache's gathers are
+collectives) and rank 0 writes.
 """
 
 from __future__ import annotations
@@ -39,14 +44,26 @@ class PredictionTableLogger:
         self.heatmap_dir = heatmap_dir
         self.compute_dtype = compute_dtype
         self.device = device
+        self.predictor = None
+        self.gradcam = None
 
-    def on_epoch_end(self, epoch: int, state_dict) -> List[Dict]:
+    def _predictor(self, state_dict):
+        """The logger's one predictor, holding ``state_dict`` (copied into
+        its module in place after the first epoch)."""
         from ab_line_classifier_torch.predict.predict import Predictor
 
-        predictor = Predictor(self.spec, state_dict,
-                              batch_size=min(64, max(1, self.max_rows)),
-                              compute_dtype=self.compute_dtype,
-                              device=self.device)
+        if self.predictor is None:
+            self.predictor = Predictor(
+                self.spec, state_dict,
+                batch_size=min(64, max(1, self.max_rows)),
+                compute_dtype=self.compute_dtype, device=self.device)
+        else:
+            self.predictor.module.load_state_dict(state_dict)
+            self.predictor.weights = state_dict
+        return self.predictor
+
+    def on_epoch_end(self, epoch: int, state_dict) -> List[Dict]:
+        predictor = self._predictor(state_dict)
         paths = self.val_ds.frame_paths
         rows: List[Dict] = []
         heat = []
@@ -86,8 +103,9 @@ class PredictionTableLogger:
         from ab_line_classifier_torch.viz.visualization import (
             visualize_heatmap)
 
-        fused = build_fused_gradcam(self.spec, predictor.module)
-        probs, cams = fused(torch.stack([im for im, _ in heat]))
+        if self.gradcam is None:
+            self.gradcam = build_fused_gradcam(self.spec, predictor.module)
+        probs, cams = self.gradcam(torch.stack([im for im, _ in heat]))
         probs, cams = probs.cpu().numpy(), cams.cpu().numpy()
         names = [str(i) for i in range(self.spec.n_classes)]
         for k, (im, row) in enumerate(heat):

@@ -19,7 +19,9 @@ and advances the cursor: the scan's body, with the cursor as its carry.
   collectives cannot be captured), every call runs the step itself: the
   code the card replays, so the CPU tests hold it.
 
-A capture that fails raises; nothing reruns the step eagerly.
+A capture that fails raises; nothing reruns the step eagerly. The
+Grad-CAM pass (``explain/gradcam.py``) runs through :class:`StepGraph`
+too, one per batch shape.
 
 What a step may do, to be captured: device work only, on tensors whose
 addresses stay put. Host values it needs change between replays through
@@ -104,16 +106,19 @@ class StepGraph:
     collectives can be captured), else run each call. ``generators`` are
     the CUDA generators the step draws from (registered with the graph;
     the caller seeds them before each call); ``modules`` the modules whose
-    depthwise weights it packs."""
+    depthwise weights it packs; ``pool`` a memory pool
+    (``torch.cuda.graph_pool_handle()``) the graph shares with others
+    replayed one at a time on one stream (default: a private one)."""
 
     def __init__(self, body: Callable[[], None], device, *, capture: bool,
                  generators: Sequence[torch.Generator] = (),
-                 modules: Sequence[torch.nn.Module] = ()):
+                 modules: Sequence[torch.nn.Module] = (), pool=None):
         self.body = body
         self.device = torch.device(device)
         self.capture = bool(capture)
         self.generators = tuple(generators)
         self.modules = tuple(modules)
+        self.pool = pool
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.eager_steps = 0
         self.replays = 0
@@ -166,7 +171,7 @@ class StepGraph:
         for gen in self.generators:
             graph.register_generator_state(gen)
         with launches.capture() as self._launches, torch.cuda.graph(
-                graph, capture_error_mode="thread_local"):
+                graph, pool=self.pool, capture_error_mode="thread_local"):
             self.body()
         for m in self.modules:
             G.drop_packed_weights(m)

@@ -58,13 +58,16 @@ no result):
    them;
 9. Grad-CAM — cutoffvgg16, mobilenetv2, xception and efficientnetb7 (the
    weights of phases 5-7), 512 frames of 480x640 and 512 of 128x128 in
-   batches of 256 through ``GradCAMExplainer.explain_frames``, both modes:
+   batches of 256 through ``GradCAMExplainer.explain_frames`` (the graphed
+   pass: a shape's first batch eager, its second captured), both modes:
    B1 launches once and B2 0 / 10 / 34 / 51 times per batch, no input
    copied; GPU (in batches of 256) against the port on the CPU, in bf16
    and float32, on 16 lit frames whose top-2 margin clears the probability
    bar (drawn from up to 64), with channel-swap and frame-order faults;
    ``gradcam_benchmark`` beside ``clip_inference_benchmark`` at batch 256;
-   a profile of a cutoffvgg16 and a mobilenetv2 Grad-CAM batch;
+   a profile of each model's Grad-CAM batch at 256, graphed and eager:
+   its ms (CUDA events), the profiler's kernel time and runs, the idle
+   share (1 - kernel time over ms) and the graphed batch's top kernels;
 10. batch-1 latency — ``single_frame_latency_benchmark`` of cutoffvgg16 and
    mobilenetv2 (a dependency chain captured once as a CUDA graph and
    replayed, and run eagerly; the replayed chain's probabilities equal to
@@ -238,15 +241,37 @@ no result):
    capture seconds; (d) case (a) at 64 under NCCL at world size 1, the
    frames split over a (1, 1) mesh's data axis (each gather's uint8
    ``all_reduce`` captured), bit-equal to the mesh-free graphed run.
+21. graphed Grad-CAM — the Grad-CAM pass as one CUDA graph per batch
+   shape (``explain/gradcam.py::FusedGradCAM``), the four models of
+   phase 9 with their weights, both modes, at 256 frames from 480x640 and
+   from 128x128 and 32 from 128x128, cuDNN deterministic: two batches a
+   shape, the pass called on a, b, b, a (eager step, capture, replays)
+   against the eager pass run twice, bit-equal where the two eager runs
+   are, else no farther from the first than the second is; B1 1 and B2 0 /
+   10 / 34 / 51 a batch, counted inside the replays, as eager, no input
+   copied; ms per batch graphed and eager, and the capture seconds; each
+   one's idle share at 256 from 128x128 from phase 9's profile (taken
+   there: late in this script the profiler records only part of the
+   kernels a pass runs, eager or replayed); the
+   ``PredictionTableLogger`` of mobilenetv2 over 3 epochs whose weights
+   change (one module, its heatmap pass captured once, then replayed,
+   each epoch's heatmaps bit-equal to the eager pass); ``python -m
+   ab_line_classifier_torch.explain --device cuda --limit 96`` on a
+   synthetic JPEG table and a mobilenetv2 checkpoint, as a subprocess: 96
+   PNGs and the pass ``graphed``. matplotlib is not on the card: a
+   stand-in that saves the panel's images side by side (PIL) writes the
+   PNGs there.
 
-The last three lines of standard output are a JSON line of phases 15-20's
+The last three lines of standard output are a JSON line of phases 15-21's
 summaries, a JSON line of per-kernel
 numbers (launches per path, ``training``, the trial-parallel, ``deploy``,
 ``automask``, ``attribution``, ``export_roundtrip``, ``jpeg_training``,
 ``wandb_sweep``, the two ``multi_device`` paths (the gloo
-path's summed over its ranks) and ``graphed_epochs`` included:
+path's summed over its ranks), ``graphed_epochs`` and
+``gradcam_graphed`` included:
 the launches that ran on the card: the wrappers' eager calls, and for
-every CUDA graph (latency chains, attribution segments, graphed epochs)
+every CUDA graph (latency chains, attribution segments, graphed epochs,
+Grad-CAM passes)
 its captured launches once per replay, ``ops/launches.py``; the kernel's
 runs in one replay of each latency graph, counted by the profiler, and
 the replays) and ``{"ok": true, "device": {...}}``.
@@ -1312,7 +1337,10 @@ def phase_gradcam(spec, state_dict, per_forward, frames480, frames128, smi):
 
 def profile_gradcam(spec, state_dict, smi, gen):
     """Where the device time of one Grad-CAM batch (ZOO_BATCH frames of
-    128x128, normal) goes."""
+    128x128, normal) goes, graphed (replayed) and eager, and each one's
+    idle share: 1 - the profiler's kernel time per batch over the ms per
+    batch timed without the profiler (CUDA events over G21_ITERS batches).
+    Returns ``{path: {"ms", "busy_ms", "runs", "idle"}}``."""
     from ab_line_classifier_torch.explain.gradcam import build_fused_gradcam
     from ab_line_classifier_torch.predict.predict import load_module
 
@@ -1320,16 +1348,27 @@ def profile_gradcam(spec, state_dict, smi, gen):
                                                   torch.device("cuda")))
     x = torch.randint(0, 256, (ZOO_BATCH, *OUT_HW, 3), dtype=torch.uint8,
                       device="cuda", generator=gen)
-    prof = device_time_by_kernel(lambda: fused(x))
-    wall, busy = prof["wall_ms"], prof["busy_ms"]
-    print(f"profile, {spec.name} Grad-CAM batch {ZOO_BATCH} from 128x128 on "
-          f"{smi}: wall {wall:.3f} ms, device busy {busy:.3f} ms (idle "
-          f"share {1 - busy / wall:.4f})")
-    for kname, ms in prof["kernels"][:12]:
-        print(f"  {ms:9.3f} ms {100 * ms / wall:6.2f}%  {kname[:110]}")
-    print("  copy and fill kernels by the operator that launched them: "
-          + ", ".join(f"{op} {ms:.3f} ms" for op, ms in prof["copies"]),
-          flush=True)
+    fused(x)  # the eager step; the profiler's warm call captures
+    out = {}
+    for path, fn in (("graphed", lambda: fused(x)),
+                     ("eager", lambda: fused.eager(x))):
+        ms = cuda_ms(fn, G21_ITERS, 1)
+        prof = device_time_by_kernel(fn)
+        busy, runs = prof["busy_ms"], sum(prof["calls"].values())
+        out[path] = {"ms": ms, "busy_ms": busy, "runs": runs,
+                     "idle": 1 - busy / ms}
+        print(f"profile, {spec.name} Grad-CAM [{path}] batch {ZOO_BATCH} "
+              f"from 128x128 on {smi}: {ms:.4f} ms a batch (CUDA events), "
+              f"device busy {busy:.4f} ms ({runs:g} kernel and copy runs), "
+              f"idle share {1 - busy / ms:.4f}", flush=True)
+        if path == "eager":
+            continue
+        for kname, kms in prof["kernels"][:12]:
+            print(f"  {kms:9.3f} ms {100 * kms / ms:6.2f}%  {kname[:110]}")
+        print("  copy and fill kernels by the operator that launched them: "
+              + ", ".join(f"{op} {c:.3f} ms" for op, c in prof["copies"]),
+              flush=True)
+    return out
 
 
 def phase_latency(spec, state_dict, per_forward, smi):
@@ -5095,6 +5134,369 @@ def phase_graphed_epochs(smi, vgg_sd, mbv2_sd):
     return (b1, b2), numbers
 
 
+# Phase 21 (graphed Grad-CAM): the four serving models with phases 5-7's
+# weights, both modes, at each G21_SHAPES batch shape (batch, source
+# height, width); two batches a shape, the pass called on a, b, b, a (its
+# eager step, its capture and first replay, two replays) against the
+# eager pass run twice. ms per batch over G21_ITERS calls of each; the
+# idle shares are phase 9's (``profile_gradcam``). The logger: mobilenetv2 over G21_EPOCHS
+# epochs of G21_LOG_FRAMES cached frames, G21_LOG_HEAT heatmaps an epoch.
+# The CLI: mobilenetv2 from a checkpoint over G21_CLI_FRAMES JPEGs.
+G21_SHAPES = ((ZOO_BATCH, 480, 640), (ZOO_BATCH, *OUT_HW), (32, *OUT_HW))
+G21_ITERS = 10
+G21_ORDER = (0, 1, 1, 0)
+G21_LOG_FRAMES, G21_LOG_HEAT, G21_EPOCHS = 64, 16, 3
+G21_CLI_FRAMES = 96
+# matplotlib is not on the card: where it is missing, the heatmap panels
+# of the logger and the CLI are written by this stand-in, which saves the
+# images a figure's axes show side by side as a PNG (PIL).
+G21_MPL = {
+    "__init__.py": '''"""A stand-in for matplotlib: a figure saves the images its axes
+show, side by side, as a PNG (PIL); every other call does nothing."""
+import numpy as np
+
+
+def use(*args, **kwargs):
+    pass
+
+
+class Axes:
+    def __init__(self):
+        self.images = []
+
+    def imshow(self, img, *args, **kwargs):
+        self.images.append(np.asarray(img, np.uint8))
+
+    def __getattr__(self, name):
+        return lambda *args, **kwargs: None
+
+
+class Figure:
+    def __init__(self, axes):
+        self.axes = axes
+
+    def savefig(self, path, **kwargs):
+        from PIL import Image
+
+        panels = [im for ax in self.axes for im in ax.images]
+        h = max(p.shape[0] for p in panels)
+        Image.fromarray(np.concatenate(
+            [np.pad(p, ((0, h - p.shape[0]), (0, 0), (0, 0)))
+             for p in panels], axis=1)).save(path)
+
+    def __getattr__(self, name):
+        return lambda *args, **kwargs: None
+''',
+    "pyplot.py": '''from matplotlib import Axes, Figure
+
+
+def subplots(nrows=1, ncols=1, **kwargs):
+    axes = [Axes() for _ in range(nrows * ncols)]
+    return Figure(axes), axes if len(axes) > 1 else axes[0]
+
+
+def close(fig=None):
+    pass
+'''}
+
+
+def g21_matplotlib(root):
+    """A directory to put first on the path for the heatmap panels: the
+    stand-in where matplotlib is missing (None where it is installed)."""
+    import importlib.util
+
+    if importlib.util.find_spec("matplotlib") is not None:
+        return None
+    pkg = os.path.join(root, "stand_in", "matplotlib")
+    os.makedirs(pkg, exist_ok=True)
+    for name, text in G21_MPL.items():
+        with open(os.path.join(pkg, name), "w") as f:
+            f.write(text)
+    return os.path.dirname(pkg)
+
+
+def g21_rule(label, eager1, eager2, graphed):
+    """Phase 20's rule on the outputs (lists of tensors in one order):
+    where the two eager runs are bit-equal the graphed run must be;
+    otherwise each output no farther from the first eager run than the
+    second is."""
+    if all(torch.equal(a, b) for a, b in zip(eager1, eager2)):
+        bad = [i for i, (g, e) in enumerate(zip(graphed, eager1))
+               if not torch.equal(g, e)]
+        if bad:
+            raise AssertionError(f"{label}: eager runs bit-equal, the "
+                                 f"graphed outputs {bad} differ")
+        return "bit-equal"
+    worst = 0.0
+    for i, (g, e1, e2) in enumerate(zip(graphed, eager1, eager2)):
+        d_g = float((g - e1).abs().max())
+        d_e = float((e2 - e1).abs().max())
+        if d_g > d_e:
+            raise AssertionError(f"{label}: output {i} graphed {d_g:.3e} "
+                                 f"from eager, eager {d_e:.3e} from itself")
+        worst = max(worst, d_g)
+    return f"within eager's own spread (largest {worst:.3e})"
+
+
+def g21_check_outputs(label, outs, n):
+    for probs, cams in outs:
+        if probs.shape != (n, 2) or cams.shape != (n, *OUT_HW) \
+                or not (torch.isfinite(probs).all()
+                        and torch.isfinite(cams).all()):
+            raise AssertionError(f"{label}: bad outputs")
+        if float((probs.sum(1) - 1).abs().max()) > 1e-5 \
+                or float(cams.min()) < 0 or float(cams.max()) > 1 + 1e-6 \
+                or float(cams.max()) < 0.5:
+            raise AssertionError(f"{label}: probabilities or heatmaps out "
+                                 f"of range")
+
+
+def g21_case(name, fused, shape, per_forward, smi):
+    """One model, mode and batch shape: the rule, the launches inside the
+    replays, ms per batch graphed and eager. Returns the graphed calls'
+    (B1, B2) and the case's numbers."""
+    from ab_line_classifier_torch.ops import depthwise_cuda as DC
+    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+
+    label = f"{name} Grad-CAM [{fused.mode}] {'x'.join(map(str, shape))}"
+    rng = np.random.default_rng(21)
+    batches = [torch.as_tensor(rng.integers(0, 256, (*shape, 3),
+                                            dtype=np.uint8)).to("cuda")
+               for _ in range(2)]
+    runs, counts = [], []
+    for fn in (fused.eager, fused.eager, fused):
+        # The eager pass once a batch (its outputs laid out in G21_ORDER),
+        # the graphed one on every call of G21_ORDER.
+        calls = range(2) if fn is fused.eager else G21_ORDER
+        PC.reset_launch_count()
+        DC.reset_launch_count()
+        outs = dict(enumerate(fn(batches[i]) for i in calls))
+        torch.cuda.synchronize()
+        counts.append((PC.launch_count, DC.launch_count, DC.copy_count,
+                       len(calls)))
+        runs.append([t for k in range(len(G21_ORDER)) for t in outs[
+            k if fn is fused else G21_ORDER[k]]])
+    g21_check_outputs(label, outs.values(), shape[0])
+    if any((pre, dw, copies) != (n, per_forward * n, 0)
+           for pre, dw, copies, n in counts):
+        raise AssertionError(f"{label}: launches (B1, B2, copies, batches) "
+                             f"{counts}, want B1 1 and B2 {per_forward} a "
+                             f"batch, no copy, in each run")
+    summary, = (s for key, s in fused.summaries().items()
+                if key == "x".join(map(str, (*shape, 3))))
+    if (summary["eager_steps"], summary["replays"]) != (1, 3) \
+            or summary["captured_launches"] != {"preprocess": 1,
+                                                "depthwise": per_forward}:
+        raise AssertionError(f"{label}: program {summary}")
+    verdict = g21_rule(label, *runs)
+    a = batches[0]
+    out = {"verdict": verdict, "capture_s": summary["capture_seconds"],
+           "graphed_ms": cuda_ms(lambda: fused(a), G21_ITERS, 1),
+           "eager_ms": cuda_ms(lambda: fused.eager(a), G21_ITERS, 1)}
+    print(f"  {label}: {verdict}; launches a batch B1 1 B2 {per_forward} "
+          f"(captured, 1 eager + 3 replays, as eager); capture "
+          f"{summary['capture_seconds']:.4f} s; ms/batch graphed "
+          f"{out['graphed_ms']:.4f} eager {out['eager_ms']:.4f} "
+          f"(x{out['eager_ms'] / out['graphed_ms']:.2f}) on {smi}",
+          flush=True)
+    return counts[-1][:2], out
+
+
+def g21_logger(spec, sd, root, per_forward, smi):
+    """``PredictionTableLogger`` over G21_EPOCHS epochs, the weights
+    changed each epoch: one predictor and one pass, the heatmap graph
+    captured once (second epoch) and replayed after; each epoch's
+    heatmaps bit-equal to the eager pass on its weights; B1 and B2 as the
+    epochs give them."""
+    from ab_line_classifier_torch.data.pipeline import DeviceCachedDataset
+    from ab_line_classifier_torch.explain import gradcam
+    from ab_line_classifier_torch.ops import depthwise_cuda as DC
+    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+    from ab_line_classifier_torch.train.callbacks import (
+        PredictionTableLogger)
+
+    images, labels = labelled_frames(G21_LOG_FRAMES, seed=21)
+    val = DeviceCachedDataset.from_arrays(images, labels, "cuda")
+    logger = PredictionTableLogger(
+        spec, val, max_rows=G21_LOG_FRAMES, n_heatmaps=G21_LOG_HEAT,
+        heatmap_dir=os.path.join(root, "logger"),
+        compute_dtype=torch.bfloat16, device="cuda")
+    seen = []
+    overlay = gradcam.heatmap_overlay
+
+    def record(orig, cam, *args):
+        seen.append(cam)
+        return overlay(orig, cam, *args)
+
+    gradcam.heatmap_overlay = record
+    PC.reset_launch_count()
+    DC.reset_launch_count()
+    try:
+        ptrs, first = None, None
+        for epoch in range(G21_EPOCHS):
+            # Each epoch's weights: every weight times 1 + 2% x epoch of
+            # numpy-seeded noise (a training epoch's stand-in).
+            rng = np.random.default_rng(epoch)
+            state = {k: v * (1 + 0.02 * epoch * torch.as_tensor(
+                rng.standard_normal(tuple(v.shape)), dtype=v.dtype,
+                device=v.device))
+                if k.endswith("weight") else v for k, v in sd.items()}
+            del seen[:]
+            rows = logger.on_epoch_end(epoch, state)
+            now = [p.data_ptr() for p in logger.predictor.module.parameters()]
+            if len(rows) != G21_LOG_FRAMES or (ptrs and now != ptrs):
+                raise AssertionError(f"logger epoch {epoch}: {len(rows)} "
+                                     f"rows, module kept {now == ptrs}")
+            ptrs = now
+            _, want = logger.gradcam.eager(
+                torch.as_tensor(images[:G21_LOG_HEAT]).to("cuda"))
+            if not (len(seen) == G21_LOG_HEAT and all(
+                    np.array_equal(c, w) for c, w in zip(
+                        seen, want.cpu().numpy()))):
+                raise AssertionError(f"logger epoch {epoch}: heatmaps "
+                                     f"differ from the eager pass")
+            if first is None:
+                first = list(seen)
+            elif all(np.array_equal(c, f) for c, f in zip(seen, first)):
+                raise AssertionError(f"logger epoch {epoch}: the heatmaps "
+                                     f"did not follow the new weights")
+    finally:
+        gradcam.heatmap_overlay = overlay
+    torch.cuda.synchronize()
+    summary, = logger.gradcam.summaries().values()
+    # Each epoch: one table batch of 64 and one Grad-CAM batch, B1 once
+    # and B2 per_forward times each; the eager checks' launches are
+    # counted too (one batch an epoch).
+    want = (3 * G21_EPOCHS, 3 * per_forward * G21_EPOCHS)
+    pngs = len([f for f in os.listdir(os.path.join(root, "logger"))
+                if f.endswith(".png")])
+    if (summary["eager_steps"], summary["replays"]) != (1, G21_EPOCHS - 1) \
+            or (PC.launch_count, DC.launch_count) != want \
+            or pngs != G21_LOG_HEAT * G21_EPOCHS:
+        raise AssertionError(f"logger: program {summary}, launches "
+                             f"{PC.launch_count} / {DC.launch_count} (want "
+                             f"{want}), {pngs} PNGs")
+    print(f"  PredictionTableLogger (mobilenetv2, {G21_EPOCHS} epochs of "
+          f"{G21_LOG_FRAMES} frames, {G21_LOG_HEAT} heatmaps an epoch, new "
+          f"weights copied into one module): heatmap pass captured once "
+          f"({summary['capture_seconds']:.4f} s) and replayed "
+          f"{summary['replays']} times, heatmaps bit-equal to the eager "
+          f"pass each epoch, B1 {PC.launch_count} B2 {DC.launch_count}, "
+          f"{pngs} PNGs on {smi}", flush=True)
+    return {"capture_s": summary["capture_seconds"],
+            "replays": summary["replays"]}
+
+
+def g21_cli(sd, root, mpl_dir, smi):
+    """``python -m ab_line_classifier_torch.explain --device cuda --limit
+    G21_CLI_FRAMES`` on a synthetic JPEG table and a mobilenetv2
+    checkpoint, as a subprocess: a PNG per frame, the pass graphed."""
+    import yaml
+
+    from ab_line_classifier_torch.data.synthetic import generate_dataset
+    from ab_line_classifier_torch.predict.benchmark import ZOO_HPARAMS
+    from ab_line_classifier_torch.utils import checkpoint as ckpt
+
+    ws = os.path.join(root, "cli")
+    fcsv, _, fdir = generate_dataset(ws, n_patients=8, clips_per_patient=2,
+                                     frames_per_clip=6, hw=OUT_HW, seed=21)
+    model_dir = os.path.join(ws, "model")
+    ckpt.save_model(model_dir, sd, {
+        "model_name": "mobilenetv2", "hparams": ZOO_HPARAMS["mobilenetv2"],
+        "input_shape": [*OUT_HW, 3], "n_classes": 2,
+        "mixed_precision": True})
+    with open(os.path.join(REPO, "config.yml")) as f:
+        d = yaml.safe_load(f)
+    d["DATA"]["IMG_DIM"] = list(OUT_HW)
+    d["PATHS"].update(FRAME_TABLE=fcsv, FRAMES=fdir, MODEL_TO_LOAD=model_dir,
+                      HEATMAPS=os.path.join(ws, "heatmaps"),
+                      LOGS=os.path.join(ws, "logs"))
+    cfg = os.path.join(ws, "config.yml")
+    with open(cfg, "w") as f:
+        yaml.safe_dump(d, f)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [p for p in (mpl_dir, REPO, os.environ.get("PYTHONPATH")) if p]))
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "ab_line_classifier_torch.explain", "--config",
+         cfg, "--device", "cuda", "--limit", str(G21_CLI_FRAMES)],
+        capture_output=True, text=True, timeout=300, cwd=REPO, env=env)
+    seconds = time.perf_counter() - t0
+    pngs = [f for f in os.listdir(d["PATHS"]["HEATMAPS"])
+            if f.endswith(".png")] if r.returncode == 0 else []
+    # Batches of 32: the first eager, the second captured and replayed,
+    # the rest replayed.
+    line = (f"Grad-CAM pass: graphed (32x{OUT_HW[0]}x{OUT_HW[1]}x3: 1 "
+            f"eager, {G21_CLI_FRAMES // 32 - 1} replayed)")
+    if r.returncode != 0 or len(pngs) != G21_CLI_FRAMES \
+            or line not in r.stdout:
+        raise AssertionError(f"explain CLI: exit {r.returncode}, "
+                             f"{len(pngs)} PNGs, stdout {r.stdout[-800:]!r}"
+                             f", stderr {r.stderr[-2000:]!r}")
+    print(f"  explain CLI (mobilenetv2 checkpoint, {G21_CLI_FRAMES} JPEGs "
+          f"of 128x128, batches of 32): exit 0, {len(pngs)} PNGs, "
+          f"'{line}', {seconds:.1f} s in all on {smi}", flush=True)
+    return {"seconds": seconds, "pngs": len(pngs)}
+
+
+def phase_graphed_gradcam(smi, served, per_forward, idle):
+    """Phase 21 (module docstring); ``idle`` is phase 9's profile of each
+    model's pass (:func:`profile_gradcam`). Returns the graphed passes'
+    (B1, B2) launches and the phase's numbers."""
+    import gc
+
+    from ab_line_classifier_torch.explain.gradcam import (MODES,
+                                                          build_fused_gradcam)
+    from ab_line_classifier_torch.predict.predict import load_module
+
+    t_phase = time.perf_counter()
+    root = os.path.join(REPO, "build", "phase21")
+    os.makedirs(root, exist_ok=True)
+    mpl_dir = g21_matplotlib(root)
+    numbers, b1, b2 = {}, 0, 0
+    flags = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    if mpl_dir:
+        sys.path.insert(0, mpl_dir)
+    try:
+        for name, (spec, sd) in served.items():
+            module = load_module(spec, sd, torch.device("cuda"))
+            for mode in MODES:
+                fused = build_fused_gradcam(spec, module, mode)
+                if fused.graph_mode != "graphed":
+                    raise AssertionError(f"{name}: {fused.graph_mode}")
+                for shape in G21_SHAPES:
+                    (pre, dw), out = g21_case(name, fused, shape,
+                                              per_forward[name], smi)
+                    b1, b2 = b1 + pre, b2 + dw
+                    numbers[f"{name} {mode} {'x'.join(map(str, shape))}"] = (
+                        out)
+                del fused
+            numbers[f"{name} idle"] = {p: r["idle"] for p, r in
+                                       idle[name].items()}
+            print(f"  {name}: idle share at {ZOO_BATCH} from 128x128, "
+                  f"normal (phase 9's profile) graphed "
+                  f"{idle[name]['graphed']['idle']:.4f} eager "
+                  f"{idle[name]['eager']['idle']:.4f}", flush=True)
+            del module
+            gc.collect()
+            torch.cuda.empty_cache()
+        mbv2, mbv2_sd = served["mobilenetv2"]
+        numbers["logger"] = g21_logger(mbv2, mbv2_sd, root,
+                                       per_forward["mobilenetv2"], smi)
+        numbers["cli"] = g21_cli(mbv2_sd, root, mpl_dir, smi)
+    finally:
+        torch.backends.cudnn.deterministic = flags
+        if mpl_dir:
+            sys.path.remove(mpl_dir)
+            for m in [m for m in sys.modules if m.split(".")[0]
+                      == "matplotlib"]:
+                del sys.modules[m]
+    numbers["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 21: {numbers['seconds']:.1f} s", flush=True)
+    return (b1, b2), numbers
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an "
@@ -5194,8 +5596,8 @@ def main():
         phase_gradcam(grad_specs[name], weights[name], per_forward[name],
                       frames480, frames128, smi) for name in grad_specs))))
     del frames480, frames128
-    for name in ("cutoffvgg16", "mobilenetv2"):
-        profile_gradcam(grad_specs[name], weights[name], smi, gen)
+    gradcam_idle = {name: profile_gradcam(grad_specs[name], weights[name],
+                                          smi, gen) for name in grad_specs}
 
     phase("10 batch-1 latency")
     per_replay, replays = {}, {}
@@ -5262,6 +5664,11 @@ def main():
     phase("20 graphed epochs: CUDA graphs of the training step")
     launches["graphed_epochs"], graphed = phase_graphed_epochs(
         smi, vgg_sd, weights["mobilenetv2"])
+    torch.cuda.synchronize()
+
+    phase("21 graphed Grad-CAM: one CUDA graph per batch shape")
+    launches["gradcam_graphed"], graphed_gradcam = phase_graphed_gradcam(
+        smi, served, per_forward, gradcam_idle)
 
     def graph_runs(kernel):
         """Runs on the card of ``kernel`` in one replay of each model's
@@ -5324,7 +5731,7 @@ def main():
                         for name, a in attribution.items()},
         "export": exports, "dataset_creation_s": dataset_s,
         "jpeg_wandb": jpeg_wandb, "multi_device": multi_device,
-        "graphed_epochs": graphed}))
+        "graphed_epochs": graphed, "graphed_gradcam": graphed_gradcam}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -223,6 +223,63 @@ def test_gradcam_through_the_depthwise_kernel():
 
 
 @pytest.mark.cuda
+def test_graphed_gradcam_equals_the_eager_pass():
+    """Grad-CAM of a 32x32 mobilenetv2 (bf16, cuDNN deterministic), both
+    modes, over two batches in the order a, b, b, a: the graphed pass (the
+    first call eager on the side stream, the second captured and
+    replayed, the rest replayed) bit-equal to the eager pass on every
+    call, so no result is overwritten by a later replay; B1 once and B2
+    once a depthwise layer per batch in both, the replays' launches
+    counted."""
+    _need_cuda()
+    from ab_line_classifier_torch import graph as G
+    from ab_line_classifier_torch.explain.gradcam import (MODES,
+                                                          build_fused_gradcam)
+    from ab_line_classifier_torch.predict.benchmark import (
+        build_zoo, depthwise_layer_shapes, seeded_state)
+    from ab_line_classifier_torch.predict.predict import load_module
+
+    flags = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        spec = build_zoo("mobilenetv2", (32, 32))
+        module = load_module(spec, seeded_state(spec, 3),
+                             torch.device("cuda"))
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        batches = [torch.randint(0, 256, (16, 32, 32, 3), dtype=torch.uint8,
+                                 device="cuda", generator=gen)
+                   for _ in range(2)]
+        G.adapt_batch_norm(module, preprocess_cuda.preprocess_frames(
+            torch.cat(batches), out_hw=(32, 32),
+            preprocess_mode=spec.preprocess_mode, out_dtype=spec.dtype))
+        per_forward = len(depthwise_layer_shapes(spec))
+        assert per_forward > 0
+        order = (0, 1, 1, 0)
+        for mode in MODES:
+            fused = build_fused_gradcam(spec, module, mode)
+            assert fused.graph_mode == "graphed"
+            runs = []
+            for fn in (fused, fused.eager):
+                preprocess_cuda.reset_launch_count()
+                depthwise_cuda.reset_launch_count()
+                outs = [fn(batches[i]) for i in order]
+                torch.cuda.synchronize()
+                runs.append((outs, _launches()))
+            (got, got_n), (want, want_n) = runs
+            assert got_n == want_n == (4, 4 * per_forward)
+            assert depthwise_cuda.copy_count == 0
+            for (gp, gc), (wp, wc) in zip(got, want):
+                assert torch.equal(gp, wp) and torch.equal(gc, wc), mode
+            assert not torch.equal(got[0][1], got[1][1])
+            summary, = fused.summaries().values()
+            assert summary["eager_steps"] == 1 and summary["replays"] == 3
+            assert summary["captured_launches"] == {
+                "preprocess": 1, "depthwise": per_forward}
+    finally:
+        torch.backends.cudnn.deterministic = flags
+
+
+@pytest.mark.cuda
 def test_mobilenetv2_training_step_through_the_depthwise_kernel():
     """A mobilenetv2 training step on the card (every layer but the batch
     norms trainable, float32, TF32 off): B2 launched once per stride-1
