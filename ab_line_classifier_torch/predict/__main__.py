@@ -2,7 +2,9 @@
 
 The same command line as the JAX package's predict CLI:
 clip predictions with the configured algorithm and threshold, then frame
-predictions at threshold 0.5, from one frame sweep. ``--device`` picks the
+predictions at threshold 0.5, from one frame sweep, which prints the path
+its forward took (``Serving forward: graphed (64x128x128x3: 1 eager, N
+replayed)`` on the card). ``--device`` picks the
 device (default ``cuda``; ``cpu`` runs the plain PyTorch path);
 ``--profile`` writes a ``torch.profiler`` trace under
 ``<PATHS.LOGS>/profiles``. ``PATHS.MODEL_TO_LOAD`` is a port checkpoint or a
@@ -65,6 +67,13 @@ def main():
         ds = FrameDataset(pd.read_csv(frames_path), frames_dir,
                           img_dim=cfg.img_dim)
         frame_probs = predictor.predict_dataset(ds)
+        line = f"Serving forward: {predictor.graph_mode}"
+        if predictor.graphed:
+            line += " (" + ", ".join(
+                f"{shape}: {s['eager_steps']} eager, {s['replays']} "
+                f"replayed" for shape, s in predictor.summaries().items()
+            ) + ")"
+        print(line)
         compute_clip_predictions(
             cfg, frames_path, clips_path,
             class_thresh=float(

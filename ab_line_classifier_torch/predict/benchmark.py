@@ -2,7 +2,8 @@
 ``predict/benchmark.py``), each on the device it is given (default cuda):
 
 * :func:`clip_inference_benchmark` — frames/sec of batched clip inference
-  through the production serving forward: device-resident uint8 frames ->
+  through the production serving forward as users run it (a CUDA graph
+  per input shape on the card): device-resident uint8 frames ->
   preprocess (kernel B1) -> bf16 forward -> float32 softmax, steady state,
   timed with CUDA events and the n-vs-2n check
   (:func:`dispatch_guarded_seconds`).
@@ -10,8 +11,9 @@
   (preprocess -> forward -> tap gradient -> heatmaps) as users run it (a
   CUDA graph per batch shape on the card), timed the same way.
 * :func:`single_frame_latency_benchmark` — serial batch-1 latency through
-  the serving forward, as a dependency-chained loop: captured once as a
-  CUDA graph and replayed, beside the same loop run eagerly.
+  the serving forward op by op (``Predictor.eager``), as a
+  dependency-chained loop: captured once as a CUDA graph and replayed,
+  beside the same loop run eagerly.
 * :func:`clock_avg_runtime` — the reference's mechanism: single-image
   forwards timed one by one on the host clock, mean and std ms.
 * :func:`training_throughput_benchmark` — frames/sec of the full training
@@ -216,7 +218,11 @@ def clip_inference_benchmark(batch_size: int = 512,
     """Frames/sec for end-to-end batched clip inference of ``spec``
     (default: mixed-precision cutoffvgg16; any zoo model through
     :func:`build_zoo`) on ``device`` (default cuda).
-    Weights are ``state_dict``, else a seeded Keras-style init."""
+    Weights are ``state_dict``, else a seeded Keras-style init. The
+    forward is the one users run: on CUDA a CUDA graph, the warm-up calls
+    (at least two there) running its eager step and its capture, then
+    replays; the result gives its ``graph_mode`` and ``capture_seconds``
+    (None uncaptured)."""
     from ab_line_classifier_torch.predict.predict import Predictor
 
     device = resolve_device(device)
@@ -226,11 +232,12 @@ def clip_inference_benchmark(batch_size: int = 512,
     src = tuple(src_hw or img_dim)
     frames = random_frames(batch_size, src, seed, device)
 
-    for _ in range(n_warmup):
+    for _ in range(max(n_warmup, 2 if predictor.graphed else 0)):
         predictor.forward(frames)
     run_many, fallback = timers(lambda: predictor.forward(frames), device)
     dt = dispatch_guarded_seconds(run_many, fallback, n_iters)
     fps = batch_size * n_iters / dt
+    summary, = predictor.summaries().values()
     result = {
         "frames_per_sec": float(fps),
         "batch_size": batch_size,
@@ -240,11 +247,14 @@ def clip_inference_benchmark(batch_size: int = 512,
         "flops_per_frame": flops_per_frame(
             predictor.module, spec.input_shape, spec.dtype, device),
         "device": _device_name(device),
+        "graph_mode": predictor.graph_mode,
+        "capture_seconds": summary["capture_seconds"],
     }
     if verbose:
         print(f"{spec.name} clip inference on {result['device']}: "
               f"{fps:,.0f} frames/sec (batch {batch_size}, "
-              f"{result['ms_per_batch']:.2f} ms/batch)")
+              f"{result['ms_per_batch']:.2f} ms/batch, "
+              f"{predictor.graph_mode})")
     return result
 
 
@@ -304,8 +314,10 @@ def single_frame_latency_benchmark(img_dim: Tuple[int, int] = (128, 128),
                                    verbose: bool = True) -> Dict:
     """Serial serving latency at batch 1, ms/frame, of ``spec`` (default:
     mixed-precision cutoffvgg16): one uint8 frame on the device through
-    ``Predictor.forward`` (B1 -> forward in ``spec.dtype`` -> float32
-    softmax), ``chain_len`` times in a dependency chain: each step's input
+    ``Predictor.eager`` (B1 -> forward in ``spec.dtype`` -> float32
+    softmax; the op-by-op forward, since a CUDA graph cannot be captured
+    or replayed inside another capture), ``chain_len`` times in a
+    dependency chain: each step's input
     is the previous one offset by a value computed from the previous
     output that is always zero (``uint8(probs * 1e-30)``, probabilities
     being at most 1), so no step can start before the one before it ends.
@@ -340,7 +352,7 @@ def single_frame_latency_benchmark(img_dim: Tuple[int, int] = (128, 128),
     def chain(x: torch.Tensor) -> torch.Tensor:
         probs = None
         for _ in range(chain_len):
-            probs = predictor.forward(x)
+            probs = predictor.eager(x)
             x = x + (probs[0, 0] * 1e-30).to(torch.uint8)
         return probs
 

@@ -5,8 +5,14 @@
   ``.onnx`` file, and serves uint8 frames:
   every forward preprocesses through ``ops.preprocess_cuda.
   preprocess_frames`` (the CUDA kernel on the GPU), then runs the model in
-  its compute dtype with an f32 softmax. Frames go host -> device from
-  pinned memory, one chunk ahead of the readback (``drain_behind``).
+  its compute dtype with an f32 softmax. On CUDA the forward is one CUDA
+  graph per input shape (``train/graphed.py::StepGraph``), the
+  counterpart of the JAX package's ``jax.jit(forward)``: a shape's first
+  call runs eagerly, its second captures, every later call replays.
+  Frames go host -> device from pinned memory into the shape's fixed
+  input, one chunk ahead of the readback (``drain_behind``); the ragged
+  last chunk is padded with zero frames to the batch size, as the JAX
+  package pads it, so one program serves every chunk.
 * Frame classification: B-line probability >= threshold -> class 1.
 * ``compute_clip_predictions`` / ``compute_frame_predictions`` write the
   same metrics-JSON and predictions-CSV files as the JAX package, into
@@ -19,10 +25,11 @@ pandas and sklearn are imported only by the table functions, so
 
 With a device mesh (``parallel/mesh.py``; ``default_predictor`` reads
 ``PARALLEL.MESH``) serving spreads over every rank, trial x data
-flattened: the chunk is rounded up to a multiple of the world size, each
-rank serves its rows of every chunk through B1 and the model (its own
-pinned staging buffers), and an ``all_gather`` returns the whole
-probability array on every rank, the API unchanged. Each rank is given
+flattened: the batch size is rounded up to a multiple of the world
+size, each rank serves its rows of every (padded) chunk through B1 and
+the model (its own pinned staging buffers and graphs), and an
+``all_gather``, outside the graph, returns the whole probability array
+on every rank, the API unchanged. Each rank is given
 the same weights (restored from the same checkpoint); nothing is
 broadcast.
 """
@@ -49,6 +56,7 @@ from ab_line_classifier_torch.models.weights import import_h5_state
 from ab_line_classifier_torch.ops import clip_aggregation as agg
 from ab_line_classifier_torch.ops.preprocess_cuda import preprocess_frames
 from ab_line_classifier_torch.parallel import mesh as mesh_lib
+from ab_line_classifier_torch.train.graphed import StepGraph, capturable
 from ab_line_classifier_torch.utils import checkpoint as ckpt
 from ab_line_classifier_torch.utils.profiling import annotate
 
@@ -111,6 +119,21 @@ class Predictor:
     holds them), which the ONNX export writes. With ``mesh`` (this rank's
     ``device``) the batch size rounds up to a multiple of the mesh's size
     and each rank serves its rows of every chunk.
+
+    Like the JAX package's ``jax.jit``, one program is made per input
+    shape: on CUDA a :class:`~ab_line_classifier_torch.train.graphed.
+    StepGraph` whose body reads a fixed uint8 input and leaves the
+    probabilities in a fixed tensor. A shape's first call runs the forward
+    eagerly on the shared side stream (B1's index tables, the libraries'
+    handles and workspaces are made there), its second captures it as a
+    CUDA graph and every later call replays it. The depthwise layers'
+    packed weights are packed inside the graph, so a replay sees weights
+    copied into the module in place (``load_state_dict``). All of a
+    predictor's graphs share one memory pool, which holds the forward's
+    peak memory for as long as the predictor lives, and go with it. On
+    the CPU the same body runs uncaptured each call. A capture that fails
+    raises; nothing reruns the forward eagerly in its place. :meth:`eager`
+    is the same forward dispatched op by op on the frames themselves.
     """
 
     def __init__(self, spec: ModelSpec, state_dict: Dict[str, torch.Tensor],
@@ -127,7 +150,11 @@ class Predictor:
         self.compute_dtype = compute_dtype
         self.weights = state_dict
         self.module = load_module(spec, state_dict, self.device)
+        self._home = next(self.module.parameters()).device
+        self.graphed = capturable(self._home)
+        self._pool = torch.cuda.graph_pool_handle() if self.graphed else None
         self._staging = PinnedStaging(self.device)
+        self._programs: Dict[tuple, tuple] = {}
 
     @classmethod
     def restore(cls, model_path: str, *, batch_size: int = 64,
@@ -166,52 +193,90 @@ class Predictor:
                    compute_dtype=compute_dtype, device=device, mesh=mesh)
 
     # ------------------------------------------------------------------
-    @torch.inference_mode()
-    def forward(self, frames_u8: torch.Tensor) -> torch.Tensor:
-        """float32 probabilities for uint8 ``[B, H, W, 3]`` frames already on
-        ``self.device``."""
-        with annotate("predict.preprocess"):
-            x = preprocess_frames(frames_u8,
-                                  out_hw=tuple(self.spec.input_shape[:2]),
-                                  preprocess_mode=self.spec.preprocess_mode,
-                                  out_dtype=self.compute_dtype)
-        with annotate("predict.model"):
-            return self.module(x.to(self.spec.dtype)).to(torch.float32)
+    @property
+    def graph_mode(self) -> str:
+        """``graphed`` or ``uncaptured``: the path the forward takes."""
+        return "graphed" if self.graphed else "uncaptured"
 
-    def _to_device(self, host: np.ndarray) -> torch.Tensor:
-        """Copy a uint8 host chunk to the device: on CUDA through one of
-        two pinned staging buffers, asynchronously (:class:`PinnedStaging`),
-        so chunk k+1's copy overlaps chunk k's work."""
-        return self._staging(np.ascontiguousarray(host))[0]
+    def summaries(self) -> Dict[str, Dict]:
+        """:meth:`StepGraph.summary` of each input shape's program, keyed
+        ``"BxHxWx3"``."""
+        return {"x".join(map(str, shape)): step.summary()
+                for (shape, _), (_, _, step) in self._programs.items()}
+
+    @torch.inference_mode()
+    def eager(self, frames_u8) -> torch.Tensor:
+        """The forward op by op on ``frames_u8`` (moved to the device)."""
+        return _serve(self.spec, self.module, self.compute_dtype,
+                      torch.as_tensor(frames_u8).to(self._home))
+
+    @torch.inference_mode()
+    def forward(self, frames_u8) -> torch.Tensor:
+        """float32 probabilities ``[B, C]`` for uint8 ``[B, H, W, 3]``
+        frames on ``self.device``, or on the host (copied into the shape's
+        fixed input through pinned staging buffers, asynchronously, so
+        chunk k+1's copy overlaps chunk k's work). On CUDA the result is a
+        clone of the program's fixed output: a later call never overwrites
+        it. Everything a program holds is made, filled and read in
+        inference mode."""
+        frames = torch.as_tensor(frames_u8)
+        fixed, out, step = self._program(frames)
+        if frames.device == self._home:
+            fixed.copy_(frames)
+        else:
+            self._staging(frames, out=[fixed])
+        step()
+        return out[0].clone() if self.graphed else out[0]
+
+    def _program(self, frames: torch.Tensor):
+        """The input shape's fixed input, output list and step."""
+        key = (tuple(frames.shape), frames.dtype)
+        prog = self._programs.get(key)
+        if prog is None:
+            fixed = torch.empty(key[0], dtype=frames.dtype, device=self._home)
+            out = []
+            # The body holds what it reads, not the predictor: dropping the
+            # predictor frees its graphs without the cycle collector.
+            spec, module, dtype = self.spec, self.module, self.compute_dtype
+
+            def body():
+                out[:] = [_serve(spec, module, dtype, fixed)]
+
+            prog = self._programs[key] = (fixed, out, StepGraph(
+                body, self._home, capture=self.graphed, modules=(module,),
+                pool=self._pool))
+        return prog
 
     def predict_probs(self, frames_u8: np.ndarray) -> np.ndarray:
         """Probabilities for a uint8 ``[N, H, W, 3]`` host frame array, swept
         in chunks of ``batch_size``; chunk k+1 is copied and launched
-        before chunk k is read back. Under a mesh each rank serves its
-        rows of a chunk (the chunk split evenly over the ranks, zero
-        frames padding the last rank's share of a ragged chunk) and every
-        rank gets the whole array."""
+        before chunk k is read back. The ragged last chunk is padded with
+        zero frames to ``batch_size`` (the JAX package's static chunk
+        shape: one program serves every chunk) and its pad rows dropped on
+        readback. Under a mesh each rank serves its ``batch_size / world``
+        rows of every chunk and every rank gets the whole array."""
         n = len(frames_u8)
         bs = self.batch_size
         out = np.zeros((n, self.spec.n_classes), np.float32)
 
         def launch(i):
-            chunk = frames_u8[i:i + bs]
-            if self.mesh is None:
-                return i, len(chunk), self.forward(self._to_device(chunk))
-            per = -(-len(chunk) // self.mesh.size())
-            r = mesh_lib.rank()
-            local = np.zeros((per,) + chunk.shape[1:], chunk.dtype)
-            part = chunk[r * per:(r + 1) * per]
-            local[:len(part)] = part
-            return i, len(chunk), self.forward(self._to_device(local))
+            chunk = np.ascontiguousarray(frames_u8[i:i + bs])
+            k = len(chunk)
+            if k < bs:
+                chunk = np.concatenate([chunk, np.zeros(
+                    (bs - k,) + chunk.shape[1:], chunk.dtype)])
+            if self.mesh is not None:
+                per = bs // self.mesh.size()
+                r = mesh_lib.rank()
+                chunk = chunk[r * per:(r + 1) * per]
+            return i, k, self.forward(chunk)
 
         def drain(pending):
             i, k, probs = pending
             if self.mesh is not None:
-                probs = mesh_lib.all_gather_rows(
-                    probs, mesh_lib.world_group())[:k]
-            out[i:i + k] = probs.cpu().numpy()
+                probs = mesh_lib.all_gather_rows(probs,
+                                                 mesh_lib.world_group())
+            out[i:i + k] = probs[:k].cpu().numpy()
 
         drain_behind((launch(i) for i in range(0, n, bs)), drain)
         return out
@@ -227,7 +292,7 @@ class Predictor:
                 mesh_lib.full_batch_sharding(self.mesh, self.batch_size))
 
         def launch(batch):
-            return (self.forward(self._to_device(batch.images)),
+            return (self.forward(np.ascontiguousarray(batch.images)),
                     batch.indices, batch.mask)
 
         def drain(pending):
@@ -243,6 +308,19 @@ class Predictor:
             mesh_lib.all_reduce_tensors([total], mesh_lib.world_group())
             out = total.cpu().numpy()
         return out
+
+
+def _serve(spec: ModelSpec, module: torch.nn.Module,
+           compute_dtype: torch.dtype, frames_u8: torch.Tensor
+           ) -> torch.Tensor:
+    """The serving forward op by op: B1, the model in ``spec.dtype``, the
+    float32 probabilities."""
+    with annotate("predict.preprocess"):
+        x = preprocess_frames(frames_u8, out_hw=tuple(spec.input_shape[:2]),
+                              preprocess_mode=spec.preprocess_mode,
+                              out_dtype=compute_dtype)
+    with annotate("predict.model"):
+        return module(x.to(spec.dtype)).to(torch.float32)
 
 
 def default_predictor(cfg: Config, device=None) -> Predictor:

@@ -10,11 +10,11 @@ port's :class:`~ab_line_classifier_torch.predict.predict.Predictor`
 package compiles its table forward and Grad-CAM pass once a run, the
 logger keeps one ``Predictor`` and one Grad-CAM pass for its life: each
 epoch's weights are copied into the same module in place
-(``load_state_dict``), so the heatmap pass, a CUDA graph on the card, is
-captured once a run (at the second epoch) and replayed in every later
-epoch. The CSV is written with the standard library: no pandas. Under a
-device mesh every rank runs the same pass (a sharded cache's gathers are
-collectives) and rank 0 writes.
+(``load_state_dict``), so the table forward and the heatmap pass, each a
+CUDA graph on the card, are captured once a run (at the second epoch)
+and replayed in every later epoch. The CSV is written with the standard
+library: no pandas. Under a device mesh every rank runs the same pass (a
+sharded cache's gathers are collectives) and rank 0 writes.
 """
 
 from __future__ import annotations

@@ -20,8 +20,9 @@ and advances the cursor: the scan's body, with the cursor as its carry.
   code the card replays, so the CPU tests hold it.
 
 A capture that fails raises; nothing reruns the step eagerly. The
-Grad-CAM pass (``explain/gradcam.py``) runs through :class:`StepGraph`
-too, one per batch shape.
+Grad-CAM pass (``explain/gradcam.py``) and the serving forward
+(``predict/predict.py``, in inference mode) run through
+:class:`StepGraph` too, one per input shape.
 
 What a step may do, to be captured: device work only, on tensors whose
 addresses stay put. Host values it needs change between replays through

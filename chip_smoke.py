@@ -50,12 +50,14 @@ no result):
 7. xception and efficientnetb7 serving — 1024 frames at batch 256 through
    ``Predictor``, 34 and 51 B2 launches per forward and no input copy, GPU
    against CPU at one tap each;
-8. throughput — ``clip_inference_benchmark`` for cutoffvgg16 and
-   mobilenetv2 at batch 1024 and 2048 and for xception and efficientnetb7
-   at 512 (each run's kernel launches counted), and a ``torch.profiler``
-   breakdown by kernel of a cutoffvgg16 and a mobilenetv2 batch, with the
+8. throughput — ``clip_inference_benchmark`` (the graphed forward) for
+   cutoffvgg16 and mobilenetv2 at batch 1024 and 2048 and for xception
+   and efficientnetb7 at 512 (each run's kernel launches counted), a
+   ``torch.profiler`` breakdown by kernel of a cutoffvgg16 and a
+   mobilenetv2 batch (the eager forward: the same kernels), with the
    copy and fill kernels attributed to the PyTorch operators that launch
-   them;
+   them, and the four models' forwards at phase 22's batches from
+   128x128, graphed and eager: ms and idle share (the profiler);
 9. Grad-CAM — cutoffvgg16, mobilenetv2, xception and efficientnetb7 (the
    weights of phases 5-7), 512 frames of 480x640 and 512 of 128x128 in
    batches of 256 through ``GradCAMExplainer.explain_frames`` (the graphed
@@ -261,17 +263,32 @@ no result):
    PNGs and the pass ``graphed``. matplotlib is not on the card: a
    stand-in that saves the panel's images side by side (PIL) writes the
    PNGs there.
+22. graphed serving — ``Predictor.forward`` as one CUDA graph per input
+   shape, the four served models with phases 5-7's weights at batch 64
+   (config.yml's), 256 and 2048 (512 for xception and efficientnetb7),
+   from 480x640 and 128x128, cuDNN deterministic: the eager forward
+   twice on a, b and the graphed one on a, b, b, a (eager step, capture,
+   replays), every output bit-equal; B1 1 and B2 0 / 10 / 34 / 51 a call,
+   counted inside the replays, as eager, no input copied; ``predict_probs``
+   over 2 x batch - 5 host frames (the ragged chunk padded with zero
+   frames to the batch) equal to the eager forward of the padded chunks,
+   through the batch's one program; ms per batch graphed and eager, the
+   capture seconds, ``max_memory_allocated`` a predictor, and phase 8's
+   idle shares; ``python -m ab_line_classifier_torch.predict --device
+   cuda`` on a cutoffvgg16 checkpoint over 192 synthetic JPEGs as a
+   subprocess: the forward ``graphed`` and the frame CSV equal to the
+   eager forward of its batches.
 
-The last three lines of standard output are a JSON line of phases 15-21's
+The last three lines of standard output are a JSON line of phases 15-22's
 summaries, a JSON line of per-kernel
 numbers (launches per path, ``training``, the trial-parallel, ``deploy``,
 ``automask``, ``attribution``, ``export_roundtrip``, ``jpeg_training``,
 ``wandb_sweep``, the two ``multi_device`` paths (the gloo
-path's summed over its ranks), ``graphed_epochs`` and
-``gradcam_graphed`` included:
+path's summed over its ranks), ``graphed_epochs``, ``gradcam_graphed``
+and ``serving_graphed`` included:
 the launches that ran on the card: the wrappers' eager calls, and for
-every CUDA graph (latency chains, attribution segments, graphed epochs,
-Grad-CAM passes)
+every CUDA graph (serving forwards, latency chains, attribution
+segments, graphed epochs, Grad-CAM passes)
 its captured launches once per replay, ``ops/launches.py``; the kernel's
 runs in one replay of each latency graph, counted by the profiler, and
 the replays) and ``{"ok": true, "device": {...}}``.
@@ -1091,11 +1108,14 @@ def throughput(spec, state_dict, bs, per_forward, smi):
     if DC.copy_count:
         raise AssertionError(f"benchmark: the depthwise wrapper copied "
                              f"{DC.copy_count} inputs")
+    if r["graph_mode"] != "graphed":
+        raise AssertionError(f"benchmark served {r['graph_mode']}")
     share = r["frames_per_sec"] * r["flops_per_frame"] / PEAK_BF16_FLOPS
     print(f"throughput on {smi}: {spec.name} 128x128 batch {bs}: "
           f"{r['frames_per_sec']:.1f} frames/s, {r['ms_per_batch']:.3f} "
           f"ms/batch, {r['flops_per_frame'] / 1e9:.4f} GFLOP/frame, "
-          f"{100 * share:.2f}% of 989 TFLOP/s bf16; preprocess launches "
+          f"{100 * share:.2f}% of 989 TFLOP/s bf16, graphed (capture "
+          f"{r['capture_seconds']:.4f} s); preprocess launches "
           f"{forwards}, depthwise launches {DC.launch_count}", flush=True)
     return r
 
@@ -1104,9 +1124,10 @@ def profile_batch(name, predictor, smi, sources, gen):
     for src in sources:
         x = torch.randint(0, 256, (MAIN_BATCH, *src, 3), dtype=torch.uint8,
                           device="cuda", generator=gen)
-        prof = device_time_by_kernel(lambda: predictor.forward(x))
+        prof = device_time_by_kernel(lambda: predictor.eager(x))
         wall, busy = prof["wall_ms"], prof["busy_ms"]
-        print(f"profile, {name} batch {MAIN_BATCH} from {src[0]}x{src[1]} on "
+        print(f"profile, {name} eager batch {MAIN_BATCH} from "
+              f"{src[0]}x{src[1]} on "
               f"{smi}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
               f"(idle share {1 - busy / wall:.4f})")
         for kname, ms in prof["kernels"][:10]:
@@ -5497,6 +5518,293 @@ def phase_graphed_gradcam(smi, served, per_forward, idle):
     return (b1, b2), numbers
 
 
+SERVE_BATCH = 64  # config.yml's BATCH_SIZE
+G22_BATCHES = {"cutoffvgg16": (SERVE_BATCH, ZOO_BATCH, MAIN_BATCH),
+               "mobilenetv2": (SERVE_BATCH, ZOO_BATCH, MAIN_BATCH),
+               "xception": (SERVE_BATCH, ZOO_BATCH, 512),
+               "efficientnetb7": (SERVE_BATCH, ZOO_BATCH, 512)}
+G22_SOURCES = ((480, 640), OUT_HW)
+G22_ORDER = (0, 1, 1, 0)
+G22_ITERS = 10
+G22_RAGGED = 5
+G22_CLI_FRAMES = 192
+
+
+def g22_predictor(spec, sd, bs):
+    from ab_line_classifier_torch.predict.predict import Predictor
+
+    pred = Predictor(spec, sd, batch_size=bs, device="cuda")
+    if pred.graph_mode != "graphed":
+        raise AssertionError(f"{spec.name}: serving {pred.graph_mode}")
+    return pred
+
+
+def g22_release():
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def g22_idle(served, smi):
+    """Each served model's forward at phase 22's batches from 128x128,
+    graphed and eager: ms (CUDA events) and the idle share (1 - the
+    profiler's kernel time over the ms). Taken in phase 8: late in this
+    script the profiler records only part of the kernels a forward runs."""
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    idle = {}
+    for name, (spec, sd) in served.items():
+        for bs in G22_BATCHES[name]:
+            pred = g22_predictor(spec, sd, bs)
+            x = torch.randint(0, 256, (bs, *OUT_HW, 3), dtype=torch.uint8,
+                              device="cuda", generator=gen)
+            pred.forward(x)
+            pred.forward(x)
+            row = {}
+            for mode, fn in (("graphed", pred.forward),
+                             ("eager", pred.eager)):
+                prof = device_time_by_kernel(lambda: fn(x))
+                row[mode] = {"ms": prof["wall_ms"],
+                             "busy_ms": prof["busy_ms"],
+                             "idle": 1 - prof["busy_ms"] / prof["wall_ms"]}
+            idle[f"{name} {bs}"] = row
+            print(f"  serving {name} batch {bs} from 128x128 on {smi}: "
+                  + "; ".join(f"{m} {r['ms']:.4f} ms, kernels "
+                              f"{r['busy_ms']:.4f} ms, idle {r['idle']:.4f}"
+                              for m, r in row.items()), flush=True)
+            del pred, x
+            g22_release()
+    return idle
+
+
+def g22_case(name, pred, shape, per_forward, gen, smi):
+    """One model, batch and source: the eager forward twice on a, b, the
+    graphed one on a, b, b, a (eager step, capture, replays); every
+    output bit-equal; B1 1 and B2 ``per_forward`` a call in each run,
+    counted inside the replays, no input copied; ms per batch graphed and
+    eager. Returns the graphed run's (B1, B2) and the case's numbers."""
+    from ab_line_classifier_torch.ops import depthwise_cuda as DC
+    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+
+    label = f"{name} serving {'x'.join(map(str, shape))}"
+    batches = [torch.randint(0, 256, (*shape, 3), dtype=torch.uint8,
+                             device="cuda", generator=gen) for _ in range(2)]
+    runs, counts = [], []
+    for fn in (pred.eager, pred.eager, pred.forward):
+        calls = G22_ORDER if fn == pred.forward else range(2)
+        PC.reset_launch_count()
+        DC.reset_launch_count()
+        outs = [fn(batches[i]) for i in calls]
+        torch.cuda.synchronize()
+        counts.append((PC.launch_count, DC.launch_count, DC.copy_count,
+                       len(calls)))
+        # Laid out in G22_ORDER, the eager runs' outputs repeated.
+        runs.append(outs if fn == pred.forward
+                    else [outs[i] for i in G22_ORDER])
+    eager1, eager2, graphed = runs
+    for probs in graphed:
+        if probs.shape != (shape[0], 2) or not torch.isfinite(probs).all() \
+                or float((probs.sum(1) - 1).abs().max()) > 1e-5:
+            raise AssertionError(f"{label}: bad probabilities")
+    if torch.equal(graphed[0], graphed[1]):
+        raise AssertionError(f"{label}: a and b served alike")
+    if any((pre, dw, copies) != (n, per_forward * n, 0)
+           for pre, dw, copies, n in counts):
+        raise AssertionError(f"{label}: launches (B1, B2, copies, calls) "
+                             f"{counts}, want B1 1 and B2 {per_forward} a "
+                             f"call, no copy, in each run")
+    summary = pred.summaries()["x".join(map(str, (*shape, 3)))]
+    if (summary["eager_steps"], summary["replays"]) != (1, 3) \
+            or summary["captured_launches"] != {"preprocess": 1,
+                                                "depthwise": per_forward}:
+        raise AssertionError(f"{label}: program {summary}")
+    if not all(torch.equal(a, b) for a, b in zip(eager1, eager2)):
+        raise AssertionError(f"{label}: the eager forward differs from "
+                             f"itself")
+    bad = [k for k, (g, e) in enumerate(zip(graphed, eager1))
+           if not torch.equal(g, e)]
+    if bad:
+        raise AssertionError(f"{label}: graphed calls {bad} of a, b, b, a "
+                             f"differ from eager")
+    a = batches[0]
+    out = {"capture_s": summary["capture_seconds"],
+           "graphed_ms": cuda_ms(lambda: pred.forward(a), G22_ITERS, 1),
+           "eager_ms": cuda_ms(lambda: pred.eager(a), G22_ITERS, 1)}
+    print(f"  {label}: graphed bit-equal to eager (itself bit-equal) over "
+          f"a, b, b, a; B1 1 B2 {per_forward} a call (1 eager + 3 "
+          f"replays, as eager); capture {out['capture_s']:.4f} s; ms/batch "
+          f"graphed {out['graphed_ms']:.4f} eager {out['eager_ms']:.4f} "
+          f"(x{out['eager_ms'] / out['graphed_ms']:.2f}) on {smi}",
+          flush=True)
+    return counts[-1][:2], out
+
+
+def g22_ragged(name, pred, host, per_forward):
+    """``predict_probs`` over ``2 * batch - G22_RAGGED`` host frames: two
+    chunks through the batch's 128x128 program (the second padded with
+    zero frames, its pad rows dropped), equal to the eager forward of the
+    chunks padded alike; no program of another shape. Returns its (B1,
+    B2)."""
+    from ab_line_classifier_torch.ops import depthwise_cuda as DC
+    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+
+    bs = pred.batch_size
+    frames = host[:2 * bs - G22_RAGGED]
+    key = f"{bs}x{OUT_HW[0]}x{OUT_HW[1]}x3"
+    before = pred.summaries()
+    PC.reset_launch_count()
+    DC.reset_launch_count()
+    got = pred.predict_probs(frames)
+    counts = (PC.launch_count, DC.launch_count)
+    after = pred.summaries()
+    tail = np.zeros_like(frames[:bs])
+    tail[:bs - G22_RAGGED] = frames[bs:]
+    want = torch.cat([pred.eager(frames[:bs]),
+                      pred.eager(tail)[:bs - G22_RAGGED]]).cpu().numpy()
+    if not np.array_equal(got, want) or counts != (2, 2 * per_forward) \
+            or after.keys() != before.keys() \
+            or after[key]["replays"] != before[key]["replays"] + 2:
+        raise AssertionError(
+            f"{name} predict_probs of {len(frames)} frames at batch {bs}: "
+            f"max |dp| from the eager padded chunks "
+            f"{float(np.abs(got - want).max())}, launches {counts}, "
+            f"programs {after}")
+    print(f"  {name} predict_probs of {len(frames)} host frames at batch "
+          f"{bs}: 2 replays of the {key} program (the ragged chunk padded "
+          f"with {G22_RAGGED} zero frames, their rows dropped), equal to "
+          f"the eager forward of the padded chunks", flush=True)
+    return counts
+
+
+def g22_cli(vgg, vgg_sd, root, smi):
+    """``python -m ab_line_classifier_torch.predict --device cuda`` on a
+    synthetic JPEG table and a cutoffvgg16 checkpoint, as a subprocess:
+    the forward graphed, and the frame predictions CSV equal to the eager
+    forward of the same batches under the CLI's cuDNN settings."""
+    import glob
+
+    import pandas as pd
+    import yaml
+
+    from ab_line_classifier_torch.data.pipeline import FrameDataset
+    from ab_line_classifier_torch.data.synthetic import generate_dataset
+    from ab_line_classifier_torch.predict.benchmark import ZOO_HPARAMS
+    from ab_line_classifier_torch.predict.predict import Predictor
+    from ab_line_classifier_torch.utils import checkpoint as ckpt
+
+    ws = os.path.join(root, "cli")
+    fcsv, ccsv, fdir = generate_dataset(
+        ws, n_patients=8, clips_per_patient=2,
+        frames_per_clip=G22_CLI_FRAMES // 16, hw=OUT_HW, seed=22)
+    model_dir = os.path.join(ws, "model")
+    ckpt.save_model(model_dir, vgg_sd, {
+        "model_name": vgg.name, "hparams": ZOO_HPARAMS[vgg.name],
+        "input_shape": [*OUT_HW, 3], "n_classes": 2,
+        "mixed_precision": True})
+    with open(os.path.join(REPO, "config.yml")) as f:
+        d = yaml.safe_load(f)
+    d["DATA"]["IMG_DIM"] = list(OUT_HW)
+    d["PATHS"].update(FRAME_TABLE=fcsv, CLIPS_TABLE=ccsv, FRAMES=fdir,
+                      MODEL_TO_LOAD=model_dir,
+                      BATCH_PREDS=os.path.join(ws, "preds") + os.sep,
+                      METRICS=os.path.join(ws, "metrics") + os.sep,
+                      LOGS=os.path.join(ws, "logs"))
+    cfg = os.path.join(ws, "config.yml")
+    with open(cfg, "w") as f:
+        yaml.safe_dump(d, f)
+    bs = int(d["TRAIN"]["BATCH_SIZE"])
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [p for p in (REPO, os.environ.get("PYTHONPATH")) if p]))
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "ab_line_classifier_torch.predict",
+         "--config", cfg, "--device", "cuda"],
+        capture_output=True, text=True, timeout=300, cwd=REPO, env=env)
+    seconds = time.perf_counter() - t0
+    line = (f"Serving forward: graphed ({bs}x{OUT_HW[0]}x{OUT_HW[1]}x3: 1 "
+            f"eager, {-(-G22_CLI_FRAMES // bs) - 1} replayed)")
+    frame_csvs = glob.glob(os.path.join(ws, "preds", "frames_frames*.csv"))
+    clip_csvs = glob.glob(os.path.join(ws, "preds", "frames_clips*.csv"))
+    if r.returncode != 0 or line not in r.stdout or len(frame_csvs) != 1 \
+            or len(clip_csvs) != 1:
+        raise AssertionError(f"predict CLI: exit {r.returncode}, CSVs "
+                             f"{frame_csvs + clip_csvs}, stdout "
+                             f"{r.stdout[-800:]!r}, stderr "
+                             f"{r.stderr[-2000:]!r}")
+    table = pd.read_csv(frame_csvs[0])
+    got = table[["a_lines", "b_lines"]].to_numpy().astype(np.float32)
+    # The eager forward of the CLI's batches under PyTorch's cuDNN
+    # defaults, which the CLI runs with (this script turns TF32 off).
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cudnn.deterministic = False
+    try:
+        pred = Predictor.restore(model_dir, batch_size=bs, device="cuda")
+        ds = FrameDataset(pd.read_csv(fcsv), fdir, img_dim=OUT_HW)
+        want = np.zeros((len(ds), 2), np.float32)
+        for batch in ds.batches(bs):
+            probs = pred.eager(batch.images).cpu().numpy()
+            valid = batch.mask > 0
+            want[batch.indices[valid]] = probs[valid]
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+    if len(table) != G22_CLI_FRAMES or not np.array_equal(got, want):
+        raise AssertionError(f"predict CLI: {len(table)} rows, max |dp| "
+                             f"from eager {float(np.abs(got - want).max())}")
+    print(f"  predict CLI (cutoffvgg16 checkpoint, {G22_CLI_FRAMES} JPEGs of "
+          f"128x128, batches of {bs}): exit 0, '{line}', the frame CSV equal "
+          f"to the eager forward's, a clip CSV; {seconds:.1f} s in all on "
+          f"{smi}", flush=True)
+    return {"seconds": seconds, "rows": len(table)}
+
+
+def phase_graphed_serving(smi, served, per_forward, idle):
+    """Phase 22 (module docstring); ``idle`` is phase 8's
+    :func:`g22_idle`. Returns the graphed forwards' (B1, B2) launches and
+    the phase's numbers."""
+    t_phase = time.perf_counter()
+    root = os.path.join(REPO, "build", "phase22")
+    os.makedirs(root, exist_ok=True)
+    numbers, b1, b2 = {}, 0, 0
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    host = np.random.default_rng(22).integers(
+        0, 256, (2 * MAIN_BATCH, *OUT_HW, 3), dtype=np.uint8)
+    flags = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, (spec, sd) in served.items():
+            for bs in G22_BATCHES[name]:
+                torch.cuda.reset_peak_memory_stats()
+                pred = g22_predictor(spec, sd, bs)
+                for src in G22_SOURCES:
+                    (pre, dw), out = g22_case(name, pred, (bs, *src),
+                                              per_forward[name], gen, smi)
+                    b1, b2 = b1 + pre, b2 + dw
+                    numbers[f"{name} {bs}x{src[0]}x{src[1]}"] = out
+                pre, dw = g22_ragged(name, pred, host, per_forward[name])
+                b1, b2 = b1 + pre, b2 + dw
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                row = idle[f"{name} {bs}"]
+                numbers[f"{name} {bs}"] = {
+                    "max_memory_gib": peak,
+                    "idle": {m: r["idle"] for m, r in row.items()}}
+                print(f"  {name} batch {bs}: max_memory_allocated "
+                      f"{peak:.3f} GiB; idle share from 128x128 (phase 8's "
+                      f"profile) graphed {row['graphed']['idle']:.4f} eager "
+                      f"{row['eager']['idle']:.4f}", flush=True)
+                del pred
+                g22_release()
+        vgg, vgg_sd = served["cutoffvgg16"]
+        numbers["cli"] = g22_cli(vgg, vgg_sd, root, smi)
+    finally:
+        torch.backends.cudnn.deterministic = flags
+    numbers["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 22: {numbers['seconds']:.1f} s", flush=True)
+    return (b1, b2), numbers
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an "
@@ -5586,6 +5894,9 @@ def main():
     profile_batch("cutoffvgg16", vgg_pred, smi, ((128, 128), (480, 640)),
                   gen)
     profile_batch("mobilenetv2", mbv2_pred, smi, ((128, 128),), gen)
+    del vgg_pred, mbv2_pred
+    serving_idle = g22_idle({"cutoffvgg16": (vgg, vgg_sd), **{
+        name: (specs[name], weights[name]) for name in ZOO}}, smi)
     torch.cuda.synchronize()
 
     phase("9 Grad-CAM")
@@ -5669,6 +5980,11 @@ def main():
     phase("21 graphed Grad-CAM: one CUDA graph per batch shape")
     launches["gradcam_graphed"], graphed_gradcam = phase_graphed_gradcam(
         smi, served, per_forward, gradcam_idle)
+    torch.cuda.synchronize()
+
+    phase("22 graphed serving: one CUDA graph per input shape")
+    launches["serving_graphed"], graphed_serving = phase_graphed_serving(
+        smi, served, per_forward, serving_idle)
 
     def graph_runs(kernel):
         """Runs on the card of ``kernel`` in one replay of each model's
@@ -5731,7 +6047,8 @@ def main():
                         for name, a in attribution.items()},
         "export": exports, "dataset_creation_s": dataset_s,
         "jpeg_wandb": jpeg_wandb, "multi_device": multi_device,
-        "graphed_epochs": graphed, "graphed_gradcam": graphed_gradcam}))
+        "graphed_epochs": graphed, "graphed_gradcam": graphed_gradcam,
+        "graphed_serving": graphed_serving}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -280,6 +280,72 @@ def test_graphed_gradcam_equals_the_eager_pass():
 
 
 @pytest.mark.cuda
+def test_graphed_serving_equals_the_eager_forward():
+    """The serving forward of a 32x32 mobilenetv2 (bf16, cuDNN
+    deterministic) over two batches in the order a, b, b, a: the graphed
+    forward (the first call eager on the side stream, the second captured
+    and replayed, the rest replayed) bit-equal to ``Predictor.eager`` on
+    every call, so no result is overwritten by a later replay; B1 once
+    and B2 once a depthwise layer per call in both, the replays' launches
+    counted; weights copied in place are seen by the next replay; a
+    ragged host sweep through the batch's one program."""
+    _need_cuda()
+    from ab_line_classifier_torch import graph as G
+    from ab_line_classifier_torch.predict.benchmark import (
+        build_zoo, depthwise_layer_shapes, seeded_state)
+    from ab_line_classifier_torch.predict.predict import Predictor
+
+    flags = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        spec = build_zoo("mobilenetv2", (32, 32))
+        predictor = Predictor(spec, seeded_state(spec, 3), batch_size=16,
+                              device="cuda")
+        assert predictor.graph_mode == "graphed"
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        batches = [torch.randint(0, 256, (16, 32, 32, 3), dtype=torch.uint8,
+                                 device="cuda", generator=gen)
+                   for _ in range(2)]
+        G.adapt_batch_norm(predictor.module, preprocess_cuda.preprocess_frames(
+            torch.cat(batches), out_hw=(32, 32),
+            preprocess_mode=spec.preprocess_mode, out_dtype=spec.dtype))
+        per_forward = len(depthwise_layer_shapes(spec))
+        assert per_forward > 0
+        order = (0, 1, 1, 0)
+        runs = []
+        for fn in (predictor.forward, predictor.eager):
+            preprocess_cuda.reset_launch_count()
+            depthwise_cuda.reset_launch_count()
+            outs = [fn(batches[i]) for i in order]
+            torch.cuda.synchronize()
+            runs.append((outs, _launches()))
+        (got, got_n), (want, want_n) = runs
+        assert got_n == want_n == (4, 4 * per_forward)
+        assert depthwise_cuda.copy_count == 0
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert not torch.equal(got[0], got[1])
+        summary, = predictor.summaries().values()
+        assert summary["eager_steps"] == 1 and summary["replays"] == 3
+        assert summary["captured_launches"] == {"preprocess": 1,
+                                                "depthwise": per_forward}
+        state = {k: v * 1.05 if k.endswith("weight") else v
+                 for k, v in predictor.module.state_dict().items()}
+        predictor.module.load_state_dict(state)
+        moved = predictor.forward(batches[0])
+        assert torch.equal(moved, predictor.eager(batches[0]))
+        assert not torch.equal(moved, got[0])
+        host = torch.cat(batches).cpu().numpy()[:27]
+        probs = predictor.predict_probs(host)
+        tail = torch.zeros_like(batches[0])
+        tail[:11] = batches[1][:11]
+        assert torch.equal(torch.as_tensor(probs), torch.cat(
+            [predictor.eager(batches[0]), predictor.eager(tail)[:11]]).cpu())
+        assert list(predictor.summaries()) == ["16x32x32x3"]
+    finally:
+        torch.backends.cudnn.deterministic = flags
+
+
+@pytest.mark.cuda
 def test_mobilenetv2_training_step_through_the_depthwise_kernel():
     """A mobilenetv2 training step on the card (every layer but the batch
     norms trainable, float32, TF32 off): B2 launched once per stride-1
