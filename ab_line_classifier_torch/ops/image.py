@@ -83,6 +83,22 @@ def _gaussian_kernel1d(sigma: float, truncate: float = 4.0) -> np.ndarray:
     return (k / k.sum()).astype(np.float32)
 
 
+_gaussian_taps: Dict[tuple, torch.Tensor] = {}
+
+
+def _device_gaussian_taps(sigma: float, truncate: float,
+                          device: torch.device) -> torch.Tensor:
+    """:func:`_gaussian_kernel1d` on ``device``, made once per ``(sigma,
+    truncate, device)``: a call after the first copies nothing from the
+    host, so a CUDA graph can capture it."""
+    key = (sigma, truncate, device)
+    k = _gaussian_taps.get(key)
+    if k is None:
+        k = _gaussian_taps[key] = torch.as_tensor(
+            _gaussian_kernel1d(sigma, truncate), device=device)
+    return k
+
+
 def gaussian_blur(x: torch.Tensor, sigma_hw: Tuple[float, float],
                   truncate: float = 4.0) -> torch.Tensor:
     """Separable zero-padded Gaussian blur of ``[B, H, W]`` images:
@@ -92,8 +108,7 @@ def gaussian_blur(x: torch.Tensor, sigma_hw: Tuple[float, float],
     for axis, sigma in ((0, float(sigma_hw[0])), (1, float(sigma_hw[1]))):
         if sigma <= 0.0:
             continue
-        k = torch.as_tensor(_gaussian_kernel1d(sigma, truncate),
-                            device=x.device)
+        k = _device_gaussian_taps(sigma, float(truncate), x.device)
         r = (len(k) - 1) // 2
         if axis == 0:
             out = F.conv2d(out, k.view(1, 1, -1, 1), padding=(r, 0))

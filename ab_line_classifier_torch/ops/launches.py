@@ -6,7 +6,8 @@ calls the wrappers but launches nothing, and a replay launches the
 captured kernels without calling them. Every graph of the port (the
 graphed training epochs, ``train/graphed.py``; the Grad-CAM pass and the
 serving forward, one graph per input shape, ``explain/gradcam.py`` and
-``predict/predict.py``; the batch-1 latency chain,
+``predict/predict.py``; the auto-masking chain, one graph per sampled-clip
+shape, ``data/auto_masking.py``; the batch-1 latency chain,
 ``predict/benchmark.py``; the attribution's segments,
 ``predict/attribution.py``) is captured inside :func:`capture`, which takes
 the capture's calls off the counts and keeps them, and each replay calls

@@ -17,7 +17,7 @@ semantics are cv2's: erosion treats outside pixels as 1, dilation as 0.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -65,9 +65,12 @@ def binary_dilate(mask: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
 
 
 def binary_erode(mask: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
-    """``[B, H, W]`` binary erode (outside counts as 1)."""
+    """``[B, H, W]`` binary erode (outside counts as 1). The threshold is
+    ``kernel``'s sum as a 0-dim tensor, read by the compare on the device,
+    so a CUDA graph can capture it; it is exact (an integer of at most
+    54 * 54 in float32)."""
     conv = _conv2d_same(mask, kernel, pad_value=1.0)
-    return (conv >= float(kernel.sum()) - 0.5).to(mask.dtype)
+    return (conv >= kernel.sum() - 0.5).to(mask.dtype)
 
 
 def _window_sum(x: torch.Tensor, size: int) -> torch.Tensor:
@@ -87,16 +90,29 @@ def box_filter(x: torch.Tensor, size: int = 5) -> torch.Tensor:
     return _window_sum(x, size) / float(size * size)
 
 
+_ellipses: Dict[tuple, torch.Tensor] = {}
+
+
+def _device_ellipse(size: int, device: torch.device) -> torch.Tensor:
+    """:func:`ellipse_kernel` on ``device``, made once per ``(size,
+    device)``: a call after the first copies nothing from the host, so a
+    CUDA graph can capture it."""
+    key = (int(size), device)
+    k = _ellipses.get(key)
+    if k is None:
+        k = _ellipses[key] = torch.as_tensor(ellipse_kernel(size),
+                                             device=device)
+    return k
+
+
 def clean_binary_masks(binary_masks: torch.Tensor, *, erode_size: int,
                        dilate_size: int) -> torch.Tensor:
     """Elliptical erode then dilate of ``[B, H, W]`` binary masks; float32
     0/1 out."""
     dev = binary_masks.device
     binary = binary_masks.to(torch.float32)
-    binary = binary_erode(binary, torch.as_tensor(ellipse_kernel(erode_size),
-                                                  device=dev))
-    return binary_dilate(binary, torch.as_tensor(ellipse_kernel(dilate_size),
-                                                 device=dev))
+    binary = binary_erode(binary, _device_ellipse(erode_size, dev))
+    return binary_dilate(binary, _device_ellipse(dilate_size, dev))
 
 
 def clean_masks(prob_masks: torch.Tensor, *, erode_size: int,

@@ -20,9 +20,10 @@ and advances the cursor: the scan's body, with the cursor as its carry.
   code the card replays, so the CPU tests hold it.
 
 A capture that fails raises; nothing reruns the step eagerly. The
-Grad-CAM pass (``explain/gradcam.py``) and the serving forward
-(``predict/predict.py``, in inference mode) run through
-:class:`StepGraph` too, one per input shape.
+Grad-CAM pass (``explain/gradcam.py``), the serving forward
+(``predict/predict.py``, in inference mode) and the auto-masking chain
+(``data/auto_masking.py``, in inference mode and IEEE float32) run
+through :class:`StepGraph` too, one per input shape.
 
 What a step may do, to be captured: device work only, on tensors whose
 addresses stay put. Host values it needs change between replays through

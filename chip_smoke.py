@@ -278,17 +278,31 @@ no result):
    cuda`` on a cutoffvgg16 checkpoint over 192 synthetic JPEGs as a
    subprocess: the forward ``graphed`` and the frame CSV equal to the
    eager forward of its batches.
+23. graphed auto-masking — ``UnetSegmentation.clip_mask`` as one CUDA
+   graph per sampled-clip shape (``data/auto_masking.py``), phase 14's
+   U-Net, cuDNN deterministic: four fan clips (host frames) of each of 10
+   and 11 sampled frames of 480x640 and 11 of 1080x1440, called in turn
+   with PyTorch's TF32 default on (eager step, capture, replays): every
+   mask and bounding box bit-equal to the eager chain's (itself
+   bit-equal) and the mask to the CPU chain on the card's probabilities,
+   the TF32 flags left as they were, B1 and B2 not launched; ms per clip
+   graphed and eager (host clock after ``synchronize``), the capture
+   seconds, ``max_memory_allocated`` and the program count;
+   ``UnetSegmentation.predict`` (the auto-mask CLI) over six 480x640
+   mp4s (jpg out, cropped to the box, a checkpoint loaded), graphed and
+   with the eager chain: every file byte-equal, two programs each
+   replayed, the wall seconds a clip.
 
-The last three lines of standard output are a JSON line of phases 15-22's
+The last three lines of standard output are a JSON line of phases 15-23's
 summaries, a JSON line of per-kernel
 numbers (launches per path, ``training``, the trial-parallel, ``deploy``,
 ``automask``, ``attribution``, ``export_roundtrip``, ``jpeg_training``,
 ``wandb_sweep``, the two ``multi_device`` paths (the gloo
-path's summed over its ranks), ``graphed_epochs``, ``gradcam_graphed``
-and ``serving_graphed`` included:
+path's summed over its ranks), ``graphed_epochs``, ``gradcam_graphed``,
+``serving_graphed`` and ``automask_graphed`` included:
 the launches that ran on the card: the wrappers' eager calls, and for
 every CUDA graph (serving forwards, latency chains, attribution
-segments, graphed epochs, Grad-CAM passes)
+segments, graphed epochs, Grad-CAM passes, auto-mask programs)
 its captured launches once per replay, ``ops/launches.py``; the kernel's
 runs in one replay of each latency graph, counted by the profiler, and
 the replays) and ``{"ok": true, "device": {...}}``.
@@ -3109,6 +3123,10 @@ def phase_automask(smi):
             t0 = time.perf_counter()
             gpu.clip_mask(sampled, hw)
             torch.cuda.synchronize()
+            captured = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            gpu.clip_mask(sampled, hw)
+            torch.cuda.synchronize()
             warm = time.perf_counter() - t0
             if (torch.backends.cudnn.allow_tf32,
                     torch.backends.cuda.matmul.allow_tf32) != tf32_default:
@@ -3169,6 +3187,7 @@ def phase_automask(smi):
         del clip
         torch.cuda.empty_cache()
         timings[label] = dict(first_call_wall_ms=wall * 1e3,
+                              capture_call_wall_ms=captured * 1e3,
                               clip_mask_wall_ms=warm * 1e3,
                               mask_frames_ms=mask_frames_ms,
                               unet_max_abs_err=err,
@@ -3184,7 +3203,9 @@ def phase_automask(smi):
               f"{erode}x{erode} / {dilate}x{dilate} and vote equal "
               f"(kept share {kept:.4f}); mask_frames equal with and without "
               f"the crop; predict_masks + clip_mask first call "
-              f"{wall * 1e3:.2f} ms, clip_mask again {warm * 1e3:.2f} ms "
+              f"{wall * 1e3:.2f} ms (the program's eager step), clip_mask "
+              f"again {captured * 1e3:.2f} ms (its capture and first "
+              f"replay), warm {warm * 1e3:.2f} ms (a replay) "
               f"(host clock, TF32 default on); ms per step " + ", ".join(
                   f"{k} {v:.4f}" for k, v in steps.items())
               + f"; mask_frames of {AUTOMASK_FRAMES} frames "
@@ -5805,6 +5826,266 @@ def phase_graphed_serving(smi, served, per_forward, idle):
     return (b1, b2), numbers
 
 
+# Phase 23 (graphed auto-masking): phase 14's U-Net (width 16, random
+# weights from a numpy seed); four fan clips (host frames, as the CLI
+# decodes them) of each sampled shape: 10 and 11 frames of 480x640, 11 of
+# 1080x1440; ms per clip over G23_ROUNDS rounds of the four; the CLI over
+# six 480x640 mp4s of 20-22 frames (every 2nd frame sampled: 10 or 11).
+G23_SHAPES = (((480, 640), 11), ((480, 640), 10), ((1080, 1440), 11))
+G23_CLIPS = 4
+G23_ROUNDS = {480: 5, 1080: 1}
+G23_EVENT_ITERS = {480: 10, 1080: 3}
+G23_CLI_FRAMES = (20, 21, 20, 22, 21, 20)
+G23_CLI_HW = (480, 640)
+
+
+def g23_case(gpu, cpu, hw, n, smi):
+    """One sampled shape: the eager chain on each clip (twice on the
+    first); ``clip_mask`` on the four in turn with PyTorch's TF32 default
+    on (eager step, capture, replays), each mask and box bit-equal to the
+    eager chain's and the mask to the CPU chain on the card's
+    probabilities; no kernel launched; ms per clip graphed and eager
+    (host clock after ``synchronize``, host frames in, the box read
+    back), and on the card's clock (CUDA events) the graph's replay alone
+    and the eager chain from frames already on the card. Returns the
+    graphed calls' (B1, B2) and the case's numbers."""
+    from ab_line_classifier_torch.ops import depthwise_cuda as DC
+    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+
+    label = f"{n}x{hw[0]}x{hw[1]}"
+    clips = [beam_frames(n, hw, 230 + k) for k in range(G23_CLIPS)]
+    want = [gpu.eager(c, hw) for c in clips]
+    if not torch.equal(gpu.eager(clips[0], hw), want[0]):
+        raise AssertionError(f"{label}: the eager chain differs from itself")
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = (True, False)
+    try:
+        PC.reset_launch_count()
+        DC.reset_launch_count()
+        got, walls = [], []
+        for c in clips:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got.append(gpu.clip_mask(c, hw))
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        launched = (PC.launch_count, DC.launch_count)
+        if (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32) != (True, False):
+            raise AssertionError(f"{label}: clip_mask left the TF32 flags "
+                                 f"changed")
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    if launched != (0, 0):
+        raise AssertionError(f"{label}: B1, B2 launched {launched}")
+    t0 = time.perf_counter()
+    for k, ((mask, box), w, c) in enumerate(zip(got, want, clips)):
+        if not torch.equal(mask, w) or box != gpu.get_bounding_box(w):
+            raise AssertionError(f"{label} clip {k}: graphed mask differs "
+                                 f"from eager in "
+                                 f"{int((mask != w).sum())} px, box {box}")
+        on_cpu = cpu.mask_from_probs(gpu.predict_masks(c).cpu(), hw)
+        if not torch.equal(mask.cpu(), on_cpu):
+            raise AssertionError(f"{label} clip {k}: graphed mask differs "
+                                 f"from the CPU chain in "
+                                 f"{int((mask.cpu() != on_cpu).sum())} px")
+    cpu_s = time.perf_counter() - t0
+    shares = [float(m.mean()) for m, _ in got]
+    if not all(0.05 < s < 0.95 for s in shares) \
+            or torch.equal(got[0][0], got[1][0]):
+        raise AssertionError(f"{label}: mask shares {shares}: trivial")
+    key, = (k for k in gpu.summaries() if k.startswith(label + "x3 "))
+    summary = gpu.summaries()[key]
+    if (summary["eager_steps"], summary["replays"]) != (1, G23_CLIPS - 1) \
+            or summary["captured_launches"] != {"preprocess": 0,
+                                                "depthwise": 0}:
+        raise AssertionError(f"{label}: program {summary}")
+
+    def per_clip(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(G23_ROUNDS[hw[0]]):
+            for c in clips:
+                fn(c)
+                torch.cuda.synchronize()
+        return ((time.perf_counter() - t0) * 1e3
+                / (G23_ROUNDS[hw[0]] * G23_CLIPS))
+
+    def eager(c):
+        return gpu.get_bounding_box(gpu.eager(c, hw))
+
+    graphed_ms, eager_ms = [], []
+    for fn, out in ((lambda c: gpu.clip_mask(c, hw), graphed_ms),
+                    (eager, eager_ms), (eager, eager_ms),
+                    (lambda c: gpu.clip_mask(c, hw), graphed_ms)):
+        out.append(per_clip(fn))
+    (_, _, step), = (prog for k, prog in gpu._programs.items()
+                     if k[0] == (n, *hw, 3))
+    on_card = torch.from_numpy(clips[0]).cuda()
+    iters = G23_EVENT_ITERS[hw[0]]
+    replay_ms = cuda_ms(step, iters, 1)
+    eager_stream_ms = cuda_ms(lambda: gpu.eager(on_card, hw), iters, 1)
+    del on_card
+    out = {"graphed_ms": graphed_ms, "eager_ms": eager_ms,
+           "replay_ms": replay_ms, "eager_stream_ms": eager_stream_ms,
+           "first_calls_ms": walls,
+           "capture_s": summary["capture_seconds"],
+           "cpu_check_s": cpu_s, "mask_share": shares}
+    print(f"  {label} ({key}): {G23_CLIPS} clips, graphed bit-equal to "
+          f"eager (itself bit-equal) and to the CPU chain on the card's "
+          f"probabilities, boxes equal, TF32 default on; B1 0 B2 0; 1 eager "
+          f"+ {G23_CLIPS - 1} replays; capture {out['capture_s']:.4f} s; "
+          f"first four calls "
+          + ", ".join(f"{w:.2f}" for w in walls)
+          + f" ms; ms per clip graphed "
+          + " / ".join(f"{t:.4f}" for t in graphed_ms)
+          + " eager " + " / ".join(f"{t:.4f}" for t in eager_ms)
+          + f" (host clock, host frames in, box read back); on the card's "
+          f"clock the replay alone {replay_ms:.4f} ms, the eager chain "
+          f"from frames on the card {eager_stream_ms:.4f} ms; mask shares "
+          + ", ".join(f"{s:.4f}" for s in shares)
+          + f"; CPU checks {cpu_s:.1f} s; on {smi}", flush=True)
+    return launched, out
+
+
+def g23_cli(state, root, smi):
+    """``UnetSegmentation.predict`` over six 480x640 mp4s written with cv2
+    (jpg out, cropped to the box), graphed and with ``clip_mask`` replaced
+    by the eager chain, in the order graphed, eager, eager, graphed (a
+    new segmentation each): every file written byte-equal to the first
+    run's; two programs a graphed run, each 1 eager step and 2 replays.
+    Returns the wall seconds a clip of each run."""
+    import cv2
+
+    from ab_line_classifier_torch.data.auto_masking import UnetSegmentation
+    from ab_line_classifier_torch.utils import checkpoint as ckpt
+
+    clips_dir = os.path.join(root, "clips")
+    os.makedirs(clips_dir, exist_ok=True)
+    for k, n in enumerate(G23_CLI_FRAMES):
+        vw = cv2.VideoWriter(os.path.join(clips_dir, f"clip{k}.mp4"),
+                             cv2.VideoWriter_fourcc(*"mp4v"), 30,
+                             G23_CLI_HW[::-1], True)
+        for f in beam_frames(n, G23_CLI_HW, 2300 + k):
+            vw.write(np.ascontiguousarray(f[..., ::-1]))
+        vw.release()
+    unet = ckpt.save_model(os.path.join(root, "unet"), state,
+                           {"model_name": "unet", "base_filters": 16})
+
+    def eager_clip_mask(self, frames, hw, edge_preserve=0.95):
+        mask = self.eager(frames, hw, edge_preserve)
+        return mask, self.get_bounding_box(mask)
+
+    walls = {"graphed": [], "eager": []}
+    runs = []
+    for mode in ("graphed", "eager", "eager", "graphed"):
+        seg = UnetSegmentation(device="cuda")
+        if mode == "eager":
+            seg.clip_mask = types.MethodType(eager_clip_mask, seg)
+        out_dir = os.path.join(root, f"run{len(runs)}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seg.predict(clips_dir, out_dir, model_path=unet,
+                    output_format="jpg", save_cropped_roi=True)
+        torch.cuda.synchronize()
+        walls[mode].append((time.perf_counter() - t0)
+                           / len(G23_CLI_FRAMES))
+        runs.append(out_dir)
+        if mode == "graphed":
+            programs = seg.summaries()
+            if sorted((s["eager_steps"], s["replays"])
+                      for s in programs.values()) != [(1, 2), (1, 2)]:
+                raise AssertionError(f"auto-mask CLI programs {programs}")
+    n_files = 0
+    for k, n in enumerate(G23_CLI_FRAMES):
+        names = sorted(os.listdir(os.path.join(runs[0], f"clip{k}")))
+        if len(names) != n + 1 or any(
+                sorted(os.listdir(os.path.join(r, f"clip{k}"))) != names
+                for r in runs[1:]):
+            raise AssertionError(f"auto-mask CLI clip{k}: files {names}")
+        for name in names:
+            with open(os.path.join(runs[0], f"clip{k}", name), "rb") as f:
+                want = f.read()
+            for r in runs[1:]:
+                with open(os.path.join(r, f"clip{k}", name), "rb") as f:
+                    if f.read() != want:
+                        raise AssertionError(
+                            f"auto-mask CLI {r}/clip{k}/{name} differs from "
+                            f"the first graphed run's")
+            n_files += 1
+    print(f"  auto-mask CLI (UnetSegmentation.predict, {len(G23_CLI_FRAMES)} "
+          f"mp4s of {G23_CLI_HW[0]}x{G23_CLI_HW[1]}, jpg cropped to the "
+          f"box, a checkpoint loaded; graphed, eager, eager, graphed): "
+          f"{n_files} files a run, every run's byte-equal; programs "
+          + "; ".join(f"{k}: {s['eager_steps']} eager, {s['replays']} "
+                      f"replayed" for k, s in programs.items())
+          + f"; wall a clip graphed "
+          + " / ".join(f"{t:.4f}" for t in walls["graphed"])
+          + " s, eager " + " / ".join(f"{t:.4f}" for t in walls["eager"])
+          + f" s on {smi}", flush=True)
+    return {"wall_s_per_clip": walls, "files": n_files}
+
+
+def phase_graphed_automask(smi):
+    """Phase 23 (module docstring). Returns the path's (B1, B2) launches
+    and the phase's numbers."""
+    import shutil
+
+    from ab_line_classifier_torch.data.auto_masking import UnetSegmentation
+    from ab_line_classifier_torch.models.unet import seeded_unet_state
+    from ab_line_classifier_torch.ops import depthwise_cuda as DC
+    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+
+    t_phase = time.perf_counter()
+    root = os.path.join(REPO, "build", "phase23")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    state = seeded_unet_state(16, 8)
+    numbers, b1, b2 = {}, 0, 0
+    flags = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        gpu = UnetSegmentation(device="cuda")
+        cpu = UnetSegmentation(device="cpu")
+        gpu.model.load_state_dict(state)
+        cpu.model.load_state_dict(state)
+        if gpu.graph_mode != "graphed":
+            raise AssertionError(f"auto-masking {gpu.graph_mode}")
+        for hw, n in G23_SHAPES:
+            (pre, dw), numbers[f"{n}x{hw[0]}x{hw[1]}"] = g23_case(
+                gpu, cpu, hw, n, smi)
+            b1, b2 = b1 + pre, b2 + dw
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        numbers["max_memory_gib"] = peak
+        numbers["programs"] = len(gpu.summaries())
+        print(f"  {numbers['programs']} programs in one segmentation; "
+              f"max_memory_allocated over the phase's cases "
+              f"{peak:.3f} GiB (its pool, fixed inputs and outputs, and "
+              f"the eager chains'); held while it lives "
+              f"{(torch.cuda.memory_allocated() - base) / 2**30:.3f} GiB",
+              flush=True)
+        del gpu
+        torch.cuda.empty_cache()
+        PC.reset_launch_count()
+        DC.reset_launch_count()
+        numbers["cli"] = g23_cli(state, root, smi)
+        b1, b2 = b1 + PC.launch_count, b2 + DC.launch_count
+    finally:
+        torch.backends.cudnn.deterministic = flags
+    if (b1, b2) != (0, 0):
+        raise AssertionError(f"the graphed auto-mask path launched B1 {b1}, "
+                             f"B2 {b2}")
+    numbers["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 23: {numbers['seconds']:.1f} s", flush=True)
+    return (b1, b2), numbers
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an "
@@ -5985,6 +6266,11 @@ def main():
     phase("22 graphed serving: one CUDA graph per input shape")
     launches["serving_graphed"], graphed_serving = phase_graphed_serving(
         smi, served, per_forward, serving_idle)
+    torch.cuda.synchronize()
+
+    phase("23 graphed auto-masking: one CUDA graph per sampled-clip shape")
+    launches["automask_graphed"], graphed_automask = phase_graphed_automask(
+        smi)
 
     def graph_runs(kernel):
         """Runs on the card of ``kernel`` in one replay of each model's
@@ -6048,7 +6334,8 @@ def main():
         "export": exports, "dataset_creation_s": dataset_s,
         "jpeg_wandb": jpeg_wandb, "multi_device": multi_device,
         "graphed_epochs": graphed, "graphed_gradcam": graphed_gradcam,
-        "graphed_serving": graphed_serving}))
+        "graphed_serving": graphed_serving,
+        "graphed_automask": graphed_automask}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

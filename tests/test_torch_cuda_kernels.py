@@ -542,3 +542,79 @@ def test_graphed_stacked_epoch_equals_the_eager_epoch(name):
     finally:
         (torch.backends.cudnn.deterministic,
          torch.backends.cudnn.benchmark) = flags
+
+
+def _fan_frames(n, hw, seed):
+    """uint8 RGB frames of a noisy ultrasound fan on a dark background
+    (``tests/test_torch_automask.py``'s)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    yy, xx = np.mgrid[:h, :w]
+    ang = np.arctan2(xx - w / 2, yy + h * 0.1)
+    r = np.hypot(xx - w / 2, yy + h * 0.1)
+    sector = (np.abs(ang) < 0.6) & (r < h) & (r > 0.15 * h)
+    f = rng.integers(0, 30, (n, h, w, 3), dtype=np.uint8)
+    f[:, sector] = rng.integers(60, 256, (n, int(sector.sum()), 3),
+                                dtype=np.uint8)
+    return f
+
+
+@pytest.mark.cuda
+def test_graphed_automask_equals_the_eager_chain():
+    """``UnetSegmentation.clip_mask`` (a width-16 U-Net, cuDNN
+    deterministic, PyTorch's TF32 default on) over two clips of each of
+    two keys in the order a, b, b, a (eager step, capture, replays) and a
+    device copy of a: every mask bit-equal to ``.eager`` and every box to
+    the mask's, the TF32 flags left as they were, no kernel launched;
+    weights copied in place are seen by the next replay; the replayed
+    mask equal to the CPU chain on the card's probabilities."""
+    _need_cuda()
+    from ab_line_classifier_torch.data.auto_masking import UnetSegmentation
+    from ab_line_classifier_torch.models.unet import seeded_unet_state
+    from ab_line_classifier_torch.ops.morphology import bounding_box
+
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        seg = UnetSegmentation(device="cuda")
+        seg.model.load_state_dict(seeded_unet_state(16, 3))
+        assert seg.graph_mode == "graphed"
+        preprocess_cuda.reset_launch_count()
+        depthwise_cuda.reset_launch_count()
+        cases = (((96, 128), 11), ((200, 240), 10))
+        for hw, n in cases:
+            clips = [_fan_frames(n, hw, seed) for seed in (1, 2)]
+            got = [seg.clip_mask(clips[i], hw) for i in (0, 1, 1, 0)]
+            got.append(seg.clip_mask(torch.from_numpy(clips[0]).cuda(), hw))
+            want = [seg.eager(clips[i], hw) for i in (0, 1, 1, 0, 0)]
+            for (mask, box), w in zip(got, want):
+                assert torch.equal(mask, w)
+                assert box == list(bounding_box(w))
+            assert not torch.equal(got[0][0], got[1][0])
+            assert 0.05 < float(got[0][0].mean()) < 0.95
+        assert _launches() == (0, 0)
+        assert (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32) == (True, False)
+        summaries = seg.summaries()
+        assert len(summaries) == len(cases)
+        for s in summaries.values():
+            assert (s["eager_steps"], s["replays"]) == (1, 4)
+            assert s["captured_launches"] == {"preprocess": 0,
+                                              "depthwise": 0}
+        seg.model.load_state_dict(seeded_unet_state(16, 8))
+        moved, _ = seg.clip_mask(clips[0], hw)
+        assert torch.equal(moved, seg.eager(clips[0], hw))
+        assert not torch.equal(moved, got[0][0])
+        cpu = UnetSegmentation(device="cpu")
+        probs = seg.predict_masks(clips[0]).cpu()
+        assert torch.equal(cpu.mask_from_probs(probs, hw), moved.cpu())
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
