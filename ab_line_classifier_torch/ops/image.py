@@ -45,9 +45,39 @@ def nearest_indices(src: int, dst: int, mode: str = "tf") -> np.ndarray:
     return np.clip(idx, 0, src - 1).astype(np.int32)
 
 
+_nearest_index: Dict[tuple, torch.Tensor] = {}
+
+
 def _index(src: int, dst: int, mode: str, device) -> torch.Tensor:
-    return torch.as_tensor(nearest_indices(src, dst, mode), dtype=torch.long,
-                           device=device)
+    """:func:`nearest_indices` on ``device``, made once per ``(src, dst,
+    mode, device)``: a call after the first copies nothing from the host,
+    so a CUDA graph can capture it."""
+    key = (src, dst, mode, torch.device(device))
+    idx = _nearest_index.get(key)
+    if idx is None:
+        idx = _nearest_index[key] = torch.as_tensor(
+            nearest_indices(src, dst, mode), dtype=torch.long, device=device)
+    return idx
+
+
+_affine: Dict[tuple, Tuple[Optional[torch.Tensor], torch.Tensor,
+                           torch.Tensor]] = {}
+
+
+def _device_affine(preprocess_mode: str, device: torch.device):
+    """:func:`preprocess_affine_params` on ``device`` (the channel
+    permutation None where it is the identity), made once per ``(mode,
+    device)``, as :func:`_index`."""
+    key = (preprocess_mode, device)
+    params = _affine.get(key)
+    if params is None:
+        perm, scale, bias = preprocess_affine_params(preprocess_mode)
+        params = _affine[key] = (
+            None if np.array_equal(perm, np.arange(3))
+            else torch.as_tensor(perm, device=device),
+            torch.as_tensor(scale, device=device),
+            torch.as_tensor(bias, device=device))
+    return params
 
 
 def nearest_resize(x: torch.Tensor, out_hw: Tuple[int, int],
@@ -236,12 +266,11 @@ def fused_preprocess(frames: torch.Tensor, *,
         m = nearest_resize(m[..., None], out_hw, resize_mode)[..., 0]
         x = x * m[None, :, :, None]
 
-    perm, scale, bias = preprocess_affine_params(preprocess_mode)
-    if not np.array_equal(perm, np.arange(3)):
-        x = x[..., torch.as_tensor(perm, device=x.device)]
+    perm, scale, bias = _device_affine(preprocess_mode, x.device)
+    if perm is not None:
+        x = x[..., perm]
     x = x.to(torch.float32)
-    x = (x * torch.as_tensor(scale, device=x.device)
-         + torch.as_tensor(bias, device=x.device))
+    x = x * scale + bias
     x = x.to(out_dtype)
     return x[0] if squeeze else x
 

@@ -18,6 +18,7 @@ always the launches that ran on the card, eagerly or in a replay.
 from __future__ import annotations
 
 import contextlib
+import gc
 from typing import Dict, Iterator
 
 from ab_line_classifier_torch.ops import depthwise_cuda, preprocess_cuda
@@ -46,12 +47,21 @@ class CapturedLaunches:
 @contextlib.contextmanager
 def capture() -> Iterator[CapturedLaunches]:
     """Around a CUDA graph's capture: the wrapper calls made inside are
-    kept as the graph's launches per replay and taken off the counts."""
+    kept as the graph's launches per replay and taken off the counts.
+
+    Python's cyclic collector is paused inside: a dead object cycle can
+    hold another CUDA graph (a trainer's programs close over the trainer),
+    and a collection during the capture would destroy that graph and its
+    memory pool mid-capture, which invalidates the capture."""
     record = CapturedLaunches()
     before = counts()
+    collecting = gc.isenabled()
+    gc.disable()
     try:
         yield record
     finally:
+        if collecting:
+            gc.enable()
         for name, mod in _COUNTERS.items():
             record.per_replay[name] = mod.launch_count - before[name]
             mod.launch_count = before[name]

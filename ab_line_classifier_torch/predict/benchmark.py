@@ -15,10 +15,14 @@
   dependency-chained loop: captured once as a CUDA graph and replayed,
   beside the same loop run eagerly.
 * :func:`clock_avg_runtime` — the reference's mechanism: single-image
-  forwards timed one by one on the host clock, mean and std ms.
+  forwards (a CUDA graph of the float32 batch-1 forward on the card, the
+  JAX package's jitted ``fwd``) timed one by one on the host clock, mean
+  and std ms.
 * :func:`training_throughput_benchmark` — frames/sec of the full training
   step (augmentation, forward, backward, optimizer update) per phase of
-  the model's plan, each result labelled with its phase.
+  the model's plan, each result labelled with its phase: the streamed
+  step's program (a CUDA graph on the card, the JAX package's jitted
+  step).
 """
 
 from __future__ import annotations
@@ -420,30 +424,45 @@ def clock_avg_runtime(n_warmup_runs: int = 10, n_experiment_runs: int = 50,
                       spec: Optional[ModelSpec] = None, device=None,
                       seed: int = 0, verbose: bool = True
                       ) -> Tuple[float, float]:
-    """Single-image latency by the reference's mechanism: a ``(1, H, W,
-    3)`` standard-normal image (already on the device, in ``spec.dtype``)
-    through the model's forward, each call timed on the host clock up to
-    its probabilities on the host. Returns ``(mean_ms, std_ms)``."""
+    """Single-image latency by the reference's mechanism: a float32 ``(1,
+    H, W, 3)`` standard-normal image, put on the device into the
+    program's fixed input, through the model's forward (in ``spec.dtype``),
+    each call timed on the host clock up to its probabilities on the host.
+    The forward is one program (:class:`StepGraph`, the JAX package's
+    jitted ``fwd``): on CUDA a CUDA graph, the warm-up calls (at least two
+    there) running its eager step and its capture, then replays; on the
+    CPU the same body each call. Returns ``(mean_ms, std_ms)``."""
     from ab_line_classifier_torch.predict.predict import load_module
+    from ab_line_classifier_torch.train.graphed import StepGraph, capturable
     from ab_line_classifier_torch.utils.profiling import StepTimer
 
     device = resolve_device(device)
     spec = spec or build_flagship(img_dim)
     module = load_module(spec, state_dict or seeded_state(spec, seed),
                          device)
+    graphed = capturable(device)
     rng = np.random.RandomState(seed)
-    timer = StepTimer(warmup=n_warmup_runs)
     with torch.inference_mode():
+        fixed = torch.empty((1, *img_dim, 3), dtype=torch.float32,
+                            device=device)
+        out = []
+
+        def body():
+            out[:] = [module(fixed.to(spec.dtype))]
+
+        step = StepGraph(body, device, capture=graphed, modules=(module,))
+        n_warmup_runs = max(n_warmup_runs, 2 if graphed else 0)
+        timer = StepTimer(warmup=n_warmup_runs)
         for _ in range(n_warmup_runs + n_experiment_runs):
-            x = torch.from_numpy(rng.randn(1, *img_dim, 3)).to(
-                device=device, dtype=spec.dtype)
+            fixed.copy_(torch.from_numpy(rng.randn(1, *img_dim, 3)))
             with timer:
-                module(x).cpu()
+                step()
+                out[0].cpu()
     stats = timer.summary()
     mean_ms, std_ms = stats["mean_ms"], stats["std_ms"]
     if verbose:
         print(f"Average runtime = {mean_ms:.3f} ms, "
-              f"standard deviation = {std_ms:.3f} ms")
+              f"standard deviation = {std_ms:.3f} ms ({step.mode})")
     return mean_ms, std_ms
 
 
@@ -463,17 +482,22 @@ def training_throughput_benchmark(model_name: str = "cutoffvgg16",
                                   device=None, seed: int = 0,
                                   verbose: bool = True) -> Dict:
     """Frames/sec of the full training step (augmentation -> forward ->
-    backward -> optimizer update, ``Trainer.train_step``) of ``spec``
-    (default: mixed-precision ``model_name``, float32 parameters) on one
-    device-resident uint8 batch, per phase of its plan (``phase``: only
-    that one), steady state, timed with :func:`timers` and the n-vs-2n
-    check. The phases run in order on one trainer, so a later phase starts
-    from the weights the earlier one's steps left.
+    backward -> optimizer update) of ``spec`` (default: mixed-precision
+    ``model_name``, float32 parameters) on one device-resident uint8
+    batch, per phase of its plan (``phase``: only that one), steady state,
+    timed with :func:`timers` and the n-vs-2n check. The step is the one
+    a streamed fit runs (``Trainer.streamed_step``: the batch copied into
+    the program's fixed inputs, the program called), as the JAX package
+    times its jitted step: on CUDA a CUDA graph, the warm-up steps (at
+    least two there) running its eager step and its capture, then
+    replays. The phases run in order on one trainer, so a later phase
+    starts from the weights the earlier one's steps left.
 
     Each phase's result carries ``flops_per_frame``, counted from layer
     shapes with the phase's trainability (:func:`flops_per_frame`,
-    ``training=True``). Returns ``{"phases": [...], **last phase}``."""
-    from ab_line_classifier_torch.ops import metrics as M
+    ``training=True``), and the program's ``graph_mode`` and
+    ``capture_seconds`` (None uncaptured). Returns ``{"phases": [...],
+    **last phase}``."""
     from ab_line_classifier_torch.train.loop import Trainer
 
     device = resolve_device(device)
@@ -491,13 +515,13 @@ def training_throughput_benchmark(model_name: str = "cutoffvgg16",
         if phase is not None and ph.name != phase:
             continue
         trainer.begin_phase(phase_idx, ph)
-        metrics = M.init_metrics(spec.n_classes, device=device)
 
         def step():
-            trainer.train_step(images, labels, mask, metrics)
+            return trainer.streamed_step(images, labels, mask, train=True)
 
-        for _ in range(n_warmup):
-            step()
+        for _ in range(max(n_warmup,
+                           2 if trainer.graph_mode == "graphed" else 1)):
+            program = step()
         run_many, fallback = timers(step, device)
         dt = dispatch_guarded_seconds(run_many, fallback, n_iters)
         r = {"phase": ph.name, "model": spec.name,
@@ -507,13 +531,15 @@ def training_throughput_benchmark(model_name: str = "cutoffvgg16",
              "flops_per_frame": flops_per_frame(
                  trainer.module, spec.input_shape, spec.dtype, device,
                  training=True),
-             "device": _device_name(device)}
+             "device": _device_name(device),
+             "graph_mode": program.mode,
+             "capture_seconds": program.capture_seconds}
         results.append(r)
         if verbose:
             print(f"{spec.name} train step [{ph.name}] on {r['device']}: "
                   f"{r['train_frames_per_sec']:,.0f} frames/sec (batch "
                   f"{batch_size}, {r['flops_per_frame'] / 1e9:.3f} "
-                  f"GFLOP/frame)")
+                  f"GFLOP/frame, {program.mode})")
     if not results:
         raise ValueError(f"no phase named {phase!r} in {spec.name}")
     return {**results[-1], "phases": results}

@@ -37,9 +37,16 @@ device from its row, and the step, captured once a phase as a CUDA graph
 generators re-seeded from ``(seed, phase index, step)`` before each
 replay, so a replay draws what the step would draw eagerly. On the CPU,
 and where a collective of the step runs under gloo, the same step runs
-uncaptured. A streamed ``FrameDataset`` (or ``FrameArrays``) runs the
-step per batch from the host, batch k+1's copy issued through pinned
-buffers before step k (:meth:`Trainer.run_epoch_per_step`).
+uncaptured. A streamed ``FrameDataset`` (or ``FrameArrays``) goes a batch
+at a time from the host, batch k+1's copy issued through pinned buffers
+before step k, each batch copied into the fixed inputs of the program of
+its shape (train or eval): the JAX package's jitted per-batch steps
+(``make_train_step``, ``make_eval_step``). That program is a
+:class:`StepGraph` too, captured once a phase (and once for evaluation)
+and replayed a batch, the generators re-seeded before each call
+(:meth:`Trainer.run_epoch_streamed`, :meth:`Trainer.streamed_step`).
+:meth:`Trainer.run_epoch_per_step` is the same epoch dispatched op by op
+(``train_step``, ``eval_step``): the reference the graphs are held to.
 :attr:`Trainer.epoch_mode` says which path the last epoch took.
 
 With a ``mesh`` (``parallel/mesh.py``) the step is data-parallel over its
@@ -149,6 +156,17 @@ def _copy_state(module: torch.nn.Module) -> StateDict:
 
 
 @dataclasses.dataclass
+class _StreamedStep:
+    """A streamed epoch's program: one kind (train or eval) at one batch
+    shape, its fixed inputs (images, labels, mask), the global batch's
+    valid count under a mesh (written before each call) and its step."""
+
+    inputs: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+    denom: torch.Tensor
+    step: StepGraph
+
+
+@dataclasses.dataclass
 class _CachedEpoch:
     """A graphed epoch's program: one kind (train or eval) over one device
     cache at one batch size, its tables, metrics and step."""
@@ -214,12 +232,19 @@ class Trainer:
         self.step = 0
         #: The path of the last epoch: ``graphed`` (a device cache, the
         #: step captured and replayed), ``uncaptured`` (a device cache, the
-        #: same step run each batch: the CPU, a gloo group) or
-        #: ``per-step`` (a streamed dataset).
+        #: same step run each batch: the CPU, a gloo group),
+        #: ``streamed-graphed`` / ``streamed-uncaptured`` (host batches
+        #: through the program of their shape) or ``per-step`` (op by op,
+        #: :meth:`run_epoch_per_step`).
         self.epoch_mode: Optional[str] = None
         #: The graphed epochs' programs, ``train`` (this phase's) and
         #: ``eval``; released at the end of :meth:`fit`.
         self.epoch_programs: Dict[str, _CachedEpoch] = {}
+        #: The streamed steps' programs by ``(train, shapes and dtypes of
+        #: images, labels, mask)``; the training ones this phase's;
+        #: released at the end of :meth:`fit`.
+        self.streamed_programs: Dict[tuple, _StreamedStep] = {}
+        self._streamed_metrics: Dict[bool, M.MetricsState] = {}
         self._generators: Optional[Tuple[torch.Generator, ...]] = None
 
     # ------------------------------------------------------------------
@@ -236,6 +261,20 @@ class Trainer:
         # Trainability, frozen batch norms and the optimizer are the
         # phase's: its training step is captured anew.
         self.epoch_programs.pop("train", None)
+        for key in [k for k in self.streamed_programs if k[0]]:
+            del self.streamed_programs[key]
+
+    @property
+    def graph_mode(self) -> str:
+        """``graphed`` or ``uncaptured``: the path a program's step takes
+        (uncaptured on the CPU and under a gloo data group)."""
+        return ("graphed" if capturable(self.device, [self.data_group])
+                else "uncaptured")
+
+    def release_programs(self) -> None:
+        """Drop every program and its graph's memory."""
+        self.epoch_programs.clear()
+        self.streamed_programs.clear()
 
     def state(self) -> StateDict:
         """The module's state dict, copied to the CPU."""
@@ -307,25 +346,63 @@ class Trainer:
     def run_epoch(self, dataset, batch_size: int, *, train: bool,
                   shuffle_seed: int = 0) -> Dict[str, float]:
         """One epoch of ``dataset``, shuffled by ``shuffle_seed`` when
-        training: a device cache's as a graphed epoch (uncaptured on the
-        CPU or under gloo), a streamed dataset's per step
-        (:meth:`run_epoch_per_step`); under a mesh this rank's rows of
-        each batch, the metrics summed over the data group at the end.
-        Returns the epoch's metrics."""
+        training: a device cache's as a graphed epoch, a streamed dataset's
+        through the program of its batch shape
+        (:meth:`run_epoch_streamed`), both uncaptured on the CPU or under
+        gloo; under a mesh this rank's rows of each batch, the metrics
+        summed over the data group at the end. Returns the epoch's
+        metrics."""
         if isinstance(dataset, DeviceCachedDataset):
             return self._cached_epoch(dataset, batch_size, train=train,
                                       shuffle_seed=shuffle_seed)
-        return self.run_epoch_per_step(dataset, batch_size, train=train,
+        return self.run_epoch_streamed(dataset, batch_size, train=train,
                                        shuffle_seed=shuffle_seed)
 
     def run_epoch_per_step(self, dataset, batch_size: int, *, train: bool,
                            shuffle_seed: int = 0) -> Dict[str, float]:
-        """One epoch dispatched from the host a step at a time (the
-        streaming tier; a device cache's batches are its gathers): host
-        batches go over through pinned buffers, batch k+1's copy issued
-        before step k (:func:`drain_behind`). The same batches, draws and
-        arithmetic as the graphed epoch."""
+        """One epoch dispatched op by op from the host, a step at a time
+        (``train_step``, ``eval_step``; a device cache's batches are its
+        gathers): the reference the streamed programs and the graphed
+        epochs are held to. The same batches, draws and arithmetic."""
         metrics = M.init_metrics(self.spec.n_classes, device=self.device)
+
+        def step(args, denom):
+            if train:
+                self.train_step(*args, metrics, denom=denom)
+            else:
+                self.eval_step(*args, metrics)
+
+        self._host_batches(dataset, batch_size, train, shuffle_seed, step)
+        self.epoch_mode = "per-step"
+        M.reduce_metrics(metrics, self.data_group)
+        return M.compute_metrics(metrics, self.class_names)
+
+    def run_epoch_streamed(self, dataset, batch_size: int, *, train: bool,
+                           shuffle_seed: int = 0) -> Dict[str, float]:
+        """One epoch from the host (the streaming tier), each batch through
+        :meth:`streamed_step`: copied into its program's fixed inputs, the
+        program replayed (captured once a phase; run each batch on the CPU
+        and under gloo). The metrics are read once, at the end."""
+        metrics = self.streamed_metrics(train)
+        M.reset_metrics(metrics)
+        self._host_batches(
+            dataset, batch_size, train, shuffle_seed,
+            lambda args, denom: self.streamed_step(*args, train=train,
+                                                   denom=denom))
+        for prog in self.streamed_programs.values():
+            prog.step.end_epoch()
+        self.epoch_mode = f"streamed-{self.graph_mode}"
+        M.reduce_metrics(metrics, self.data_group)
+        return M.compute_metrics(metrics, self.class_names)
+
+    def _host_batches(self, dataset, batch_size: int, train: bool,
+                      shuffle_seed: int, step) -> None:
+        """``step((images, labels, mask), denom)`` for each batch of
+        ``dataset`` on the device: host batches go over through pinned
+        buffers, batch k+1's copy issued before step k
+        (:func:`drain_behind`). ``denom`` is the global batch's valid count
+        under a mesh (the epoch table pads only its last batch), else
+        None."""
         rows = (None if self.mesh is None
                 else mesh_lib.batch_sharding(self.mesh, batch_size))
         n = len(dataset)
@@ -341,21 +418,95 @@ class Trainer:
 
         def consume(item):
             b, args = item
-            if train:
-                # The global batch's valid rows: the epoch table pads only
-                # its last batch.
-                denom = (None if rows is None else
-                         float(max(min(batch_size, n - b * batch_size), 1)))
-                self.train_step(*args, metrics, denom=denom)
-            else:
-                self.eval_step(*args, metrics)
+            denom = (None if rows is None or not train else
+                     float(max(min(batch_size, n - b * batch_size), 1)))
+            step(args, denom)
 
         drain_behind((launch(item) for item in enumerate(dataset.batches(
             batch_size, shuffle=train, seed=shuffle_seed, rows=rows))),
             consume)
-        self.epoch_mode = "per-step"
-        M.reduce_metrics(metrics, self.data_group)
-        return M.compute_metrics(metrics, self.class_names)
+
+    def streamed_step(self, images: torch.Tensor, labels: torch.Tensor,
+                      mask: torch.Tensor, *, train: bool,
+                      denom: Optional[float] = None) -> StepGraph:
+        """One training or evaluation step of a batch on the device through
+        the program of its shapes (made on first use; the training ones
+        anew each phase): the batch copied into the program's fixed
+        inputs, the generators seeded from ``(seed, phase index, step)``,
+        the program's step called (module note). Accumulates the kind's
+        streamed metrics. Under a mesh a training step needs ``denom``,
+        the global batch's valid count. Returns the program's step."""
+        prog = self._streamed_program((images, labels, mask), train)
+        for fixed, t in zip(prog.inputs, (images, labels, mask)):
+            fixed.copy_(t)
+        if train:
+            if self.mesh is not None:
+                if denom is None:
+                    raise ValueError("a streamed training step under a mesh "
+                                     "needs the global batch's denom")
+                prog.denom.fill_(denom)
+            self._seed_generators()
+        prog.step()
+        if train:
+            self.step += 1
+        return prog.step
+
+    def streamed_summaries(self) -> Dict[str, Dict]:
+        """:meth:`StepGraph.summary` of each streamed program, keyed
+        ``"train BxHxWx3"`` or ``"eval BxHxWx3"``."""
+        return {f"{'train' if key[0] else 'eval'} "
+                f"{'x'.join(map(str, key[1][0]))}": prog.step.summary()
+                for key, prog in self.streamed_programs.items()}
+
+    def streamed_metrics(self, train: bool) -> M.MetricsState:
+        """The metrics every streamed program of a kind (training or
+        evaluation) sums into; :meth:`run_epoch_streamed` resets them at
+        an epoch's start."""
+        state = self._streamed_metrics.get(train)
+        if state is None:
+            state = self._streamed_metrics[train] = M.init_metrics(
+                self.spec.n_classes, device=self.device)
+        return state
+
+    def _streamed_program(self, batch: Tuple[torch.Tensor, ...],
+                          train: bool) -> _StreamedStep:
+        key = (train,) + tuple((tuple(t.shape), t.dtype) for t in batch)
+        prog = self.streamed_programs.get(key)
+        if prog is not None:
+            return prog
+        inputs = tuple(torch.empty(t.shape, dtype=t.dtype,
+                                   device=self.device) for t in batch)
+        denom = torch.ones((), device=self.device)
+        metrics = self.streamed_metrics(train)
+        gens = self._train_generators() if train else ()
+        on_mesh = self.mesh is not None
+
+        def body():
+            if train:
+                self._train_core(*inputs, metrics, *gens,
+                                 denom if on_mesh else None)
+            else:
+                self.eval_step(*inputs, metrics)
+
+        prog = self.streamed_programs[key] = _StreamedStep(
+            inputs, denom, StepGraph(
+                body, self.device,
+                capture=capturable(self.device, [self.data_group]),
+                generators=gens, modules=(self.module,)))
+        return prog
+
+    def _train_generators(self) -> Tuple[torch.Generator, ...]:
+        """The augmentation and dropout generators every program's
+        training step draws from (re-seeded before each step)."""
+        if self._generators is None:
+            self._generators = (torch.Generator(device=self.device),
+                                torch.Generator(device=self.device))
+        return self._generators
+
+    def _seed_generators(self) -> None:
+        for g, s in zip(self._train_generators(), step_seeds(
+                self.seed, self.phase_idx, self.step)):
+            g.manual_seed(int(s))
 
     def _cached_program(self, dataset: DeviceCachedDataset, batch_size: int,
                         train: bool) -> _CachedEpoch:
@@ -375,10 +526,7 @@ class Trainer:
         if isinstance(dataset, ShardedDeviceCachedDataset):
             groups.append(dataset.group if dataset.group is not None
                           else mesh_lib.world_group())
-        if train and self._generators is None:
-            self._generators = (torch.Generator(device=self.device),
-                                torch.Generator(device=self.device))
-        gens = self._generators if train else ()
+        gens = self._train_generators() if train else ()
 
         def body():
             idx, mask_all = tables.row()
@@ -410,9 +558,7 @@ class Trainer:
         M.reset_metrics(prog.metrics)
         for _ in range(prog.tables.n_steps):
             if train:
-                for g, s in zip(self._generators, step_seeds(
-                        self.seed, self.phase_idx, self.step)):
-                    g.manual_seed(int(s))
+                self._seed_generators()
             prog.step()
             if train:
                 self.step += 1
@@ -550,5 +696,5 @@ class Trainer:
             # weights (cutoffvgg16's extract hands its last epoch on).
             if stopped and best_vars is not None:
                 self.module.load_state_dict(best_vars)
-        self.epoch_programs.clear()  # the graphs and their memory
+        self.release_programs()  # the graphs and their memory
         return self.state(), history

@@ -292,17 +292,39 @@ no result):
    mp4s (jpg out, cropped to the box, a checkpoint loaded), graphed and
    with the eager chain: every file byte-equal, two programs each
    replayed, the wall seconds a clip.
+24. streamed steps and the zoo's other models — full width, bf16 compute,
+   config.yml's hyperparameters, augmentation and dropout on: (a)
+   cutoffvgg16 (``extract`` then ``finetune``) and mobilenetv2 (two
+   epochs, the rate halved between them) at batch 64 over phase 20's
+   frames from host memory (``FrameArrays``, the device cache off), each
+   batch through the program of its shape (``Trainer.run_epoch_streamed``:
+   a CUDA graph captured once a phase and once for evaluation), eagerly
+   twice and graphed once, held by phase 20's rule, B1 and B2 launches
+   equal to the eager runs' and the data's, ms per step graphed and eager,
+   idle shares and capture seconds; (b) ``training_throughput_benchmark``
+   of cutoffvgg16 at 256, its ``graph_mode`` graphed in both phases; (c)
+   vgg16 and custom_resnetv2 (random weights from a numpy seed, batch
+   norms calibrated) served at 256 from 480x640 graphed against eager
+   over a, b, b, a, bit-equal, GPU against CPU at a tap and the logits,
+   and their Grad-CAM pass in both modes graphed against eager at 256;
+   (d) vgg16, custom_resnetv2, xception and efficientnetb7 trained one
+   epoch of 4 steps and 2 validation batches at 64, per step twice, then
+   a graphed cached epoch and a graphed streamed one, each held by phase
+   20's rule, B2 0 / 0 / 34 / 51 a forward as the data gives them; ms per
+   step on each path and its idle share.
 
-The last three lines of standard output are a JSON line of phases 15-23's
+The last three lines of standard output are a JSON line of phases 15-24's
 summaries, a JSON line of per-kernel
 numbers (launches per path, ``training``, the trial-parallel, ``deploy``,
 ``automask``, ``attribution``, ``export_roundtrip``, ``jpeg_training``,
 ``wandb_sweep``, the two ``multi_device`` paths (the gloo
 path's summed over its ranks), ``graphed_epochs``, ``gradcam_graphed``,
-``serving_graphed`` and ``automask_graphed`` included:
+``serving_graphed``, ``automask_graphed``, ``streamed_graphed``,
+``zoo_served_explained`` and ``zoo_trained_graphed`` included:
 the launches that ran on the card: the wrappers' eager calls, and for
 every CUDA graph (serving forwards, latency chains, attribution
-segments, graphed epochs, Grad-CAM passes, auto-mask programs)
+segments, graphed epochs, streamed steps, Grad-CAM passes, auto-mask
+programs)
 its captured launches once per replay, ``ops/launches.py``; the kernel's
 runs in one replay of each latency graph, counted by the profiler, and
 the replays) and ``{"ok": true, "device": {...}}``.
@@ -1878,9 +1900,9 @@ def bn_training_step(smi):
 
 def training_throughput(spec, sd, bs, smi):
     """``training_throughput_benchmark`` of every phase of ``spec`` at
-    batch ``bs`` (frames/s, share of bf16 peak from the shape-counted
-    FLOPs), and a profiled step of each phase (device idle share, top
-    kernels)."""
+    batch ``bs`` (the graphed streamed step on the card: frames/s, share
+    of bf16 peak from the shape-counted FLOPs), and a profiled eager step
+    of each phase (device idle share, top kernels)."""
     from ab_line_classifier_torch.predict.benchmark import (
         TRAIN_AUG, training_throughput_benchmark)
     from ab_line_classifier_torch.ops import metrics as M
@@ -1909,7 +1931,9 @@ def training_throughput(spec, sd, bs, smi):
               f"128x128 batch {bs}: {res['train_frames_per_sec']:.1f} "
               f"frames/s, {res['ms_per_step']:.3f} ms/step, "
               f"{res['flops_per_frame'] / 1e9:.4f} GFLOP/frame, "
-              f"{100 * share:.2f}% of 989 TFLOP/s bf16; profiled step: wall "
+              f"{100 * share:.2f}% of 989 TFLOP/s bf16 ({res['graph_mode']} "
+              f"step, capture {res['capture_seconds']} s); profiled eager "
+              f"step: wall "
               f"{wall:.3f} ms, device busy {busy:.3f} ms (idle share "
               f"{1 - busy / wall:.4f})", flush=True)
         for kname, ms in prof["kernels"][:8]:
@@ -4792,8 +4816,9 @@ G20_BATCHES = (TRAIN_BATCH, 256)
 def g20_drive(trainer, plan, train_ds, val_ds, batch, per_step, sd):
     """``trainer`` through ``plan`` (the phase of each epoch; from weights
     ``sd``), each epoch's training and validation run graphed
-    (``run_epoch``) or per step. Returns the epochs' metrics, the paths
-    the epochs took and the graphed programs' summaries by phase."""
+    (``run_epoch``: a device cache's graphed epoch, a streamed dataset's
+    per-shape programs) or per step. Returns the epochs' metrics, the
+    paths the epochs took and the graphed programs' summaries by phase."""
     from ab_line_classifier_torch.models.common import scale_learning_rate
 
     run = trainer.run_epoch_per_step if per_step else trainer.run_epoch
@@ -4813,6 +4838,9 @@ def g20_drive(trainer, plan, train_ds, val_ds, batch, per_step, sd):
         for key, prog in trainer.epoch_programs.items():
             programs[f"{key}{p}" if key == "train" else key] = (
                 prog.step.summary())
+        for key, summary in trainer.streamed_summaries().items():
+            programs[f"{key} ({p})" if key.startswith("train")
+                     else key] = summary
     return logs, modes, programs
 
 
@@ -4922,23 +4950,29 @@ def g20_release(*trainers):
 
     reserved = torch.cuda.memory_reserved() / 2 ** 30
     for t in trainers:
-        t.epoch_programs.clear()
+        # A serial trainer's streamed programs too.
+        getattr(t, "release_programs", t.epoch_programs.clear)()
     gc.collect()
     torch.cuda.empty_cache()
     return reserved
 
 
+def batch_count(ds, batch):
+    return -(-len(ds) // batch)
+
+
 def g20_serial(name, spec, sd, train_ds, val_ds, batch, per_forward, smi,
-               timing=True):
-    """Case (a) or (b): eager twice, graphed once; the rule, the launches
-    (equal across the runs and to the data's counts), times."""
+               timing=True, plan=None, path="graphed"):
+    """Case (a) or (b): eager twice, graphed once (its epochs on ``path``;
+    ``plan`` default G20_PLANS[name]); the rule, the launches (equal
+    across the runs and to the data's counts), times."""
     from ab_line_classifier_torch.ops import depthwise_cuda as DC
     from ab_line_classifier_torch.ops import preprocess_cuda as PC
     from ab_line_classifier_torch.predict.benchmark import TRAIN_AUG
     from ab_line_classifier_torch.train.loop import Trainer
 
-    plan = G20_PLANS[name]
-    nb, nv = train_ds.n_batches(batch), val_ds.n_batches(batch)
+    plan = plan or G20_PLANS[name]
+    nb, nv = batch_count(train_ds, batch), batch_count(val_ds, batch)
     runs, counts, trainers = [], [], []
     for per_step in (True, True, False):
         tr = Trainer(spec, aug_config=TRAIN_AUG, seed=2020,
@@ -4949,7 +4983,7 @@ def g20_serial(name, spec, sd, train_ds, val_ds, batch, per_forward, smi,
                                           per_step, sd)
         torch.cuda.synchronize()
         counts.append((PC.launch_count, DC.launch_count, DC.copy_count))
-        if modes != {"per-step" if per_step else "graphed"}:
+        if modes != {"per-step" if per_step else path}:
             raise AssertionError(f"{name} at {batch}: paths {modes}")
         runs.append(g20_snapshot(g20_trainer_tensors(tr), logs))
         trainers.append(tr)
@@ -4959,7 +4993,7 @@ def g20_serial(name, spec, sd, train_ds, val_ds, batch, per_forward, smi,
                              f"data's {want}")
     lr = max(p.lr for p in spec.phases)
     verdict = g20_rule(f"{name} at {batch}", *runs, lr, len(plan) * nb)
-    out = {"path": "graphed", "verdict": verdict,
+    out = {"path": path, "verdict": verdict,
            "capture_s": {k: s["capture_seconds"] for k, s in
                          programs.items()},
            "launches": g20_launches(programs),
@@ -4973,13 +5007,13 @@ def g20_serial(name, spec, sd, train_ds, val_ds, batch, per_forward, smi,
             train_ds, batch, train=True, shuffle_seed=50), nb)
         out.update(phase=spec.phases[p].name, graphed_ms=g_ms,
                    eager_ms=e_ms, graphed_idle=g_idle, eager_idle=e_idle)
-        print(f"graphed epochs on {smi}: {name} batch {batch} "
+        print(f"{path} epochs on {smi}: {name} batch {batch} "
               f"[{spec.phases[p].name}] ms/step graphed {g_ms:.4f} eager "
               f"{e_ms:.4f} (x{e_ms / g_ms:.2f}); idle share graphed "
               f"{g_idle:.4f} eager {e_idle:.4f}", flush=True)
     out["reserved_gib"] = g20_release(*trainers)
     print(f"  {name} batch {batch}: {len(plan)} epochs ({nb} steps and "
-          f"{nv} validation batches each), path graphed, {verdict}; "
+          f"{nv} validation batches each), path {path}, {verdict}; "
           f"capture s {out['capture_s']}; launches (captured x replays) "
           f"{out['launches']}, B1 {counts[-1][0]} B2 {counts[-1][1]} in "
           f"all, as eager and as the data gives them", flush=True)
@@ -6086,6 +6120,238 @@ def phase_graphed_automask(smi):
     return (b1, b2), numbers
 
 
+# Phase 24 (streamed steps as CUDA graphs; the zoo's other models on the
+# card): full width, 128x128, bf16 compute, config.yml's hyperparameters,
+# augmentation and dropout on, cuDNN deterministic outside (b).
+# (a) phase 20's 1024 + 256 frames from host memory (``FrameArrays``, the
+# device cache off) at batch 64, G24_PLANS: eager twice, graphed once;
+# (b) the training benchmark of cutoffvgg16 at G24_BENCH_BATCH;
+# (c) vgg16 and custom_resnetv2 (random weights from a numpy seed, batch
+# norms calibrated) served at 256 from 480x640, graphed against eager,
+# GPU against CPU at G24_SERVED's tap and the logits, and explained in
+# both modes at 256 from 480x640; (d) G24_TRAINED over G24_TRAIN training
+# and G24_VAL validation frames at batch 64, one epoch (depth cut for the
+# script's time): eager twice, then a graphed cached epoch and a graphed
+# streamed one, each held to phase 20's rule. efficientnetb7 trains at
+# G24_LR: config.yml's Adam rate 0.1 sends these random weights, and the
+# trainer's own seeded init, to NaN on the second step in the JAX package
+# as in the port (CPU runs at batch 8), which no rule can compare.
+G24_PLANS = {"cutoffvgg16": (0, 1), "mobilenetv2": (0, 0)}
+G24_LR = {"efficientnetb7": 1e-4}
+G24_BENCH_BATCH = 256
+G24_SERVED = {"vgg16": "block4_conv3", "custom_resnetv2": "stage2_unit0_add"}
+G24_TRAINED = ("vgg16", "custom_resnetv2", "xception", "efficientnetb7")
+G24_TRAIN, G24_VAL = 4 * TRAIN_BATCH, 2 * TRAIN_BATCH
+G24_CHECK = 8
+
+
+def g24_arrays(images, labels):
+    from ab_line_classifier_torch.data.pipeline import FrameArrays
+
+    return FrameArrays(images, labels, [str(i) for i in range(len(labels))])
+
+
+def g24_benchmark(spec, sd, smi):
+    """(b): ``training_throughput_benchmark`` of every phase: the graphed
+    streamed step, captured once a phase."""
+    from ab_line_classifier_torch.predict.benchmark import (
+        training_throughput_benchmark)
+
+    r = training_throughput_benchmark(batch_size=G24_BENCH_BATCH,
+                                      img_dim=OUT_HW, n_warmup=WARMUP,
+                                      n_iters=TRAIN_ITERS, state_dict=sd,
+                                      spec=spec, device="cuda",
+                                      verbose=False)
+    out = {}
+    for res in r["phases"]:
+        if res["graph_mode"] != "graphed" or not res["capture_seconds"]:
+            raise AssertionError(f"training benchmark [{res['phase']}]: "
+                                 f"{res['graph_mode']}, capture "
+                                 f"{res['capture_seconds']}")
+        out[res["phase"]] = {k: res[k] for k in (
+            "ms_per_step", "train_frames_per_sec", "graph_mode",
+            "capture_seconds")}
+        print(f"training_throughput_benchmark on {smi}: {spec.name} "
+              f"[{res['phase']}] batch {G24_BENCH_BATCH}: "
+              f"{res['ms_per_step']:.4f} ms/step, "
+              f"{res['train_frames_per_sec']:.1f} frames/s, path "
+              f"{res['graph_mode']}, capture {res['capture_seconds']:.4f} s",
+              flush=True)
+    return out
+
+
+def g24_served(name, spec, sd, smi):
+    """(c): the serving forward at 256 from 480x640 graphed against eager
+    (:func:`g22_case`), GPU against CPU (:func:`gpu_vs_cpu`), the Grad-CAM
+    pass of both modes at 256 from 480x640 (:func:`g21_case`). Returns
+    the graphed calls' (B1, B2) and the numbers."""
+    from ab_line_classifier_torch.explain.gradcam import (MODES,
+                                                          build_fused_gradcam)
+    from ab_line_classifier_torch.predict.predict import load_module
+
+    shape = (ZOO_BATCH, 480, 640)
+    pred = g22_predictor(spec, sd, ZOO_BATCH)
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    (b1, b2), out = g22_case(name, pred, shape, 0, gen, smi)
+    out = {"serving": out}
+    rng = np.random.default_rng(24)
+    check = (rng.integers(0, 256, (G24_CHECK, 480, 640, 3), dtype=np.uint8)
+             * np.linspace(0.15, 1.0, G24_CHECK)[:, None, None, None]
+             ).astype(np.uint8)
+    gpu_vs_cpu(spec, sd, pred, check, G24_SERVED[name], smi)
+    del pred
+    g22_release()
+    module = load_module(spec, sd, torch.device("cuda"))
+    for mode in MODES:
+        fused = build_fused_gradcam(spec, module, mode)
+        if fused.graph_mode != "graphed":
+            raise AssertionError(f"{name}: Grad-CAM {fused.graph_mode}")
+        (pre, dw), out[f"gradcam {mode}"] = g21_case(name, fused, shape, 0,
+                                                     smi)
+        b1, b2 = b1 + pre, b2 + dw
+        del fused
+    del module
+    g22_release()
+    return (b1, b2), out
+
+
+def g24_trained(name, spec, sd, images, labels, per_forward, smi):
+    """(d): one trainer, ``sd`` loaded at each run's start: one epoch per
+    step twice, then graphed over a device cache and streamed from host
+    memory; phase 20's rule on each graphed run, the launches of every
+    run equal to the data's, ms per step of one more epoch on each path
+    (host clock after a synchronize). Returns the graphed runs' (B1, B2)
+    and the numbers."""
+    from ab_line_classifier_torch.data.pipeline import DeviceCachedDataset
+    from ab_line_classifier_torch.ops import depthwise_cuda as DC
+    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+    from ab_line_classifier_torch.predict.benchmark import TRAIN_AUG
+    from ab_line_classifier_torch.train.loop import Trainer
+
+    parts = [(images[a:b], labels[a:b]) for a, b in (
+        (0, G24_TRAIN), (G24_TRAIN, G24_TRAIN + G24_VAL))]
+    arrays = tuple(g24_arrays(*p) for p in parts)
+    cached = tuple(DeviceCachedDataset.from_arrays(*p, "cuda")
+                   for p in parts)
+    nb, nv = G24_TRAIN // TRAIN_BATCH, G24_VAL // TRAIN_BATCH
+    want = (nv, per_forward * (nb + nv), 0)
+    trainer = Trainer(spec, aug_config=TRAIN_AUG, seed=2024,
+                      compute_dtype=torch.bfloat16, device="cuda")
+    runs, out, b1_b2 = [], {}, (0, 0)
+    for label, (train_ds, val_ds), path in (
+            ("eager", arrays, "per-step"), ("eager 2", arrays, "per-step"),
+            ("cached", cached, "graphed"),
+            ("streamed", arrays, "streamed-graphed")):
+        per_step = path == "per-step"
+        trainer.release_programs()
+        PC.reset_launch_count()
+        DC.reset_launch_count()
+        logs, modes, programs = g20_drive(trainer, (0,), train_ds, val_ds,
+                                          TRAIN_BATCH, per_step, sd)
+        torch.cuda.synchronize()
+        counts = (PC.launch_count, DC.launch_count, DC.copy_count)
+        if modes != {path} or counts != want:
+            raise AssertionError(f"{name} {label}: paths {modes}, launches "
+                                 f"{counts}, the data's {want}")
+        runs.append(g20_snapshot(g20_trainer_tensors(trainer), logs))
+        if not per_step:
+            b1_b2 = (b1_b2[0] + counts[0], b1_b2[1] + counts[1])
+            out[label] = {"capture_s": {k: s["capture_seconds"]
+                                        for k, s in programs.items()},
+                          "launches": g20_launches(programs)}
+        if label != "eager":
+            run = (trainer.run_epoch_per_step if per_step
+                   else trainer.run_epoch)
+            t0 = time.perf_counter()
+            run(train_ds, TRAIN_BATCH, train=True, shuffle_seed=50)
+            torch.cuda.synchronize()
+            out.setdefault(label.split()[0], {})["ms"] = (
+                (time.perf_counter() - t0) * 1e3 / nb)
+    lr = spec.phases[0].lr
+    for label, graphed in (("cached", runs[2]), ("streamed", runs[3])):
+        out[label]["verdict"] = g20_rule(f"{name} {label}", runs[0],
+                                         runs[1], graphed, lr, nb)
+    g20_release(trainer)
+    print(f"  {name} trained at batch {TRAIN_BATCH} ({nb} steps, {nv} "
+          f"validation batches): cached graphed {out['cached']['verdict']}, "
+          f"streamed graphed {out['streamed']['verdict']}; B1 {want[0]} B2 "
+          f"{want[1]} a run, as the data gives them; capture s "
+          f"{out['cached']['capture_s']} / {out['streamed']['capture_s']}; "
+          f"ms/step cached {out['cached']['ms']:.4f} streamed "
+          f"{out['streamed']['ms']:.4f} eager {out['eager']['ms']:.4f} on "
+          f"{smi}", flush=True)
+    return b1_b2, out
+
+
+def phase_streamed_and_zoo(smi, vgg, vgg_sd, zoo_specs, zoo_weights):
+    """Phase 24 (module docstring); ``zoo_specs`` and ``zoo_weights`` hold
+    phases 6-7's mobilenetv2, xception and efficientnetb7. Returns the
+    launches of each path and the phase's numbers."""
+    from ab_line_classifier_torch.predict.benchmark import build_zoo
+    from ab_line_classifier_torch.utils.jax_params import state_dict_from_flax
+
+    t_phase = time.perf_counter()
+    numbers = {"benchmark": g24_benchmark(vgg, vgg_sd, smi)}
+    g20_release()
+    parts = {"b": time.perf_counter() - t_phase}
+    launches = {}
+    specs = {"cutoffvgg16": vgg, **zoo_specs}
+    weights = {"cutoffvgg16": vgg_sd, **zoo_weights}
+    per_forward = {"cutoffvgg16": 0, "vgg16": 0, "custom_resnetv2": 0,
+                   **{k: v[1] for k, v in ZOO.items()}}
+    flags = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        images, labels = labelled_frames(G20_FRAMES + G20_VAL, seed=20)
+        train_ds = g24_arrays(images[:G20_FRAMES], labels[:G20_FRAMES])
+        val_ds = g24_arrays(images[G20_FRAMES:], labels[G20_FRAMES:])
+        b1 = b2 = 0
+        for name, plan in G24_PLANS.items():
+            r = g20_serial(name, specs[name], weights[name], train_ds,
+                           val_ds, TRAIN_BATCH, per_forward[name], smi,
+                           plan=plan, path="streamed-graphed")
+            b1, b2 = b1 + r["b1_b2"][0], b2 + r["b1_b2"][1]
+            r.pop("state")
+            r.pop("logs")
+            numbers[f"streamed {name}"] = r
+        launches["streamed_graphed"] = (b1, b2)
+        parts["a"] = time.perf_counter() - t_phase - sum(parts.values())
+
+        b1 = b2 = 0
+        for name in G24_SERVED:
+            specs[name] = build_zoo(name, OUT_HW)
+            weights[name] = calibrated(specs[name], state_dict_from_flax(
+                serving_weights(specs[name])))
+            (pre, dw), numbers[f"served {name}"] = g24_served(
+                name, specs[name], weights[name], smi)
+            b1, b2 = b1 + pre, b2 + dw
+        launches["zoo_served_explained"] = (b1, b2)
+        parts["c"] = time.perf_counter() - t_phase - sum(parts.values())
+
+        b1 = b2 = 0
+        images, labels = labelled_frames(G24_TRAIN + G24_VAL, seed=24)
+        for name in G24_TRAINED:
+            spec = specs[name]
+            if name in G24_LR:
+                spec = dataclasses.replace(spec, phases=tuple(
+                    dataclasses.replace(p, lr=G24_LR[name])
+                    for p in spec.phases))
+            (pre, dw), numbers[f"trained {name}"] = g24_trained(
+                name, spec, weights[name], images, labels,
+                per_forward[name], smi)
+            b1, b2 = b1 + pre, b2 + dw
+        launches["zoo_trained_graphed"] = (b1, b2)
+        parts["d"] = time.perf_counter() - t_phase - sum(parts.values())
+    finally:
+        torch.backends.cudnn.deterministic = flags
+    numbers["seconds"] = time.perf_counter() - t_phase
+    numbers["seconds_by_part"] = parts
+    print(f"phase 24: {numbers['seconds']:.1f} s (" + ", ".join(
+        f"({k}) {v:.1f} s" for k, v in sorted(parts.items())) + ")",
+        flush=True)
+    return launches, numbers
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an "
@@ -6271,6 +6537,14 @@ def main():
     phase("23 graphed auto-masking: one CUDA graph per sampled-clip shape")
     launches["automask_graphed"], graphed_automask = phase_graphed_automask(
         smi)
+    torch.cuda.synchronize()
+
+    phase("24 streamed steps as CUDA graphs; vgg16, custom_resnetv2, "
+          "xception and efficientnetb7 trained")
+    paths, streamed_zoo = phase_streamed_and_zoo(
+        smi, vgg, vgg_sd, {name: specs[name] for name in ZOO},
+        {name: weights[name] for name in ZOO})
+    launches.update(paths)
 
     def graph_runs(kernel):
         """Runs on the card of ``kernel`` in one replay of each model's
@@ -6335,7 +6609,8 @@ def main():
         "jpeg_wandb": jpeg_wandb, "multi_device": multi_device,
         "graphed_epochs": graphed, "graphed_gradcam": graphed_gradcam,
         "graphed_serving": graphed_serving,
-        "graphed_automask": graphed_automask}))
+        "graphed_automask": graphed_automask,
+        "streamed_and_zoo": streamed_zoo}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

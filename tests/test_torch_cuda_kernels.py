@@ -544,6 +544,78 @@ def test_graphed_stacked_epoch_equals_the_eager_epoch(name):
          torch.backends.cudnn.benchmark) = flags
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["cnn0", "mobilenetv2"])
+def test_streamed_graph_equals_the_eager_epoch(name):
+    """Two epochs from host memory at batch 16 (``FrameArrays``: pinned
+    staging, the last batch padded; augmentation and dropout on; the rate
+    halved between them) through the streamed programs (one capture for
+    training, one for evaluation, the rest replays) and op by op:
+    weights, statistics, optimizer state and metrics bit-equal, and the
+    kernels' launches equal."""
+    _need_cuda()
+    from ab_line_classifier_torch.data.pipeline import FrameArrays
+    from ab_line_classifier_torch.models.common import scale_learning_rate
+    from ab_line_classifier_torch.predict.benchmark import (
+        depthwise_layer_shapes)
+    from ab_line_classifier_torch.train.loop import Trainer
+
+    spec, images, labels, _, flags = _graph_case(name)
+    ds = FrameArrays(images, labels, [str(i) for i in range(len(labels))])
+    try:
+        runs = []
+        for per_step in (False, True):
+            preprocess_cuda.reset_launch_count()
+            depthwise_cuda.reset_launch_count()
+            t = Trainer(spec, seed=1, aug_config=GRAPH_AUG, device="cuda")
+            t.begin_phase(0, spec.phases[0])
+            run = t.run_epoch_per_step if per_step else t.run_epoch
+            logs = []
+            for epoch in range(2):
+                logs.append(run(ds, 16, train=True, shuffle_seed=epoch))
+                logs.append(run(ds, 16, train=False))
+                assert t.epoch_mode == ("per-step" if per_step
+                                        else "streamed-graphed")
+                if epoch == 0:
+                    scale_learning_rate(t.optimizer, 0.5)
+            if not per_step:
+                steps = t.streamed_summaries()
+                assert steps["train 16x32x32x3"]["replays"] == 5
+                assert steps["eval 16x32x32x3"]["replays"] == 5
+            runs.append((t, logs, _launches()))
+        (g, g_logs, g_n), (e, e_logs, e_n) = runs
+        assert g_logs == e_logs
+        assert g_n == e_n and g_n[0] == 6
+        assert g_n[1] == 12 * len(depthwise_layer_shapes(spec))
+        sg, se = g.module.state_dict(), e.module.state_dict()
+        for k in se:
+            assert torch.equal(sg[k], se[k]), k
+        og, oe = g.optimizer.state_dict(), e.optimizer.state_dict()
+        for i, slots in oe["state"].items():
+            for k, v in slots.items():
+                assert torch.equal(og["state"][i][k], v), (i, k)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+
+
+@pytest.mark.cuda
+def test_training_benchmark_times_the_graphed_step():
+    """On the card the training benchmark replays the streamed step's
+    CUDA graph: captured once a phase, its path and capture reported."""
+    _need_cuda()
+    from ab_line_classifier_torch.predict.benchmark import (
+        training_throughput_benchmark)
+
+    r = training_throughput_benchmark(model_name="cnn0", batch_size=8,
+                                      img_dim=(32, 32), n_warmup=1,
+                                      n_iters=2, device="cuda",
+                                      verbose=False)
+    assert r["graph_mode"] == "graphed"
+    assert r["capture_seconds"] is not None and r["capture_seconds"] > 0
+    assert r["train_frames_per_sec"] > 0
+
+
 def _fan_frames(n, hw, seed):
     """uint8 RGB frames of a noisy ultrasound fan on a dark background
     (``tests/test_torch_automask.py``'s)."""

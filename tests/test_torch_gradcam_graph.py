@@ -6,7 +6,9 @@ jitted ``build_fused_gradcam``.
 The same numpy-seeded frames and weights (as in
 ``tests/test_torch_gradcam.py``, carried across by the weight bridge) go
 through both packages in float32: cutoffvgg16 and mobilenetv2 at 32x32,
-and cnn0 at config.yml's stride 1, whose tap is larger than the heatmap.
+cnn0 at config.yml's stride 1, whose tap is larger than the heatmap, and
+vgg16 and custom_resnetv2 at 32x32 (``tests/test_torch_predict_graph.py``'s
+``zoo_models``).
 Each pass object takes two batch shapes (another batch size and another
 source size: two programs). Tolerances are ``tests/test_torch_gradcam.py``'s:
 probabilities within 1e-5, heatmaps within 1e-4. The body against the
@@ -32,6 +34,7 @@ import torch
 
 from test_torch_gradcam import (CAM_ATOL, CNN0_HP, CPU, PROB_ATOL, _frames,
                                 _models)
+from test_torch_predict_graph import zoo_models
 
 from ab_line_classifier_tpu.data.pipeline import (
     FrameDataset as JaxFrameDataset)
@@ -63,11 +66,15 @@ def _cnn0_models():
 
 
 @pytest.fixture(scope="module",
-                params=["cutoffvgg16", "mobilenetv2", "cnn0"])
+                params=["cutoffvgg16", "mobilenetv2", "cnn0", "vgg16",
+                        "custom_resnetv2"])
 def case(request):
     name = request.param
-    models = _cnn0_models() if name == "cnn0" else _models(name)
-    return name, models
+    if name == "cnn0":
+        return name, _cnn0_models()
+    if name in ("vgg16", "custom_resnetv2"):
+        return name, zoo_models(name)
+    return name, _models(name)
 
 
 def _batches(size):

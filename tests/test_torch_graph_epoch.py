@@ -22,7 +22,8 @@ runs uncaptured: the code a CUDA graph of it replays on the card.
 * A streamed epoch (``FrameArrays`` from host memory, through the pinned
   staging) against the cached epoch, bit for bit.
 * The launch counts around a CUDA graph (``ops/launches.py``): a
-  capture's wrapper calls come off the counts, each replay adds them.
+  capture's wrapper calls come off the counts, each replay adds them;
+  the cyclic collector is paused inside a capture.
 """
 
 import dataclasses
@@ -250,13 +251,15 @@ def test_adam_alpha_table_equals_host_values():
 
 def test_streamed_epoch_equals_cached_epoch():
     """The same epochs from host memory (``FrameArrays``: host batches,
-    the pinned staging and the one-ahead copy of the streaming tier) and
-    from the device cache (the graphed epoch's runner): bit for bit."""
+    the pinned staging, the one-ahead copy and the per-shape program of
+    the streaming tier) and from the device cache (the graphed epoch's
+    runner): bit for bit."""
     spec = build_model("cnn0", HP, SHAPE, 2)
     images, labels = frames(SHAPE)
     paths = [str(i) for i in range(N)]
     out = []
-    for ds, mode in ((FrameArrays(images, labels, paths), "per-step"),
+    for ds, mode in ((FrameArrays(images, labels, paths),
+                      "streamed-uncaptured"),
                      (DeviceCachedDataset.from_arrays(images, labels, "cpu"),
                       "uncaptured")):
         trainer = Trainer(spec, seed=5, aug_config=AUG, device="cpu")
@@ -284,3 +287,27 @@ def test_capture_counts_launches_per_replay():
     captured.replayed(3)
     assert launches.counts() == {"preprocess": start["preprocess"] + 4,
                                  "depthwise": start["depthwise"] + 42}
+
+
+def test_capture_pauses_the_cycle_collector():
+    """No cyclic collection runs inside a capture (it could destroy a dead
+    trainer's graph mid-capture); the collector's state comes back after,
+    also when the capture raises."""
+    import gc
+
+    from ab_line_classifier_torch.ops import launches
+
+    assert gc.isenabled()
+    with launches.capture():
+        assert not gc.isenabled()
+    assert gc.isenabled()
+    with pytest.raises(RuntimeError), launches.capture():
+        raise RuntimeError("capture failed")
+    assert gc.isenabled()
+    gc.disable()
+    try:
+        with launches.capture():
+            pass
+        assert not gc.isenabled()
+    finally:
+        gc.enable()

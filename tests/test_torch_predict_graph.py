@@ -4,8 +4,10 @@ shape, here on the CPU the same body uncaptured, against the JAX
 package's jitted ``Predictor``.
 
 The same numpy-seeded frames and weights (carried across by the weight
-bridge) go through both packages in float32: cnn0 and mobilenetv2 at
-32x32, two classes. Each predictor serves two chunk shapes (frames of the
+bridge) go through both packages in float32: cnn0, mobilenetv2, vgg16
+(caffe preprocessing) and custom_resnetv2 at 32x32, two classes, the last
+two with their config.yml hyperparameters and the scaled, batch-norm
+calibrated weights of ``tests/test_torch_train_step.py``. Each predictor serves two chunk shapes (frames of the
 model's size and of a larger source, resized by the forward's
 preprocess), each sweep ending in a ragged chunk that both packages pad
 with zero frames to the batch size. Probabilities within
@@ -23,6 +25,7 @@ import torch
 
 from test_torch_gradcam import CNN0_HP, _frames, _models
 from test_torch_predict import PROB_ATOL
+from test_torch_train_step import scaled_variables
 
 from ab_line_classifier_tpu.data.pipeline import (
     FrameDataset as JaxFrameDataset)
@@ -34,6 +37,7 @@ from ab_line_classifier_tpu.train.callbacks import (
 from ab_line_classifier_torch.data.pipeline import FrameDataset
 from ab_line_classifier_torch.models import build_model
 from ab_line_classifier_torch.predict import benchmark
+from ab_line_classifier_torch.predict.benchmark import ZOO_HPARAMS
 from ab_line_classifier_torch.predict.predict import Predictor
 from ab_line_classifier_torch.train.callbacks import PredictionTableLogger
 from ab_line_classifier_torch.utils.jax_params import state_dict_from_flax
@@ -49,10 +53,26 @@ def _cnn0_models():
             jax_spec.init_variables(jax.random.PRNGKey(1)))
 
 
-@pytest.fixture(scope="module", params=["cnn0", "mobilenetv2"])
+def zoo_models(name):
+    """vgg16 or custom_resnetv2 at 32x32 with its config.yml
+    hyperparameters: (JAX spec, port spec, JAX variables), the variables
+    scaled and their batch-norm statistics set from 16 frames."""
+    shape = (32, 32, 3)
+    jax_spec = jax_build_model(name, ZOO_HPARAMS[name], shape, 2)
+    spec = build_model(name, ZOO_HPARAMS[name], shape, 2)
+    return jax_spec, spec, scaled_variables(jax_spec, spec,
+                                            _frames(16, 32, seed=5))
+
+
+@pytest.fixture(scope="module", params=["cnn0", "mobilenetv2", "vgg16",
+                                        "custom_resnetv2"])
 def case(request):
     name = request.param
-    return name, _cnn0_models() if name == "cnn0" else _models(name)
+    if name == "cnn0":
+        return name, _cnn0_models()
+    if name in ("vgg16", "custom_resnetv2"):
+        return name, zoo_models(name)
+    return name, _models(name)
 
 
 def _sweeps():
