@@ -12,17 +12,21 @@ no result):
 1. device — the card's name and power limit (nvidia-smi);
 2. build  — every CUDA kernel from ``ab_line_classifier_torch/csrc`` into
    ``build/kernels``, one nvcc per source, all started together; ptxas's
-   registers and spills of each instance of the depthwise kernel;
-3. preprocess kernel (B1) — against its plain PyTorch version over modes x
-   resize maps x masks x output dtypes and several source sizes, plus 2048
-   frames of 1080x1440 (past 2^31 bytes: the 64-bit offsets), and the
-   shapes of the Grad-CAM batches, a batch-1 latency step and a training
-   validation batch (64 x 128x128) in every mode and output dtype; then,
-   at the serving path's shapes, the same
-   comparison and the kernel's time, the plain
-   version's, a resize-only library yardstick
-   (``F.interpolate(mode="nearest-exact")``, which the port never calls)
-   and the bytes-moved bound;
+   registers and spills of each instance of both kernels;
+3. preprocess kernel (B1) — bit-equal to its plain PyTorch version over
+   modes x resize maps x masks x output dtypes and several source sizes,
+   a batch slice of 601x803 frames whose data pointer is off the 16-byte
+   grid, an upsampling map (64x64 -> 128x128), 2048 frames of 1080x1440
+   (past 2^31 bytes: the 64-bit offsets), and the shapes of the Grad-CAM
+   batches, a batch-1 latency step, a training validation batch (64 x
+   128x128) and a 64 x 1080x1440 deploy clip (UI blank, float32); then,
+   at every shape the paths give it (``B1_SHAPES``: serving at 2048 from
+   128x128 and 480x640, deploy clips of 480x640 and 1080x1440, batch 1),
+   the same comparison, the kernel's device time (a CUDA graph of its
+   launches) and eager time, the plain version's, a resize-only library
+   yardstick (``F.interpolate(mode="nearest-exact")``, which the port
+   never calls), a device copy of as many bytes, and the bytes-moved
+   bound with its share;
 4. depthwise kernel (B2) — against its plain version, exactly
    (``torch.equal``), over K 1/3/5/7 x dtypes x channel counts (multiples
    of the 16-byte vector or not) x frame sizes x batch, inputs whose data
@@ -147,12 +151,14 @@ no result):
    deploy settings (cv2 map, UI blank, f32 out) within 1 ulp;
    ``check_preprocess_parity`` of cutoffvgg16, mobilenetv2 and
    efficientnetb7 on the card below 1e-5; per clip the pageable upload
-   (and a pinned one beside it), B1's time beside its plain version's and
-   its bytes bound, the forward, frames/s. Auto-masking: a U-Net of width
-   16 (random weights from a numpy seed) on 11 frames sampled from a
-   110-frame clip at 480x640 and 1080x1440, with PyTorch's TF32 default
-   back on for the path: probabilities against the CPU within 1e-5 (and
-   the U-Net called outside the path's IEEE float32 scope, reported),
+   (and a pinned one beside it), B1's device time (a CUDA graph of its
+   launches over the clip and 3 others, out of L2) and eager time beside
+   its plain version's and its bytes bound, the forward, frames/s.
+   Auto-masking: a U-Net of width 16 (random weights from a numpy seed) on
+   11 frames sampled from a 110-frame clip at 480x640 and 1080x1440, with
+   PyTorch's TF32 default back on for the path: probabilities against the
+   CPU within 1e-5 (and the U-Net called outside the path's IEEE float32
+   scope, reported),
    ``clip_mask`` equal to the CPU chain on the same probabilities, erode,
    dilate and vote (24x24 and 54x54 ellipses) on noisy fan masks equal to
    the CPU's, ``mask_frames`` with and without the crop; per-step times
@@ -396,6 +402,29 @@ KERNEL_KEYS = {"preprocess": ("preprocess_kernel",),
 TRAIN_BATCH = 64
 TRAIN_FRAMES, VAL_FRAMES, MBV2_FRAMES = 344, 96, 128
 VGG_EXTRACT_EPOCHS, VGG_EPOCHS = 2, 3
+# B1 at the shapes the paths give it, to 128x128 caffe: (label, batch,
+# source, resize map, output dtype, UI blank, distinct inputs, launches
+# per timed graph). Serving and Grad-CAM batches from 128x128 frames
+# (predict/benchmark.py's default source) and from 480x640 ones; deploy
+# clips (predict/deploy.py: cv2 map, UI blank, float32); a training
+# validation batch; a batch-1 latency step. A deploy shape's graph walks 2
+# or 4 clips in turn, so a launch finds its bytes out of the 50 MB L2, as
+# a freshly uploaded clip does; the batch-1 frame stays in L2, as the
+# latency graph's copied-in input does.
+B1_SHAPES = (
+    ("serving 2048 x 128x128 bf16", MAIN_BATCH, (128, 128), "tf",
+     torch.bfloat16, False, 1, 4),
+    ("serving 2048 x 480x640 bf16", MAIN_BATCH, (480, 640), "tf",
+     torch.bfloat16, False, 1, 4),
+    ("deploy 256 x 480x640 f32 cv2 blank", 256, (480, 640), "cv2",
+     torch.float32, True, 2, 8),
+    ("deploy 64 x 1080x1440 f32 cv2 blank", 64, (1080, 1440), "cv2",
+     torch.float32, True, 4, 8),
+    ("validation 64 x 128x128 bf16", TRAIN_BATCH, (128, 128), "tf",
+     torch.bfloat16, False, 4, 16),
+    ("latency 1 x 128x128 bf16", 1, (128, 128), "tf", torch.bfloat16, False,
+     1, 64))
+B1_MAIN = "serving 2048 x 480x640 bf16"
 # Loss on one fixed batch (the first 64 training frames, no augmentation,
 # dropout 0, the first phase's optimizer and rate): the mean of the last 5
 # of LOSS_STEPS steps must fall to LOSS_FALL[model] of the first step's
@@ -530,8 +559,9 @@ def preprocess_bytes(b, src_hw, out_hw, mode, out_itemsize, with_mask,
     """Bytes the preprocess must move: the 32-byte sectors of the source
     rows its index map selects (computed for one frame and scaled by b,
     exact when a frame is a whole number of sectors; with ``blank``, not
-    the pixels of the UI box, which need no read), its index vectors and
-    mask reads, and one write of the output."""
+    the pixels of the UI box, which need no read), its mask reads, and one
+    write of the output. The kernel computes its indices: it reads no
+    index vector."""
     from ab_line_classifier_torch.ops.image import UI_BLANK_HW, nearest_indices
 
     hs, ws = src_hw
@@ -546,9 +576,9 @@ def preprocess_bytes(b, src_hw, out_hw, mode, out_itemsize, with_mask,
 
     px = sum(np.unique((r * ws * 3 + row_cols(r)) // 32).size
              for r in rows) * 32
-    extra = (hd + wd) * 4
+    extra = 0
     if with_mask:
-        extra += sum(np.unique((r * ws + cidx) * 4 // 32).size
+        extra = sum(np.unique((r * ws + cidx) * 4 // 32).size
                      for r in rows) * 32
     return b * px + extra + b * hd * wd * 3 * out_itemsize
 
@@ -757,8 +787,8 @@ def serve_clips(predictor, frames480, frames128):
 
 def ptxas_report(log):
     """``[(instance, "N registers, S bytes spill stores, L bytes spill
-    loads"), ...]`` of the depthwise kernel's instances in nvcc's
-    ``-Xptxas -v`` output."""
+    loads"), ...]`` of the depthwise and preprocess kernels' instances in
+    nvcc's ``-Xptxas -v`` output."""
     import re
 
     out, name, spills = [], None, ""
@@ -767,6 +797,9 @@ def ptxas_report(log):
         if m:
             k = re.search(r"depthwise_(tiled|scalar)I(13__nv_bfloat16|f)"
                           r"((?:Li\d+E)+)", m.group(1))
+            pre = re.search(r"preprocess_kernelI(13__nv_bfloat16|f)"
+                            r"Li(\d+)ELb([01])ELb([01])ELb([01])E",
+                            m.group(1))
             if k:
                 args = re.findall(r"Li(\d+)E", k.group(3))
                 keys = (("K", "V", "rows") if k.group(1) == "tiled"
@@ -774,6 +807,11 @@ def ptxas_report(log):
                 dtype = "f32" if k.group(2) == "f" else "bf16"
                 name = (f"{k.group(1)}<{dtype}, " + ", ".join(
                     f"{key}={a}" for key, a in zip(keys, args)) + ">")
+            elif pre:
+                dtype = "f32" if pre.group(1) == "f" else "bf16"
+                name = (f"preprocess<{dtype}, pixels={pre.group(2)}, "
+                        f"vec={pre.group(3)}, staged={pre.group(4)}, "
+                        f"bgr={pre.group(5)}>")
             else:
                 name = None
         elif name and "spill stores" in line:
@@ -834,8 +872,82 @@ def time_depthwise(shape, k, dtype, gen, plain=True):
     return out
 
 
-def phase_preprocess(kind):
-    """Phase 3; returns B1's main-path timing and its max abs err."""
+def b1_on_path(x, path, out_hw, preprocess_mode="scale", resize_mode="tf",
+               mask=None, out_dtype=torch.float32, blank_ui_region=False):
+    """B1 on one path of the kernel (a key of ``PATHS`` in
+    ``ops/preprocess_cuda.py``), launched through the plan: a check's
+    launch, which counts nothing."""
+    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+
+    b, hs, ws, _ = x.shape
+    _, args = PC.plan_launch(b, (hs, ws), out_hw, resize_mode,
+                             preprocess_mode, out_dtype, blank_ui_region,
+                             x.device, path=path)
+    out = torch.empty((b, *out_hw, 3), dtype=out_dtype, device=x.device)
+    if mask is not None:
+        mask = torch.as_tensor(mask, device=x.device).float().contiguous()
+    PC.launch(x, out, args, mask)
+    return out
+
+
+def b1_shape_timings(gen, shapes=None):
+    """B1 at ``shapes`` (default :data:`B1_SHAPES`): per label, its device
+    time (``graph_ms`` of a graph of its launches, per launch) and its
+    time per eager call (``cuda_ms``: the host's where that is longer),
+    the bytes bound and its share, the plain version's time,
+    ``F.interpolate``'s (nearest-exact, resize only; the port never calls
+    it), a device copy of as many bytes as the bound counts (half read,
+    half written, over as many distinct buffers as the kernel's inputs:
+    the rate the card reaches on plain traffic) and the max abs err
+    against the plain version."""
+    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+    from ab_line_classifier_torch.ops.image import (fused_preprocess,
+                                                    max_ulp_error)
+
+    out = {}
+    for label, b, src, resize, dtype, blank, inputs, per_graph in (
+            shapes or B1_SHAPES):
+        xs = [torch.randint(0, 256, (b, *src, 3), dtype=torch.uint8,
+                            device="cuda", generator=gen)
+              for _ in range(inputs)]
+        kw = dict(out_hw=OUT_HW, preprocess_mode="caffe", resize_mode=resize,
+                  out_dtype=dtype, blank_ui_region=blank)
+        err = max_ulp_error(PC.cuda_preprocess(xs[0], **kw),
+                            fused_preprocess(xs[0], **kw), dtype, "caffe")
+        ms = graph_ms(lambda: [PC.cuda_preprocess(xs[i % inputs], **kw)
+                               for i in range(per_graph)]) / per_graph
+        eager_ms = cuda_ms(lambda: PC.cuda_preprocess(xs[0], **kw))
+        plain_ms = cuda_ms(lambda: fused_preprocess(xs[0], **kw), iters=5,
+                           warmup=1)
+        library_ms = cuda_ms(lambda: F.interpolate(
+            xs[0].permute(0, 3, 1, 2), size=OUT_HW, mode="nearest-exact"))
+        itemsize = 2 if dtype == torch.bfloat16 else 4
+        nbytes = preprocess_bytes(b, src, OUT_HW, resize, itemsize, False,
+                                  blank=blank)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        bufs = [(torch.empty(nbytes // 2, dtype=torch.uint8, device="cuda"),
+                 torch.empty(nbytes // 2, dtype=torch.uint8, device="cuda"))
+                for _ in range(inputs)]
+        copy_ms = graph_ms(lambda: [bufs[i % inputs][1].copy_(
+            bufs[i % inputs][0]) for i in range(per_graph)]) / per_graph
+        del bufs
+        # 2 multiplies and 1 add a value
+        ops_ms = b * OUT_HW[0] * OUT_HW[1] * 9 / PEAK_F32_FLOPS * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        out[label] = dict(
+            batch=b, source=f"{src[0]}x{src[1]}", ms=ms, eager_ms=eager_ms,
+            bound_ms=bound_ms,
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            share=bound_ms / ms, plain_ms=plain_ms, library_ms=library_ms,
+            copy_ms=copy_ms, mbytes=nbytes / 1e6, max_abs_err=err)
+        del xs
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_preprocess(kind, smi):
+    """Phase 3; returns B1's timings at :data:`B1_SHAPES` and its max abs
+    err, which must be 0.0."""
     from ab_line_classifier_torch.ops import preprocess_cuda as PC
     from ab_line_classifier_torch.ops.image import (
         MASK_OPTIONS, OUT_DTYPES, PREPROCESS_MODES, RESIZE_MODES,
@@ -844,88 +956,102 @@ def phase_preprocess(kind):
     phase("3 preprocess kernel against its plain version")
     gen = torch.Generator(device="cuda").manual_seed(0)
     max_err, n_calls, count0 = 0.0, 0, PC.launch_count
-    for hs, ws in ((128, 128), (480, 640), (601, 803)):
-        x = torch.randint(0, 256, (8, hs, ws, 3), dtype=torch.uint8,
-                          device="cuda", generator=gen)
-        beam = beam_mask(hs, ws)
+
+    def check(x, **kw):
+        """The wrapper (the plan's path, counted) and each path of the
+        kernel (``PC.PATHS``, launched through the plan: not counted)
+        against the plain version."""
+        nonlocal max_err, n_calls
+        want = fused_preprocess(x, **kw)
+        for got in (PC.cuda_preprocess(x, **kw),
+                    *(b1_on_path(x, path, **kw) for path in PC.PATHS)):
+            max_err = max(max_err, max_ulp_error(got, want, kw["out_dtype"],
+                                                 kw["preprocess_mode"]))
+        n_calls += 1
+
+    def grid(x, out_hw=OUT_HW):
+        beam = beam_mask(*x.shape[1:3])
         for mode, resize, mask, dtype in itertools.product(
                 PREPROCESS_MODES, RESIZE_MODES, MASK_OPTIONS, OUT_DTYPES):
-            kw = dict(out_hw=OUT_HW, preprocess_mode=mode,
-                      resize_mode=resize, out_dtype=dtype,
-                      **mask_kwargs(mask, beam))
-            got = PC.cuda_preprocess(x, **kw)
-            want = fused_preprocess(x, **kw)
-            max_err = max(max_err, max_ulp_error(got, want, dtype, mode))
-            n_calls += 1
+            check(x, out_hw=out_hw, preprocess_mode=mode, resize_mode=resize,
+                  out_dtype=dtype, **mask_kwargs(mask, beam))
+
+    for hs, ws in ((128, 128), (480, 640), (601, 803)):
+        grid(torch.randint(0, 256, (8, hs, ws, 3), dtype=torch.uint8,
+                           device="cuda", generator=gen))
     n_grid = n_calls
+    # A batch slice of 601x803 frames, its data pointer off the 16-byte
+    # grid (the kernel's unaligned branch), to 128x128 (staged) and 32x32
+    # (gathered); an upsampling map, 64x64 -> 128x128.
+    odd = torch.randint(0, 256, (5, 601, 803, 3), dtype=torch.uint8,
+                        device="cuda", generator=gen)[1:]
+    if odd.data_ptr() % 16 == 0:
+        raise AssertionError("the unaligned case is aligned")
+    grid(odd)
+    grid(odd, (32, 32))
+    grid(torch.randint(0, 256, (4, 64, 64, 3), dtype=torch.uint8,
+                       device="cuda", generator=gen))
+    n_edge = n_calls - n_grid
     # The shapes of a batch-1 latency step, of the Grad-CAM batches and of
-    # a training validation batch.
+    # a training validation batch; a deploy clip of 1080x1440 (UI blank,
+    # float32) in every mode and map.
     for b, hs, ws in ((1, 128, 128), (ZOO_BATCH, 128, 128),
                       (ZOO_BATCH, 480, 640), (TRAIN_BATCH, 128, 128)):
         x = torch.randint(0, 256, (b, hs, ws, 3), dtype=torch.uint8,
                           device="cuda", generator=gen)
         for mode, dtype in itertools.product(PREPROCESS_MODES, OUT_DTYPES):
-            kw = dict(out_hw=OUT_HW, preprocess_mode=mode, out_dtype=dtype)
-            got = PC.cuda_preprocess(x, **kw)
-            want = fused_preprocess(x, **kw)
-            max_err = max(max_err, max_ulp_error(got, want, dtype, mode))
-            n_calls += 1
+            check(x, out_hw=OUT_HW, preprocess_mode=mode, out_dtype=dtype)
+    clip = torch.randint(0, 256, (64, 1080, 1440, 3), dtype=torch.uint8,
+                         device="cuda", generator=gen)
+    for mode, resize in itertools.product(PREPROCESS_MODES, RESIZE_MODES):
+        check(clip, out_hw=OUT_HW, preprocess_mode=mode, resize_mode=resize,
+              out_dtype=torch.float32, blank_ui_region=True)
+    del clip
     torch.cuda.synchronize()
     if PC.launch_count - count0 != n_calls:
-        raise AssertionError("launch counter did not count every launch")
-    print(f"grid: {n_grid} combinations over 3 source sizes, and "
-          f"{n_calls - n_grid} at the Grad-CAM, batch-1 and training "
-          f"validation shapes (1 x 128x128, {ZOO_BATCH} x 128x128 and "
-          f"480x640, {TRAIN_BATCH} x 128x128; every mode and output dtype) "
-          f"agree, max abs err {max_err}")
+        raise AssertionError(f"launch counter: {PC.launch_count - count0} "
+                             f"for {n_calls} calls of the wrapper")
+    print(f"grid (calls of the wrapper, each also on every one of the "
+          f"{len(PC.PATHS)} paths): {n_grid} over 3 source sizes; {n_edge} "
+          f"on a batch slice of 601x803 frames off the 16-byte grid (to "
+          f"128x128 and 32x32) and 64x64 -> 128x128; and "
+          f"{n_calls - n_grid - n_edge} at the Grad-CAM, batch-1 and "
+          f"training validation shapes (1 x 128x128, {ZOO_BATCH} x 128x128 "
+          f"and 480x640, {TRAIN_BATCH} x 128x128; every mode and output "
+          f"dtype) and a 64 x 1080x1440 deploy clip (UI blank, f32, every "
+          f"mode and map) agree, max abs err {max_err}")
 
     big = torch.randint(0, 256, (2048, 1080, 1440, 3), dtype=torch.uint8,
                         device="cuda", generator=gen)
     kw = dict(out_hw=OUT_HW, preprocess_mode="caffe", resize_mode="tf",
               mask=beam_mask(1080, 1440), out_dtype=torch.bfloat16)
-    err = max_ulp_error(PC.cuda_preprocess(big, **kw),
-                        fused_preprocess(big, **kw), torch.bfloat16, "caffe")
+    want = fused_preprocess(big, **kw)
+    err = max(max_ulp_error(got, want, torch.bfloat16, "caffe")
+              for got in (PC.cuda_preprocess(big, **kw),
+                          b1_on_path(big, "gathered", **kw),
+                          b1_on_path(big, "scalar", **kw)))
     torch.cuda.synchronize()
-    print(f"2048 x 1080x1440 ({big.numel() / 2 ** 31:.2f} x 2^31 bytes): "
-          f"agree, max abs err {err}")
+    print(f"2048 x 1080x1440 ({big.numel() / 2 ** 31:.2f} x 2^31 bytes), "
+          f"staged, gathered and scalar: agree, max abs err {err}")
     max_err = max(max_err, err)
     del big
     torch.cuda.empty_cache()
 
-    # The main path's shapes: what Predictor.forward hands the kernel.
-    timing = {}
-    for src in ((480, 640), (128, 128)):
-        x = torch.randint(0, 256, (MAIN_BATCH, *src, 3), dtype=torch.uint8,
-                          device="cuda", generator=gen)
-        kw = dict(out_hw=OUT_HW, preprocess_mode="caffe", resize_mode="tf",
-                  out_dtype=torch.bfloat16)
-        err = max_ulp_error(PC.cuda_preprocess(x, **kw),
-                            fused_preprocess(x, **kw), torch.bfloat16,
-                            "caffe")
-        max_err = max(max_err, err)
-        kernel_ms = cuda_ms(lambda: PC.cuda_preprocess(x, **kw))
-        plain_ms = cuda_ms(lambda: fused_preprocess(x, **kw))
-        library_ms = cuda_ms(lambda: F.interpolate(
-            x.permute(0, 3, 1, 2), size=OUT_HW, mode="nearest-exact"))
-        n_out = MAIN_BATCH * OUT_HW[0] * OUT_HW[1] * 3
-        nbytes = preprocess_bytes(MAIN_BATCH, src, OUT_HW, "tf", 2, False)
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = n_out * 3 / PEAK_F32_FLOPS * 1e3  # 2 multiplies, 1 add
-        whole_ms = (x.numel() + n_out * 2) / HBM_BYTES_PER_S * 1e3
-        timing[src] = dict(ms=kernel_ms, plain_ms=plain_ms,
-                           library_ms=library_ms,
-                           bound_ms=max(bytes_ms, ops_ms),
-                           bound_by="bytes" if bytes_ms >= ops_ms
-                           else "operations")
-        print(f"preprocess {MAIN_BATCH} x {src[0]}x{src[1]} -> 128x128 bf16 "
-              f"caffe on {kind}: agrees with the plain version (max abs err "
-              f"{err}); kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"F.interpolate {library_ms:.4f} ms, bytes bound "
-              f"{bytes_ms:.4f} ms ({nbytes / 1e6:.1f} MB), ops bound "
-              f"{ops_ms:.4f} ms, whole-input bound {whole_ms:.4f} ms",
-              flush=True)
-        del x
-    return timing[(480, 640)], max_err
+    # The shapes the paths give the kernel, timed (128x128 caffe).
+    timing = b1_shape_timings(gen)
+    for label, t in timing.items():
+        max_err = max(max_err, t["max_abs_err"])
+        print(f"preprocess {label} -> 128x128 caffe ({smi}): max abs err "
+              f"{t['max_abs_err']}; kernel {t['ms']:.4f} ms a launch in a "
+              f"graph ({t['eager_ms']:.4f} eager), bytes bound "
+              f"{t['bound_ms']:.4f} ms ({t['mbytes']:.1f} MB, "
+              f"{100 * t['share']:.1f}%), plain {t['plain_ms']:.4f} ms, "
+              f"F.interpolate {t['library_ms']:.4f} ms, a copy of as many "
+              f"bytes {t['copy_ms']:.4f} ms", flush=True)
+    if max_err != 0.0:
+        raise AssertionError(f"B1 differs from its plain version: max abs "
+                             f"err {max_err}")
+    return timing, max_err
 
 
 def depthwise_grid(gen):
@@ -2988,7 +3114,18 @@ def serve_deploy_clip(name, ckpt_dir, clip, smi):
     x = D.deploy_preprocess(spec, dev)
     b1_err = max_ulp_error(x, fused_preprocess(dev, **kw), torch.float32,
                            spec.preprocess_mode)
-    b1_ms = cuda_ms(lambda: D.deploy_preprocess(spec, dev))
+    # Device time: a graph of launches over this clip and 3 others in turn,
+    # so that a launch finds its bytes out of L2, as a freshly uploaded
+    # clip does (an eager call's host time exceeds the kernel's at these
+    # sizes), beside the eager call's.
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    clips = [dev, *(torch.randint(0, 256, dev.shape, dtype=torch.uint8,
+                                  device="cuda", generator=gen)
+                    for _ in range(3))]
+    b1_ms = graph_ms(lambda: [D.deploy_preprocess(spec, c)
+                              for c in clips]) / len(clips)
+    del clips
+    b1_eager_ms = cuda_ms(lambda: D.deploy_preprocess(spec, dev))
     plain_ms = cuda_ms(lambda: fused_preprocess(dev, **kw), iters=5)
     with torch.inference_mode():
         fwd_ms = cuda_ms(lambda: module(x.to(spec.dtype)), iters=5)
@@ -2997,7 +3134,8 @@ def serve_deploy_clip(name, ckpt_dir, clip, smi):
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     upload_ms = float(np.median(uploads))
     timing = dict(frames=n, upload_ms=upload_ms, pinned_upload_ms=pinned_ms,
-                  b1_ms=b1_ms, b1_plain_ms=plain_ms, b1_bound_ms=bound_ms,
+                  b1_ms=b1_ms, b1_eager_ms=b1_eager_ms, b1_plain_ms=plain_ms,
+                  b1_bound_ms=bound_ms,
                   b1_max_abs_err=b1_err, forward_ms=fwd_ms,
                   device_frames_per_s=n / ((b1_ms + fwd_ms) / 1e3),
                   with_upload_frames_per_s=n / ((upload_ms + b1_ms + fwd_ms)
@@ -3005,7 +3143,8 @@ def serve_deploy_clip(name, ckpt_dir, clip, smi):
                   call_wall_s=wall, prob_err=err, prob_bar=bar)
     print(f"{name} deploy {n} x {hs}x{ws} ({smi}): B1 {b1}, B2 {b2}, copies "
           f"{copies}; upload {upload_ms:.3f} ms (pageable; pinned "
-          f"{pinned_ms:.3f}), B1 {b1_ms:.4f} ms (plain {plain_ms:.4f}, bytes "
+          f"{pinned_ms:.3f}), B1 {b1_ms:.4f} ms in a graph (eager "
+          f"{b1_eager_ms:.4f}, plain {plain_ms:.4f}, bytes "
           f"bound {bound_ms:.4f}; max abs err {b1_err}), forward "
           f"{fwd_ms:.3f} ms; {timing['device_frames_per_s']:.1f} frames/s on "
           f"the card, {timing['with_upload_frames_per_s']:.1f} with the "
@@ -6384,10 +6523,12 @@ def main():
         libs = list(pool.map(_build.build, _build.kernel_names()))
     print(f"built {len(libs)} kernel(s) in {time.perf_counter() - t0:.2f} s:"
           f" {[os.path.relpath(p, REPO) for p in libs]}")
-    for name, line in ptxas_report(_build.build_log("depthwise")):
-        print(f"ptxas {name}: {line}")
+    for kernel in ("depthwise", "preprocess"):
+        for name, line in ptxas_report(_build.build_log(kernel)):
+            print(f"ptxas {name}: {line}")
 
-    b1, b1_err = phase_preprocess(kind)
+    b1_shapes, b1_err = phase_preprocess(kind, smi)
+    b1 = b1_shapes[B1_MAIN]
     specs = {name: build_zoo(name, OUT_HW) for name in ZOO}
     shapes = {name: depthwise_layer_shapes(spec)
               for name, spec in specs.items()}
@@ -6566,9 +6707,13 @@ def main():
          "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"],
          "library_ms": b1["library_ms"],
          "shape": f"{MAIN_BATCH}x480x640x3 uint8 -> 128x128x3 bf16",
+         "shapes": {label: {key: t[key] for key in (
+             "ms", "eager_ms", "bound_ms", "share", "plain_ms",
+             "library_ms", "copy_ms")} for label, t in b1_shapes.items()},
          "deploy_per_clip": {
              label: {key: t[key] for key in (
-                 "frames", "b1_ms", "b1_plain_ms", "b1_bound_ms",
+                 "frames", "b1_ms", "b1_eager_ms", "b1_plain_ms",
+                 "b1_bound_ms",
                  "b1_max_abs_err", "upload_ms", "pinned_upload_ms",
                  "forward_ms", "device_frames_per_s",
                  "with_upload_frames_per_s")}

@@ -73,6 +73,112 @@ def test_cuda_kernel_64bit_offsets():
     assert torch.equal(got, want)
 
 
+# The shapes the port's paths give the preprocess kernel: (batch, source,
+# resize map, output dtype, UI blank) -> 128x128 caffe. Serving at 2048
+# from 128x128 and 480x640 frames, deploy clips of 480x640 and 1080x1440,
+# a batch-1 latency step.
+PATH_SHAPES = ((2048, (128, 128), "tf", torch.bfloat16, False),
+               (2048, (480, 640), "tf", torch.bfloat16, False),
+               (256, (480, 640), "cv2", torch.float32, True),
+               (64, (1080, 1440), "cv2", torch.float32, True),
+               (1, (128, 128), "tf", torch.bfloat16, False))
+
+
+def _on_path(x, path, out_hw, preprocess_mode="scale", resize_mode="tf",
+             mask=None, out_dtype=torch.float32, blank_ui_region=False):
+    """The preprocess kernel on one of its paths (a key of
+    ``preprocess_cuda.PATHS``), launched through the plan: counts
+    nothing."""
+    b, hs, ws, _ = x.shape
+    _, args = preprocess_cuda.plan_launch(
+        b, (hs, ws), out_hw, resize_mode, preprocess_mode, out_dtype,
+        blank_ui_region, x.device, path=path)
+    out = torch.empty((b, *out_hw, 3), dtype=out_dtype, device=x.device)
+    if mask is not None:
+        mask = torch.as_tensor(mask, device=x.device).float().contiguous()
+    preprocess_cuda.launch(x, out, args, mask)
+    return out
+
+
+def _assert_preprocess_equal(x, paths=(), **kw):
+    """The wrapper (the plan's path; one launch counted) and each of
+    ``paths`` (none counted) bit-equal to the plain version."""
+    want = torch_image.fused_preprocess(x, **kw)
+    before = preprocess_cuda.launch_count
+    assert torch.equal(preprocess_cuda.cuda_preprocess(x, **kw), want), kw
+    for path in paths:
+        assert torch.equal(_on_path(x, path, **kw), want), (path, kw)
+    assert preprocess_cuda.launch_count == before + 1
+
+
+@pytest.mark.cuda
+def test_preprocess_kernel_at_the_path_shapes():
+    """Bit-equal to the plain version where the main paths call it, and,
+    on every path of the kernel, on a batch slice whose data pointer is off
+    the 16-byte grid (601x803 frames) and where the map upsamples (64x64 ->
+    128x128)."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for b, src, resize, dtype, blank in PATH_SHAPES:
+        x = torch.randint(0, 256, (b, *src, 3), dtype=torch.uint8,
+                          device="cuda", generator=gen)
+        _assert_preprocess_equal(x, out_hw=(128, 128),
+                                 preprocess_mode="caffe", resize_mode=resize,
+                                 out_dtype=dtype, blank_ui_region=blank)
+    odd = torch.randint(0, 256, (5, 601, 803, 3), dtype=torch.uint8,
+                        device="cuda", generator=gen)[1:]
+    assert odd.data_ptr() % 16 != 0
+    up = torch.randint(0, 256, (6, 64, 64, 3), dtype=torch.uint8,
+                       device="cuda", generator=gen)
+    for x, out_hw in ((odd, (128, 128)), (odd, (32, 32)), (up, (128, 128))):
+        for mode, resize, mask, dtype in itertools.product(
+                PREPROCESS_MODES, RESIZE_MODES, MASK_OPTIONS, OUT_DTYPES):
+            beam = (torch.rand(x.shape[1:3], device="cuda", generator=gen)
+                    > 0.3).float()
+            _assert_preprocess_equal(x, preprocess_cuda.PATHS,
+                                     out_hw=out_hw, preprocess_mode=mode,
+                                     resize_mode=resize, out_dtype=dtype,
+                                     **mask_kwargs(mask, beam))
+
+
+@pytest.mark.cuda
+def test_preprocess_kernel_in_a_cuda_graph():
+    """Captured once and replayed twice on new frames copied into the
+    captured input, on the plan's path and each path of the kernel, at a
+    staged, a blanked and a gathered (4K) shape: each replay equal to the
+    plain version."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for (b, src, blank), path in itertools.product(
+            ((64, (128, 128), False), (32, (480, 640), True),
+             (4, (2160, 3840), False)), (None, *preprocess_cuda.PATHS)):
+        kw = dict(out_hw=(128, 128), preprocess_mode="caffe",
+                  resize_mode="cv2", out_dtype=torch.bfloat16,
+                  blank_ui_region=blank)
+
+        def run():
+            if path is None:
+                return preprocess_cuda.cuda_preprocess(x, **kw)
+            return _on_path(x, path, **kw)
+
+        x = torch.zeros((b, *src, 3), dtype=torch.uint8, device="cuda")
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            run()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            y = run()
+        for _ in range(2):
+            x.copy_(torch.randint(0, 256, x.shape, dtype=torch.uint8,
+                                  device="cuda", generator=gen))
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(y, torch_image.fused_preprocess(x, **kw)), \
+                path
+
+
 def _depthwise_case(shape, k, dtype, gen):
     x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
     wt = (0.2 * torch.randn((shape[-1], 1, k, k), device="cuda",
