@@ -254,7 +254,8 @@ class UnetSegmentation:
                                             native_hw, erode, dilate))
 
             prog = self._programs[key] = (fixed, out, StepGraph(
-                body, home, capture=self.graphed, pool=self._pool))
+                body, home, name="automask", capture=self.graphed,
+                pool=self._pool))
         return prog
 
     # ------------------------------------------------------------------

@@ -54,6 +54,7 @@ import torch.distributed as dist
 
 from ab_line_classifier_torch.ops.image import nearest_indices
 from ab_line_classifier_torch.parallel import mesh as mesh_lib
+from ab_line_classifier_torch.utils.profiling import annotate
 
 FRAME_PATH = "Frame Path"
 CLASS = "Class"
@@ -308,7 +309,9 @@ class PinnedStaging:
     and over with ``non_blocking=True``; a buffer is refilled only after
     its previous copies have finished (an event recorded after them), so
     the host never overwrites bytes in flight and runs at most ``slots``
-    copies ahead. On the CPU the arrays become tensors as they are."""
+    copies ahead. On the CPU the arrays become tensors as they are.
+    Spans: ``staging.wait`` (the slot's event) and ``staging.copy`` (the
+    host copy into the pinned buffer and the upload's enqueue)."""
 
     def __init__(self, device, slots: int = 2):
         self.device = torch.device(device)
@@ -330,21 +333,24 @@ class PinnedStaging:
         self._next = (i + 1) % len(self._slots)
         bufs, event = self._slots[i]
         if event is not None:
-            event.synchronize()
-        if [(b.shape, b.dtype) for b in bufs] != [(t.shape, t.dtype)
-                                                  for t in host]:
-            bufs = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                    for t in host]
-        for b, t in zip(bufs, host):
-            b.copy_(t)
-        if out is None:
-            res = tuple(b.to(self.device, non_blocking=True) for b in bufs)
-        else:
-            for o, b in zip(out, bufs):
-                o.copy_(b, non_blocking=True)
-            res = tuple(out)
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(self.device))
+            with annotate("staging.wait"):
+                event.synchronize()
+        with annotate("staging.copy"):
+            if [(b.shape, b.dtype) for b in bufs] != [(t.shape, t.dtype)
+                                                      for t in host]:
+                bufs = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                        for t in host]
+            for b, t in zip(bufs, host):
+                b.copy_(t)
+            if out is None:
+                res = tuple(b.to(self.device, non_blocking=True)
+                            for b in bufs)
+            else:
+                for o, b in zip(out, bufs):
+                    o.copy_(b, non_blocking=True)
+                res = tuple(out)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
         self._slots[i] = (bufs, event)
         return res
 

@@ -172,8 +172,8 @@ class FusedGradCAM:
                 out[:] = _gradcam_pass(spec, module, mode, hw, fixed)
 
             prog = self._programs[key] = (fixed, out, StepGraph(
-                body, self.device, capture=self.graphed, modules=(module,),
-                pool=self._pool))
+                body, self.device, name="gradcam", capture=self.graphed,
+                modules=(module,), pool=self._pool))
         return prog
 
 

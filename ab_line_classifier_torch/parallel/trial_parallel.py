@@ -552,6 +552,7 @@ class ParallelFoldTrainer:
         prog = _StackedEpoch(owners, shape, tables, metrics, gates,
                              draws or [], PinnedStaging(self.device),
                              StepGraph(body, self.device,
+                                       name=f"trials.{key}",
                                        capture=capturable(self.device,
                                                           groups)))
         self.epoch_programs[key] = prog

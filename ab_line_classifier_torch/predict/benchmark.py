@@ -450,7 +450,8 @@ def clock_avg_runtime(n_warmup_runs: int = 10, n_experiment_runs: int = 50,
         def body():
             out[:] = [module(fixed.to(spec.dtype))]
 
-        step = StepGraph(body, device, capture=graphed, modules=(module,))
+        step = StepGraph(body, device, name="latency", capture=graphed,
+                         modules=(module,))
         n_warmup_runs = max(n_warmup_runs, 2 if graphed else 0)
         timer = StepTimer(warmup=n_warmup_runs)
         for _ in range(n_warmup_runs + n_experiment_runs):

@@ -12,7 +12,14 @@
   Frames go host -> device from pinned memory into the shape's fixed
   input, one chunk ahead of the readback (``drain_behind``); the ragged
   last chunk is padded with zero frames to the batch size, as the JAX
-  package pads it, so one program serves every chunk.
+  package pads it, so one program serves every chunk. ``rows_run`` and
+  ``rows_padded`` count the rows sent through a program and the zero rows
+  added to ragged chunks, on the host.
+* Spans (``utils/profiling.annotate``, free when no profiler records):
+  ``serve.forward`` around each forward, holding ``serve.input``, the
+  program's ``graph.*:serve`` and ``serve.output``; ``serve.pad`` and
+  ``serve.readback`` around each chunk's padding and drain in
+  ``predict_probs``; ``staging.*`` inside the pinned staging.
 * Frame classification: B-line probability >= threshold -> class 1.
 * ``compute_clip_predictions`` / ``compute_frame_predictions`` write the
   same metrics-JSON and predictions-CSV files as the JAX package, into
@@ -155,6 +162,10 @@ class Predictor:
         self._pool = torch.cuda.graph_pool_handle() if self.graphed else None
         self._staging = PinnedStaging(self.device)
         self._programs: Dict[tuple, tuple] = {}
+        # Rows sent through a program, and the zero rows predict_probs
+        # padded ragged chunks with (this rank's, under a mesh).
+        self.rows_run = 0
+        self.rows_padded = 0
 
     @classmethod
     def restore(cls, model_path: str, *, batch_size: int = 64,
@@ -219,14 +230,18 @@ class Predictor:
         clone of the program's fixed output: a later call never overwrites
         it. Everything a program holds is made, filled and read in
         inference mode."""
-        frames = torch.as_tensor(frames_u8)
-        fixed, out, step = self._program(frames)
-        if frames.device == self._home:
-            fixed.copy_(frames)
-        else:
-            self._staging(frames, out=[fixed])
-        step()
-        return out[0].clone() if self.graphed else out[0]
+        with annotate("serve.forward"):
+            frames = torch.as_tensor(frames_u8)
+            fixed, out, step = self._program(frames)
+            with annotate("serve.input"):
+                if frames.device == self._home:
+                    fixed.copy_(frames)
+                else:
+                    self._staging(frames, out=[fixed])
+            self.rows_run += frames.shape[0]
+            step()
+            with annotate("serve.output"):
+                return out[0].clone() if self.graphed else out[0]
 
     def _program(self, frames: torch.Tensor):
         """The input shape's fixed input, output list and step."""
@@ -243,8 +258,8 @@ class Predictor:
                 out[:] = [_serve(spec, module, dtype, fixed)]
 
             prog = self._programs[key] = (fixed, out, StepGraph(
-                body, self._home, capture=self.graphed, modules=(module,),
-                pool=self._pool))
+                body, self._home, name="serve", capture=self.graphed,
+                modules=(module,), pool=self._pool))
         return prog
 
     def predict_probs(self, frames_u8: np.ndarray) -> np.ndarray:
@@ -260,23 +275,28 @@ class Predictor:
         out = np.zeros((n, self.spec.n_classes), np.float32)
 
         def launch(i):
-            chunk = np.ascontiguousarray(frames_u8[i:i + bs])
-            k = len(chunk)
-            if k < bs:
-                chunk = np.concatenate([chunk, np.zeros(
-                    (bs - k,) + chunk.shape[1:], chunk.dtype)])
-            if self.mesh is not None:
-                per = bs // self.mesh.size()
-                r = mesh_lib.rank()
-                chunk = chunk[r * per:(r + 1) * per]
+            with annotate("serve.pad"):
+                chunk = np.ascontiguousarray(frames_u8[i:i + bs])
+                k = len(chunk)
+                if k < bs:
+                    chunk = np.concatenate([chunk, np.zeros(
+                        (bs - k,) + chunk.shape[1:], chunk.dtype)])
+                lo, hi = 0, bs
+                if self.mesh is not None:
+                    per = bs // self.mesh.size()
+                    lo = mesh_lib.rank() * per
+                    hi = lo + per
+                    chunk = chunk[lo:hi]
+                self.rows_padded += max(0, hi - max(lo, k))
             return i, k, self.forward(chunk)
 
         def drain(pending):
             i, k, probs = pending
-            if self.mesh is not None:
-                probs = mesh_lib.all_gather_rows(probs,
-                                                 mesh_lib.world_group())
-            out[i:i + k] = probs[:k].cpu().numpy()
+            with annotate("serve.readback"):
+                if self.mesh is not None:
+                    probs = mesh_lib.all_gather_rows(
+                        probs, mesh_lib.world_group())
+                out[i:i + k] = probs[:k].cpu().numpy()
 
         drain_behind((launch(i) for i in range(0, n, bs)), drain)
         return out

@@ -40,6 +40,13 @@ Launch counts: a capture's kernel-wrapper calls are taken off the counts
 and each replay adds them back (``ops/launches.py``), so the counts are
 the launches that ran on the card; :attr:`StepGraph.captured_launches`
 keeps a replay's.
+
+Spans: each call of a :class:`StepGraph` is one profiler region named by
+what it did and the program's kind (``name``): ``graph.eager:<name>``,
+``graph.capture:<name>`` or ``graph.replay:<name>`` on CUDA,
+``graph.run:<name>`` uncaptured (``utils/profiling.annotate``; free when
+no profiler records). A replay's region holds its ``cudaGraphLaunch``, so
+the device work it enqueues is placed on the host's timeline.
 """
 
 from __future__ import annotations
@@ -53,6 +60,7 @@ import torch
 from ab_line_classifier_torch import graph as G
 from ab_line_classifier_torch.ops import launches
 from ab_line_classifier_torch.parallel import mesh as mesh_lib
+from ab_line_classifier_torch.utils.profiling import annotate
 
 
 # One side stream per device for every eager warm-up step: a library that
@@ -105,17 +113,22 @@ class StepGraph:
     """One training or evaluation step, ``body`` (a callable of no
     arguments doing device work only), run as the module note says:
     captured and replayed when ``capture`` (a CUDA device whose
-    collectives can be captured), else run each call. ``generators`` are
+    collectives can be captured), else run each call. ``name`` is the
+    program's kind (``serve``, ``train``, ...), which its spans carry
+    (module note). ``generators`` are
     the CUDA generators the step draws from (registered with the graph;
     the caller seeds them before each call); ``modules`` the modules whose
     depthwise weights it packs; ``pool`` a memory pool
     (``torch.cuda.graph_pool_handle()``) the graph shares with others
     replayed one at a time on one stream (default: a private one)."""
 
-    def __init__(self, body: Callable[[], None], device, *, capture: bool,
-                 generators: Sequence[torch.Generator] = (),
+    def __init__(self, body: Callable[[], None], device, *, name: str,
+                 capture: bool, generators: Sequence[torch.Generator] = (),
                  modules: Sequence[torch.nn.Module] = (), pool=None):
         self.body = body
+        self.name = name
+        self._spans = {k: f"graph.{k}:{name}"
+                       for k in ("eager", "capture", "replay", "run")}
         self.device = torch.device(device)
         self.capture = bool(capture)
         self.generators = tuple(generators)
@@ -140,16 +153,20 @@ class StepGraph:
 
     def __call__(self) -> None:
         if not self.capture:
-            self.body()
+            with annotate(self._spans["run"]):
+                self.body()
             return
-        if self.graph is None:
-            if self.eager_steps == 0:
+        if self.graph is None and self.eager_steps == 0:
+            with annotate(self._spans["eager"]):
                 self._eager()
-                return
-            self._capture()
-        self.graph.replay()
-        self.replays += 1
-        self._launches.replayed()
+            return
+        with annotate(self._spans["replay" if self.graph is not None
+                                  else "capture"]):
+            if self.graph is None:
+                self._capture()
+            self.graph.replay()
+            self.replays += 1
+            self._launches.replayed()
 
     def _eager(self) -> None:
         """The step on a side stream (the order a capture's warm-up
@@ -189,9 +206,11 @@ class StepGraph:
                 G.drop_packed_weights(m)
 
     def summary(self) -> Dict:
-        """What ran: the mode, the eager steps, the replays, the capture's
-        seconds and the kernel launches a replay makes."""
-        return {"mode": self.mode, "eager_steps": self.eager_steps,
+        """What ran: the program's kind, the mode, the eager steps, the
+        replays, the capture's seconds and the kernel launches a replay
+        makes."""
+        return {"name": self.name, "mode": self.mode,
+                "eager_steps": self.eager_steps,
                 "replays": self.replays,
                 "capture_seconds": self.capture_seconds,
                 "captured_launches": self.captured_launches}

@@ -86,6 +86,7 @@ from ab_line_classifier_torch.parallel import mesh as mesh_lib
 from ab_line_classifier_torch.train import objective
 from ab_line_classifier_torch.train.graphed import (EpochTables, StepGraph,
                                                     capturable, step_seeds)
+from ab_line_classifier_torch.utils.profiling import annotate
 from ab_line_classifier_torch.utils.resume import load_resume, save_resume
 
 StateDict = Dict[str, torch.Tensor]
@@ -491,6 +492,7 @@ class Trainer:
         prog = self.streamed_programs[key] = _StreamedStep(
             inputs, denom, StepGraph(
                 body, self.device,
+                name="streamed.train" if train else "streamed.eval",
                 capture=capturable(self.device, [self.data_group]),
                 generators=gens, modules=(self.module,)))
         return prog
@@ -542,30 +544,39 @@ class Trainer:
             tables.advance()
 
         prog = _CachedEpoch(dataset, batch_size, tables, metrics, StepGraph(
-            body, self.device, capture=capturable(self.device, groups),
-            generators=gens, modules=(self.module,)))
+            body, self.device, name=key,
+            capture=capturable(self.device, groups), generators=gens,
+            modules=(self.module,)))
         self.epoch_programs[key] = prog
         return prog
 
     def _cached_epoch(self, dataset: DeviceCachedDataset, batch_size: int,
                       *, train: bool, shuffle_seed: int) -> Dict[str, float]:
         """The graphed epoch (module note): the tables uploaded once, one
-        replay (or uncaptured run) a batch, the metrics read once."""
-        prog = self._cached_program(dataset, batch_size, train)
-        idx, mask = dataset.epoch_index_table(batch_size, shuffle=train,
-                                              seed=shuffle_seed)
-        prog.tables.load(idx, mask)
-        M.reset_metrics(prog.metrics)
-        for _ in range(prog.tables.n_steps):
-            if train:
-                self._seed_generators()
-            prog.step()
-            if train:
-                self.step += 1
-        prog.step.end_epoch()
-        self.epoch_mode = prog.step.mode
-        M.reduce_metrics(prog.metrics, self.data_group)
-        return M.compute_metrics(prog.metrics, self.class_names)
+        replay (or uncaptured run) a batch, the metrics read once. Spans:
+        ``train.epoch`` around it, and inside ``train.epoch.tables``,
+        ``.reset``, ``.steps`` (the replays' spans inside) and
+        ``.readback``, in turn."""
+        with annotate("train.epoch"):
+            prog = self._cached_program(dataset, batch_size, train)
+            with annotate("train.epoch.tables"):
+                idx, mask = dataset.epoch_index_table(
+                    batch_size, shuffle=train, seed=shuffle_seed)
+                prog.tables.load(idx, mask)
+            with annotate("train.epoch.reset"):
+                M.reset_metrics(prog.metrics)
+            with annotate("train.epoch.steps"):
+                for _ in range(prog.tables.n_steps):
+                    if train:
+                        self._seed_generators()
+                    prog.step()
+                    if train:
+                        self.step += 1
+            with annotate("train.epoch.readback"):
+                prog.step.end_epoch()
+                self.epoch_mode = prog.step.mode
+                M.reduce_metrics(prog.metrics, self.data_group)
+                return M.compute_metrics(prog.metrics, self.class_names)
 
     # ------------------------------------------------------------------
     def _save_resume(self, path: str, *, epoch: int, epoch_in_phase: int,

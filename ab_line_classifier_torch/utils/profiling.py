@@ -6,10 +6,31 @@
 * :func:`run_maybe_traced` — the CLIs' shared ``--profile`` wrapper: the
   trace lands under ``<PATHS.LOGS>/profiles``.
 * :func:`annotate` — a named region in that trace
-  (``torch.profiler.record_function``); ``Predictor.forward`` and the
-  Grad-CAM pass name their stages with it (``predict.preprocess``,
-  ``predict.model``, ``gradcam.preprocess`` / ``forward`` / ``gradient`` /
-  ``heatmap``).
+  (``torch.profiler.record_function``), entered only while a profiler
+  records: otherwise it returns one shared no-op context, so a region
+  costs a flag check. The port's spans:
+
+  - ``graph.eager:<kind>``, ``graph.capture:<kind>``,
+    ``graph.replay:<kind>`` (CUDA) or ``graph.run:<kind>`` (uncaptured):
+    each call of a :class:`~ab_line_classifier_torch.train.graphed.
+    StepGraph`, named by its program's kind (``serve``, ``gradcam``,
+    ``train``, ``eval``, ``streamed.train``, ...); a replay's span holds
+    its ``cudaGraphLaunch``;
+  - ``train.epoch`` around a cached epoch, and inside it
+    ``train.epoch.tables`` (the shuffled index table and its upload),
+    ``train.epoch.reset``, ``train.epoch.steps`` (the replays) and
+    ``train.epoch.readback`` (the metrics' synchronizing readback);
+  - ``serve.forward`` around ``Predictor.forward``, and inside it
+    ``serve.input`` (the frames into the fixed input), the program's span
+    and ``serve.output`` (the clone); ``serve.pad`` and
+    ``serve.readback`` around each chunk of ``Predictor.predict_probs``;
+    ``staging.wait`` and ``staging.copy`` inside ``PinnedStaging``;
+  - ``predict.preprocess``, ``predict.model`` and ``gradcam.preprocess`` /
+    ``forward`` / ``gradient`` / ``heatmap`` inside the serving and
+    Grad-CAM bodies. On CUDA those bodies run at a shape's eager call and
+    its capture alone, so these regions mark only those two calls, and
+    the replay spans stand for every later one; on the CPU they mark
+    every call.
 * :class:`StepTimer` — wall-clock step timing with warm-up discard and
   percentile summaries (``benchmark.clock_avg_runtime``).
 """
@@ -61,8 +82,14 @@ def run_maybe_traced(run, profile: bool, cfg) -> None:
     print(f"profiler trace written to {path}")
 
 
+_OFF = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """Named trace region (shows up in the profiler timeline)."""
+    """Named trace region (shows up in the profiler timeline) while a
+    profiler records; otherwise the shared no-op context."""
+    if not torch._C._autograd._profiler_enabled():
+        return _OFF
     return torch.profiler.record_function(name)
 
 
