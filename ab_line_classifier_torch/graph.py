@@ -82,6 +82,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from ab_line_classifier_torch.ops import conv_epilogue_cuda as CE
 from ab_line_classifier_torch.ops import depthwise as DW
 from ab_line_classifier_torch.ops.depthwise_cuda import pack_weight
 from ab_line_classifier_torch.ops.padding import pad_hw, pad_same
@@ -291,6 +292,20 @@ class GraphModule(nn.Module):
     output from the same forward pass. Dropout and batch norm follow
     ``self.training``; the batch norms named in ``inference_bn`` run in
     inference mode in training too (:meth:`set_inference_bn`).
+
+    The conv epilogue (``ops/conv_epilogue_cuda.py``): a :class:`Conv2d`
+    with a bias, a ReLU or no activation, and whole 16-byte vectors of
+    channels runs without its bias, and one pass adds the bias and takes
+    the ReLU; where its only reader is a 2x2 stride-2 ``VALID`` max-pool
+    and the conv is neither captured nor the output, the same pass pools,
+    and the pool's node takes that result. Fixed from the graph here; each
+    call keeps the library chain (the bias inside the conv, the activation,
+    the pool) where autograd would record the conv (grad mode on and its
+    input, weight or bias requiring grad, or a ``torch.func`` transform's
+    tensors), where its input is not NHWC memory or not float32 or
+    bfloat16, and keeps the pool apart where ``leaf`` or ``overrides``
+    names the conv or the pool. The results are bit-equal on the card,
+    where the library's conv adds its bias after the conv too.
     """
 
     def __init__(self, graph: LayerGraph, capture: Tuple[str, ...] = (),
@@ -315,6 +330,23 @@ class GraphModule(nn.Module):
         for spec in graph.layers[1:]:
             if spec.module_fn is not None:
                 self.add_module(spec.name, spec.module_fn(generator))
+        # conv name -> (ReLU, the name of the pool it takes or None).
+        self._epilogue: Dict[str, Tuple[bool, Optional[str]]] = {}
+        readers: Dict[str, List[LayerSpec]] = {}
+        for spec in graph.layers[1:]:
+            for n in spec.inputs:
+                readers.setdefault(n, []).append(spec)
+        for spec in graph.layers[1:]:
+            m = self._modules.get(spec.name)
+            if (spec.kind != KIND_CONV or not isinstance(m, Conv2d)
+                    or m.bias is None or spec.post_fn not in (None, F.relu)
+                    or m.out_channels % 8):
+                continue
+            after = readers.get(spec.name, [])
+            pool = (after[0].name if len(after) == 1 and spec.name not in keep
+                    and after[0].op == ("max_pool", (2, 2), (2, 2), "VALID")
+                    else None)
+            self._epilogue[spec.name] = (spec.post_fn is F.relu, pool)
         self.set_inference_bn(inference_bn)
 
     def set_inference_bn(self, names: Sequence[str]) -> None:
@@ -349,6 +381,7 @@ class GraphModule(nn.Module):
         acts: Dict[str, torch.Tensor] = {INPUT: _to_internal(x)}
         overrides = overrides or {}
         captured = {}
+        pooled = set()  # pools their conv's epilogue computed in this call
         for i, spec in enumerate(self.graph.layers[1:]):
             if spec.name in overrides:
                 acts[spec.name] = _to_internal(overrides[spec.name])
@@ -356,7 +389,18 @@ class GraphModule(nn.Module):
                     del acts[n]
                 continue
             ins = [acts[n] for n in spec.inputs]
-            if spec.kind == KIND_DROPOUT:
+            epilogue = self._epilogue_of(spec.name, ins, overrides, leaf)
+            if spec.name in pooled:
+                y = ins[0]
+            elif epilogue is not None:
+                relu, pool = epilogue
+                m = self._modules[spec.name]
+                y = CE.conv_epilogue(m(ins[0], bias=False),
+                                     _cast(m.compute_dtype, m.bias)[0], relu,
+                                     pool is not None)
+                if pool is not None:
+                    pooled.add(pool)
+            elif spec.kind == KIND_DROPOUT:
                 y = self._modules[spec.name](
                     ins[0], generator,
                     mask=(dropout_masks or {}).get(spec.name))
@@ -382,6 +426,29 @@ class GraphModule(nn.Module):
         captured.update((n, _to_public(acts[n])) for n in self.capture
                         if n not in captured)
         return (out, captured) if captured else out
+
+    def _epilogue_of(self, name: str, ins: List[torch.Tensor],
+                     overrides: Dict[str, torch.Tensor],
+                     leaf: Optional[str]
+                     ) -> Optional[Tuple[bool, Optional[str]]]:
+        """``(relu, pool)`` of layer ``name``'s conv epilogue in this call,
+        or ``None`` where it keeps the library chain (class docstring)."""
+        epilogue = self._epilogue.get(name)
+        if epilogue is None:
+            return None
+        m, x = self._modules[name], ins[0]
+        ts = (x, m.weight, m.bias)
+        if (any(torch._C._functorch.is_functorch_wrapped_tensor(t)
+                for t in ts)
+                or torch.is_grad_enabled() and any(t.requires_grad
+                                                   for t in ts)
+                or (m.compute_dtype or x.dtype) not in CE.DTYPES
+                or not x.is_contiguous(memory_format=torch.channels_last)):
+            return None
+        relu, pool = epilogue
+        if pool is not None and (pool in overrides or leaf in (name, pool)):
+            pool = None
+        return relu, pool
 
 
 # ---------------------------------------------------------------------------
@@ -421,12 +488,14 @@ def _cast(dtype: Optional[torch.dtype], *ts: Optional[torch.Tensor]):
 
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` that computes in ``compute_dtype`` when it is set
-    (:func:`set_compute_dtype`)."""
+    (:func:`set_compute_dtype`). ``bias=False`` leaves the bias out of the
+    call: :class:`GraphModule` then adds it in the conv epilogue."""
 
     compute_dtype: Optional[torch.dtype] = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x, w, b = _cast(self.compute_dtype, x, self.weight, self.bias)
+    def forward(self, x: torch.Tensor, bias: bool = True) -> torch.Tensor:
+        x, w, b = _cast(self.compute_dtype, x, self.weight,
+                        self.bias if bias else None)
         return self._conv_forward(x, w, b)
 
 
@@ -448,8 +517,9 @@ class SameConv2d(Conv2d):
     """:class:`Conv2d` with TF ``SAME`` padding computed from the input size
     (the stride-2 case, where it can be asymmetric)."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(pad_same(x, self.kernel_size, self.stride))
+    def forward(self, x: torch.Tensor, bias: bool = True) -> torch.Tensor:
+        return super().forward(pad_same(x, self.kernel_size, self.stride),
+                               bias)
 
 
 class Linear(nn.Linear):

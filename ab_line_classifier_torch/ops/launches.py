@@ -1,6 +1,7 @@
 """The kernels' launch counts under CUDA graphs.
 
-Each kernel wrapper (``preprocess_cuda``, ``depthwise_cuda``) adds one to
+Each kernel wrapper (``preprocess_cuda``, ``depthwise_cuda``,
+``conv_epilogue_cuda``) adds one to
 its ``launch_count`` where it launches its kernel. A CUDA graph's capture
 calls the wrappers but launches nothing, and a replay launches the
 captured kernels without calling them. Every graph of the port (the
@@ -21,9 +22,11 @@ import contextlib
 import gc
 from typing import Dict, Iterator
 
-from ab_line_classifier_torch.ops import depthwise_cuda, preprocess_cuda
+from ab_line_classifier_torch.ops import (conv_epilogue_cuda, depthwise_cuda,
+                                          preprocess_cuda)
 
-_COUNTERS = {"preprocess": preprocess_cuda, "depthwise": depthwise_cuda}
+_COUNTERS = {"preprocess": preprocess_cuda, "depthwise": depthwise_cuda,
+             "epilogue": conv_epilogue_cuda}
 
 
 def counts() -> Dict[str, int]:

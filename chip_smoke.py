@@ -12,7 +12,7 @@ no result):
 1. device — the card's name and power limit (nvidia-smi);
 2. build  — every CUDA kernel from ``ab_line_classifier_torch/csrc`` into
    ``build/kernels``, one nvcc per source, all started together; ptxas's
-   registers and spills of each instance of both kernels;
+   registers and spills of each instance of the three kernels;
 3. preprocess kernel (B1) — bit-equal to its plain PyTorch version over
    modes x resize maps x masks x output dtypes and several source sizes,
    a batch slice of 601x803 frames whose data pointer is off the 16-byte
@@ -319,6 +319,17 @@ no result):
    20's rule, B2 0 / 0 / 34 / 51 a forward as the data gives them; ms per
    step on each path and its idle share.
 
+25. conv epilogue — the kernel of ``csrc/conv_epilogue.cu`` at
+   cutoffvgg16's seven conv outputs at batch 2048 and 64 (bf16, ReLU, the
+   2x2 pool after block1_conv2 and block2_conv2), bit-equal to its plain
+   version on inputs holding NaN, infinities, signed zeros and denormals;
+   per shape and summed a forward its device time (a CUDA graph walking
+   copies out of L2), the bytes bound at 3.35 TB/s and its share, the
+   plain version's time and the library chain's it replaces (``add_``,
+   ``F.relu``, ``F.max_pool2d``); then a cutoffvgg16 serving forward and
+   a ``finetune`` step on the card bit-equal to the library chain's, with
+   7 and 5 launches (2 pooled).
+
 The last three lines of standard output are a JSON line of phases 15-24's
 summaries, a JSON line of per-kernel
 numbers (launches per path, ``training``, the trial-parallel, ``deploy``,
@@ -392,9 +403,15 @@ WARMUP, ITERS = 3, 20
 # name -> (tap inside the backbone, B2 launches per forward)
 ZOO = {"mobilenetv2": ("block_12_add", 10), "xception": ("add_6", 34),
        "efficientnetb7": ("block5a_project_bn", 51)}
+# Conv epilogue launches per forward (graph.GraphModule routes every
+# conv with a bias and a ReLU or no activation through it where autograd
+# records nothing); the other served models have none.
+EPILOGUES = {"cutoffvgg16": 7, "vgg16": 13, "custom_resnetv2": 22}
 # Parts of the kernels' names as the profiler reports them.
 KERNEL_KEYS = {"preprocess": ("preprocess_kernel",),
-               "depthwise": ("depthwise_tiled", "depthwise_scalar")}
+               "depthwise": ("depthwise_tiled", "depthwise_scalar"),
+               "epilogue": ("conv_epilogue_kernel",
+                            "conv_epilogue_pool_kernel")}
 # Phase 11 (training): batch 64 (config.yml), 344 training frames (5 full
 # batches and one of 24 real rows padded by wraparound) and 96 validation
 # frames; cutoffvgg16 extracts for 2 epochs and finetunes for 2
@@ -787,8 +804,8 @@ def serve_clips(predictor, frames480, frames128):
 
 def ptxas_report(log):
     """``[(instance, "N registers, S bytes spill stores, L bytes spill
-    loads"), ...]`` of the depthwise and preprocess kernels' instances in
-    nvcc's ``-Xptxas -v`` output."""
+    loads"), ...]`` of the depthwise, preprocess and conv epilogue kernels'
+    instances in nvcc's ``-Xptxas -v`` output."""
     import re
 
     out, name, spills = [], None, ""
@@ -800,6 +817,8 @@ def ptxas_report(log):
             pre = re.search(r"preprocess_kernelI(13__nv_bfloat16|f)"
                             r"Li(\d+)ELb([01])ELb([01])ELb([01])E",
                             m.group(1))
+            ep = re.search(r"(conv_epilogue(?:_pool)?)_kernelI"
+                           r"(13__nv_bfloat16|f)Lb([01])E", m.group(1))
             if k:
                 args = re.findall(r"Li(\d+)E", k.group(3))
                 keys = (("K", "V", "rows") if k.group(1) == "tiled"
@@ -812,6 +831,9 @@ def ptxas_report(log):
                 name = (f"preprocess<{dtype}, pixels={pre.group(2)}, "
                         f"vec={pre.group(3)}, staged={pre.group(4)}, "
                         f"bgr={pre.group(5)}>")
+            elif ep:
+                dtype = "f32" if ep.group(2) == "f" else "bf16"
+                name = f"{ep.group(1)}<{dtype}, relu={ep.group(3)}>"
             else:
                 name = None
         elif name and "spill stores" in line:
@@ -1577,7 +1599,8 @@ def phase_latency(spec, state_dict, per_forward, smi):
                                        verbose=False)
     pre, dw = PC.launch_count, DC.launch_count
     per_step = r["graph_launches_per_step"]
-    if per_step != {"preprocess": 1, "depthwise": per_forward}:
+    if per_step != {"preprocess": 1, "depthwise": per_forward,
+                    "epilogue": EPILOGUES.get(spec.name, 0)}:
         raise AssertionError(f"{spec.name}: captured per step {per_step}")
     calls = device_time_by_kernel(r["replay"], n_iters=1)["calls"]
     per_replay = {label: sum(n for k, n in calls.items()
@@ -5500,8 +5523,9 @@ def g21_case(name, fused, shape, per_forward, smi):
     summary, = (s for key, s in fused.summaries().items()
                 if key == "x".join(map(str, (*shape, 3))))
     if (summary["eager_steps"], summary["replays"]) != (1, 3) \
-            or summary["captured_launches"] != {"preprocess": 1,
-                                                "depthwise": per_forward}:
+            or summary["captured_launches"] != {
+                "preprocess": 1, "depthwise": per_forward,
+                "epilogue": EPILOGUES.get(name, 0)}:
         raise AssertionError(f"{label}: program {summary}")
     verdict = g21_rule(label, *runs)
     a = batches[0]
@@ -5809,8 +5833,9 @@ def g22_case(name, pred, shape, per_forward, gen, smi):
                              f"call, no copy, in each run")
     summary = pred.summaries()["x".join(map(str, (*shape, 3)))]
     if (summary["eager_steps"], summary["replays"]) != (1, 3) \
-            or summary["captured_launches"] != {"preprocess": 1,
-                                                "depthwise": per_forward}:
+            or summary["captured_launches"] != {
+                "preprocess": 1, "depthwise": per_forward,
+                "epilogue": EPILOGUES.get(name, 0)}:
         raise AssertionError(f"{label}: program {summary}")
     if not all(torch.equal(a, b) for a, b in zip(eager1, eager2)):
         raise AssertionError(f"{label}: the eager forward differs from "
@@ -6074,7 +6099,8 @@ def g23_case(gpu, cpu, hw, n, smi):
     summary = gpu.summaries()[key]
     if (summary["eager_steps"], summary["replays"]) != (1, G23_CLIPS - 1) \
             or summary["captured_launches"] != {"preprocess": 0,
-                                                "depthwise": 0}:
+                                                "depthwise": 0,
+                                                "epilogue": 0}:
         raise AssertionError(f"{label}: program {summary}")
 
     def per_clip(fn):
@@ -6491,6 +6517,206 @@ def phase_streamed_and_zoo(smi, vgg, vgg_sd, zoo_specs, zoo_weights):
     return launches, numbers
 
 
+# The conv outputs of cutoffvgg16 at 128x128 that the conv epilogue takes,
+# in forward order: (layer, channels, side, pooled); at serving's and the
+# fit's batches. A timed graph walks enough copies of a shape to leave the
+# 50 MB L2 (EPILOGUE_WALK bytes or more), as a conv's fresh output mostly
+# has by the time the epilogue reads it.
+EPILOGUE_LAYERS = (
+    ("block1_conv1", 64, 128, False), ("block1_conv2", 64, 128, True),
+    ("block2_conv1", 128, 64, False), ("block2_conv2", 128, 64, True),
+    ("block3_conv1", 256, 32, False), ("block3_conv2", 256, 32, False),
+    ("block3_conv3", 256, 32, False))
+EPILOGUE_WALK = 160e6
+
+
+def epilogue_bits(t):
+    """``t``'s bits: NaNs and signed zeros compare too."""
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def epilogue_input(shape, dtype, gen):
+    """A channels_last conv output of ``shape`` and a bias in ``dtype``,
+    the first frame's first pixels holding NaN, infinities, signed zeros
+    (a pixel of -0 against the bias's 0 and -0), denormals, and values that
+    cancel the bias (to +0) exactly or nearly."""
+    b, c, h, w = shape
+    y = (4 * torch.randn((b, h, w, c), device="cuda", generator=gen)
+         ).to(dtype)
+    bias = torch.randn(c, device="cuda", generator=gen).to(dtype)
+    bias[:2] = torch.tensor([0.0, -0.0])
+    special = torch.tensor([float("nan"), float("inf"), float("-inf"), -0.0,
+                            0.0, -1e-40, 1e-40, -3.0], device="cuda")
+    y[0, 0, 0, :8] = special.to(dtype)
+    y[0, 0, 1, :8] = special.flip(0).to(dtype)
+    y[0, 0, 2] = -0.0
+    y[0, 1, 0] = -bias
+    y[0, 1, 1, 2:] = (-bias[2:].float() * (1 + 2 ** -9)).to(dtype)
+    return y.permute(0, 3, 1, 2), bias
+
+
+def epilogue_bytes(shape, itemsize, pool):
+    """Bytes the epilogue must move: the conv output read once and written
+    once, or with the pool its pooled quarter written."""
+    b, c, h, w = shape
+    out = b * c * (h // 2) * (w // 2) if pool else b * c * h * w
+    return (b * c * h * w + out) * itemsize
+
+
+def epilogue_model_check(smi):
+    """cutoffvgg16 (full width, 128x128, bf16, phase 5's kind of seeded
+    weights) on the card: a serving forward at 64 and a ``finetune`` step's
+    loss and gradients bit-equal to the library chain's (every conv's
+    bias, ReLU and pool as PyTorch runs them), cuDNN deterministic; 7
+    epilogue launches a forward (2 pooled) and 5 a training step (2
+    pooled), by the profiler's kernel names."""
+    from ab_line_classifier_torch import graph as G
+    from ab_line_classifier_torch.models.common import make_optimizer
+    from ab_line_classifier_torch.ops import conv_epilogue_cuda as CE
+    from ab_line_classifier_torch.predict.benchmark import (build_flagship,
+                                                            seeded_state)
+    from ab_line_classifier_torch.predict.predict import load_module
+
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        spec = build_flagship(OUT_HW)
+        state = seeded_state(spec, 7)
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        x = (60 * torch.randn((TRAIN_BATCH, *OUT_HW, 3), device="cuda",
+                              generator=gen))
+        labels = torch.randint(0, 2, (TRAIN_BATCH,), device="cuda",
+                               generator=gen)
+        module = load_module(spec, state, torch.device("cuda"))
+        served, counts = [], []
+        for chain in (False, True):
+            table = module._epilogue
+            if chain:
+                module._epilogue = {}
+            CE.reset_launch_count()
+            with torch.inference_mode():
+                served.append(module(x.to(spec.dtype)))
+            torch.cuda.synchronize()
+            counts.append(CE.launch_count)
+            module._epilogue = table
+        with torch.inference_mode():
+            names = device_time_by_kernel(
+                lambda: module(x.to(spec.dtype)), n_iters=1)["calls"]
+        pooled = sum(n for k, n in names.items() if "epilogue_pool" in k)
+        inplace = sum(n for k, n in names.items()
+                      if "conv_epilogue_kernel" in k)
+        if counts != [7, 0] or (inplace, pooled) != (5, 2):
+            raise AssertionError(f"serving: epilogue launches {counts}, "
+                                 f"profiled in place {inplace} pooled "
+                                 f"{pooled}")
+        if not torch.equal(served[0], served[1]):
+            raise AssertionError("serving: the epilogue's forward differs "
+                                 "from the library chain's by "
+                                 f"{float((served[0] - served[1]).abs().max())}")
+        finetune = {p.name: p for p in spec.phases}["finetune"]
+        steps, counts = [], []
+        for chain in (False, True):
+            m = spec.module().cuda().to(memory_format=torch.channels_last)
+            m.load_state_dict(state)
+            G.set_compute_dtype(m, spec.dtype)
+            m.train()
+            if chain:
+                m._epilogue = {}
+            opt = make_optimizer(finetune, m)
+            CE.reset_launch_count()
+            probs = m(x, generator=torch.Generator(device="cuda"
+                                                   ).manual_seed(3))
+            loss = F.nll_loss(torch.log(probs), labels)
+            loss.backward()
+            torch.cuda.synchronize()
+            counts.append(CE.launch_count)
+            steps.append((loss.detach(), {n: p.grad for n, p in
+                                          m.named_parameters()
+                                          if p.grad is not None}))
+            del opt
+        (loss, grads), (loss0, grads0) = steps
+        bad = [n for n in grads0 if n not in grads
+               or not torch.equal(grads[n], grads0[n])]
+        if counts != [5, 0] or not torch.equal(loss, loss0) or bad \
+                or grads.keys() != grads0.keys():
+            raise AssertionError(f"finetune step: launches {counts}, loss "
+                                 f"{float(loss)} / {float(loss0)}, "
+                                 f"gradients differing {bad}")
+        print(f"  cutoffvgg16 on {smi}: serving forward at {TRAIN_BATCH} "
+              f"bit-equal to the library chain, 7 launches (profiled in "
+              f"place {inplace}, pooled {pooled}); finetune step loss "
+              f"{float(loss):.6f} and {len(grads)} gradients bit-equal, 5 "
+              f"launches", flush=True)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+
+
+def phase_conv_epilogue(smi):
+    """The conv epilogue (``csrc/conv_epilogue.cu``) at cutoffvgg16's seven
+    conv outputs at batch 2048 and 64, bf16, ReLU: bit-equal to its plain
+    version (NaN, infinities, signed zeros and denormals included), then
+    per shape its device time (a CUDA graph walking copies out of L2), the
+    bytes bound at 3.35 TB/s and its share, the plain version's time, and
+    the library chain it replaces (``add_``, ``F.relu``,
+    ``F.max_pool2d``: what the port ran before) as ``library_ms``; the
+    seven summed a forward; then the whole model against the library chain
+    (:func:`epilogue_model_check`). Returns ``{batch: {layer: timings},
+    ...}``."""
+    from ab_line_classifier_torch.ops import conv_epilogue_cuda as CE
+
+    phase("25 conv epilogue kernel")
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    out = {}
+    for batch in (MAIN_BATCH, TRAIN_BATCH):
+        rows = out[batch] = {}
+        for layer, c, side, pool in EPILOGUE_LAYERS:
+            shape = (batch, c, side, side)
+            y, bias = epilogue_input(shape, torch.bfloat16, gen)
+            got = CE.conv_epilogue(y.clone(), bias, True, pool)
+            want = CE.conv_epilogue_plain(y.clone(), bias, True, pool)
+            if not torch.equal(epilogue_bits(got), epilogue_bits(want)):
+                raise AssertionError(f"{layer} at {batch}: kernel differs "
+                                     f"from its plain version")
+            del got, want
+            nbytes = epilogue_bytes(shape, 2, pool)
+            walk = max(1, int(-(-EPILOGUE_WALK // (y.numel() * 2))))
+            ys = [y] + [y.clone() for _ in range(walk - 1)]
+            ms = graph_ms(lambda: [CE.conv_epilogue(t, bias, True, pool)
+                                   for t in ys]) / walk
+            del ys[1:]
+            plain_ms = cuda_ms(lambda: CE.conv_epilogue_plain(
+                y, bias, True, pool), iters=5, warmup=1)
+            b4 = bias.view(1, -1, 1, 1)
+            library_ms = cuda_ms(
+                (lambda: F.max_pool2d(F.relu(y.add_(b4)), 2, 2)) if pool
+                else (lambda: F.relu(y.add_(b4))), iters=5, warmup=1)
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            rows[layer] = dict(shape="x".join(map(str, shape)), pool=pool,
+                               ms=ms, bound_ms=bound_ms,
+                               share=bound_ms / ms, plain_ms=plain_ms,
+                               library_ms=library_ms, gbytes=nbytes / 1e9)
+            print(f"  {layer} {rows[layer]['shape']} bf16"
+                  f"{' pool' if pool else ''} on {smi}: {ms:.4f} ms "
+                  f"(bound {bound_ms:.4f} ms, {100 * bound_ms / ms:.1f}%; "
+                  f"{nbytes / 1e9:.3f} GB), plain {plain_ms:.4f} ms, "
+                  f"library chain {library_ms:.4f} ms", flush=True)
+            del y, ys
+            torch.cuda.empty_cache()
+        total = {k: sum(r[k] for r in rows.values())
+                 for k in ("ms", "bound_ms", "plain_ms", "library_ms")}
+        rows["forward"] = dict(total, share=total["bound_ms"] / total["ms"])
+        print(f"  a forward at {batch}: {total['ms']:.4f} ms (bound "
+              f"{total['bound_ms']:.4f}, "
+              f"{100 * total['bound_ms'] / total['ms']:.1f}%), library "
+              f"chain {total['library_ms']:.4f} ms, plain "
+              f"{total['plain_ms']:.4f} ms", flush=True)
+    epilogue_model_check(smi)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an "
@@ -6523,7 +6749,7 @@ def main():
         libs = list(pool.map(_build.build, _build.kernel_names()))
     print(f"built {len(libs)} kernel(s) in {time.perf_counter() - t0:.2f} s:"
           f" {[os.path.relpath(p, REPO) for p in libs]}")
-    for kernel in ("depthwise", "preprocess"):
+    for kernel in ("depthwise", "preprocess", "conv_epilogue"):
         for name, line in ptxas_report(_build.build_log(kernel)):
             print(f"ptxas {name}: {line}")
 
@@ -6686,6 +6912,9 @@ def main():
         smi, vgg, vgg_sd, {name: specs[name] for name in ZOO},
         {name: weights[name] for name in ZOO})
     launches.update(paths)
+    torch.cuda.synchronize()
+
+    epilogue = phase_conv_epilogue(smi)
 
     def graph_runs(kernel):
         """Runs on the card of ``kernel`` in one replay of each model's
@@ -6744,6 +6973,17 @@ def main():
              name: {r["stage"]: r["depthwise_launches"]
                     for r in a["stages"]}
              for name, a in attribution.items()}},
+        {"name": "conv_epilogue", "route": "cuda",
+         "source": "ab_line_classifier_torch/csrc/conv_epilogue.cu",
+         "replaces": None,
+         "ms": epilogue[MAIN_BATCH]["forward"]["ms"],
+         "plain_ms": epilogue[MAIN_BATCH]["forward"]["plain_ms"],
+         "bound_ms": epilogue[MAIN_BATCH]["forward"]["bound_ms"],
+         "bound_by": "bytes",
+         "library_ms": epilogue[MAIN_BATCH]["forward"]["library_ms"],
+         "shape": f"cutoffvgg16's 7 conv outputs a forward, bf16, batch "
+                  f"{MAIN_BATCH}",
+         "per_layer": {f"batch {b}": rows for b, rows in epilogue.items()}},
     ]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -380,7 +380,7 @@ def test_graphed_gradcam_equals_the_eager_pass():
             summary, = fused.summaries().values()
             assert summary["eager_steps"] == 1 and summary["replays"] == 3
             assert summary["captured_launches"] == {
-                "preprocess": 1, "depthwise": per_forward}
+                "preprocess": 1, "depthwise": per_forward, "epilogue": 0}
     finally:
         torch.backends.cudnn.deterministic = flags
 
@@ -433,7 +433,8 @@ def test_graphed_serving_equals_the_eager_forward():
         summary, = predictor.summaries().values()
         assert summary["eager_steps"] == 1 and summary["replays"] == 3
         assert summary["captured_launches"] == {"preprocess": 1,
-                                                "depthwise": per_forward}
+                                                "depthwise": per_forward,
+                                                "epilogue": 0}
         state = {k: v * 1.05 if k.endswith("weight") else v
                  for k, v in predictor.module.state_dict().items()}
         predictor.module.load_state_dict(state)
@@ -784,7 +785,7 @@ def test_graphed_automask_equals_the_eager_chain():
         for s in summaries.values():
             assert (s["eager_steps"], s["replays"]) == (1, 4)
             assert s["captured_launches"] == {"preprocess": 0,
-                                              "depthwise": 0}
+                                              "depthwise": 0, "epilogue": 0}
         seg.model.load_state_dict(seeded_unet_state(16, 8))
         moved, _ = seg.clip_mask(clips[0], hw)
         assert torch.equal(moved, seg.eager(clips[0], hw))
@@ -796,3 +797,181 @@ def test_graphed_automask_equals_the_eager_chain():
         (torch.backends.cudnn.deterministic,
          torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = flags
+
+
+def _bits(t):
+    """``t``'s bits: NaNs and signed zeros compare too."""
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def _epilogue_case(shape, dtype, gen):
+    """A channels_last ``[B, C, H, W]`` conv output and a bias in ``dtype``,
+    the first frame's first pixels holding NaN, infinities, signed zeros
+    (a pixel of -0 against the bias's 0 and -0), denormals, and values that
+    cancel the bias (to +0) exactly or nearly."""
+    b, c, h, w = shape
+    y = (4 * torch.randn((b, h, w, c), device="cuda", generator=gen)
+         ).to(dtype)
+    bias = torch.randn(c, device="cuda", generator=gen).to(dtype)
+    bias[:2] = torch.tensor([0.0, -0.0])
+    special = torch.tensor([float("nan"), float("inf"), float("-inf"), -0.0,
+                            0.0, -1e-40, 1e-40, -3.0], device="cuda")
+    y[0, 0, 0, :8] = special.to(dtype)
+    y[0, 0, 1, :8] = special.flip(0).to(dtype)
+    y[0, 0, 2] = -0.0
+    y[0, 1, 0] = -bias
+    y[0, 1, 1, 2:] = (-bias[2:].float() * (1 + 2 ** -9)).to(dtype)
+    return y.permute(0, 3, 1, 2), bias
+
+
+@pytest.mark.cuda
+def test_conv_epilogue_kernel_matches_plain_version():
+    """Both variants (in place, and the 2x2 pool into a new tensor), ReLU on
+    and off, bf16 and float32, 64 / 128 / 256 channels, even and odd H and
+    W (the pool drops the last odd row and column): bit for bit the plain
+    version, NaN, infinities, signed zeros and denormals included; one
+    counted launch a call."""
+    _need_cuda()
+    from ab_line_classifier_torch.ops import conv_epilogue_cuda as CE
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    for dtype, c, relu, pool, (b, h, w) in itertools.product(
+            (torch.bfloat16, torch.float32), (64, 128, 256), (True, False),
+            (True, False), ((2, 8, 8), (3, 7, 9), (1, 5, 6), (4, 33, 32))):
+        y, bias = _epilogue_case((b, c, h, w), dtype, gen)
+        x = y.clone()
+        before = CE.launch_count
+        got = CE.conv_epilogue(x, bias, relu, pool)
+        assert CE.launch_count == before + 1
+        want = CE.conv_epilogue_plain(y.clone(), bias, relu, pool)
+        assert got.is_contiguous(memory_format=torch.channels_last)
+        assert got.shape == want.shape
+        assert torch.equal(_bits(got), _bits(want)), (dtype, c, relu, pool,
+                                                      (b, h, w))
+        if pool:
+            assert torch.equal(_bits(x), _bits(y))
+        else:
+            assert got.data_ptr() == x.data_ptr()
+
+
+@pytest.mark.cuda
+def test_conv_epilogue_kernel_in_a_cuda_graph():
+    """Captured once inside ``launches.capture()`` and replayed on new
+    values copied into the captured input: each replay bit-equal to the
+    plain version, one launch counted a replay."""
+    _need_cuda()
+    from ab_line_classifier_torch.ops import conv_epilogue_cuda as CE
+    from ab_line_classifier_torch.ops import launches
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    for pool in (True, False):
+        src, bias = _epilogue_case((8, 64, 16, 16), torch.bfloat16, gen)
+        y = src.clone()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            CE.conv_epilogue(y, bias, True, pool)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with launches.capture() as captured, torch.cuda.graph(graph):
+            out = CE.conv_epilogue(y, bias, True, pool)
+        assert captured.per_replay["epilogue"] == 1
+        for _ in range(2):
+            new, _ = _epilogue_case((8, 64, 16, 16), torch.bfloat16, gen)
+            y.copy_(new)
+            before = launches.counts()["epilogue"]
+            graph.replay()
+            captured.replayed()
+            torch.cuda.synchronize()
+            assert launches.counts()["epilogue"] == before + 1
+            want = CE.conv_epilogue_plain(new.clone(), bias, True, pool)
+            assert torch.equal(_bits(out), _bits(want)), pool
+
+
+@pytest.mark.cuda
+def test_conv_epilogue_raises_on_what_the_kernel_does_not_take():
+    """No fallback on the card: channels that are not whole 16-byte
+    vectors, NCHW memory, a bias of another dtype or shape, float16."""
+    _need_cuda()
+    from ab_line_classifier_torch.ops import conv_epilogue_cuda as CE
+
+    def cl(shape, dtype=torch.bfloat16):
+        return torch.zeros(shape, dtype=dtype, device="cuda").contiguous(
+            memory_format=torch.channels_last)
+
+    bias = torch.zeros(64, dtype=torch.bfloat16, device="cuda")
+    cases = [(cl((2, 12, 4, 4)), bias[:12]),
+             (torch.zeros((2, 64, 4, 4), dtype=torch.bfloat16,
+                          device="cuda"), bias),
+             (cl((2, 64, 4, 4)), bias.float()),
+             (cl((2, 64, 4, 4)), bias[:32]),
+             (cl((2, 64, 4, 4), torch.float16), bias.half())]
+    for y, b in cases:
+        for pool in (True, False):
+            with pytest.raises(ValueError):
+                CE.conv_epilogue(y, b, True, pool)
+
+
+@pytest.mark.cuda
+def test_cutoffvgg16_through_the_conv_epilogue():
+    """A 32x32 cutoffvgg16 on the card, cuDNN deterministic: a bf16 serving
+    forward (7 launches) and a ``finetune`` step with bf16 compute (5
+    launches: the frozen prefix) bit-equal to the library chain's, loss
+    and gradients included."""
+    _need_cuda()
+    import torch.nn.functional as F
+
+    from ab_line_classifier_torch import graph as G
+    from ab_line_classifier_torch.models.common import make_optimizer
+    from ab_line_classifier_torch.ops import conv_epilogue_cuda as CE
+    from ab_line_classifier_torch.predict.benchmark import (build_zoo,
+                                                            seeded_state)
+    from ab_line_classifier_torch.predict.predict import load_module
+
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        spec = build_zoo("cutoffvgg16", (32, 32))
+        state = seeded_state(spec, 5)
+        gen = torch.Generator(device="cuda").manual_seed(23)
+        x = 60 * torch.randn((16, 32, 32, 3), device="cuda", generator=gen)
+        labels = torch.randint(0, 2, (16,), device="cuda", generator=gen)
+        module = load_module(spec, state, torch.device("cuda"))
+        served, counts = [], []
+        for table in (module._epilogue, {}):
+            module._epilogue = table
+            CE.reset_launch_count()
+            with torch.inference_mode():
+                served.append(module(x.to(spec.dtype)))
+            counts.append(CE.launch_count)
+        assert counts == [7, 0]
+        assert torch.equal(served[0], served[1])
+        finetune = {p.name: p for p in spec.phases}["finetune"]
+        steps, counts = [], []
+        for chain in (False, True):
+            m = spec.module().cuda().to(memory_format=torch.channels_last)
+            m.load_state_dict(state)
+            G.set_compute_dtype(m, spec.dtype)
+            if chain:
+                m._epilogue = {}
+            make_optimizer(finetune, m)
+            CE.reset_launch_count()
+            probs = m.train()(x, generator=torch.Generator(
+                device="cuda").manual_seed(3))
+            loss = F.nll_loss(torch.log(probs), labels)
+            loss.backward()
+            counts.append(CE.launch_count)
+            steps.append((loss.detach(), {n: p.grad for n, p in
+                                          m.named_parameters()
+                                          if p.grad is not None}))
+        assert counts == [5, 0]
+        (loss, grads), (loss0, grads0) = steps
+        assert torch.equal(loss, loss0)
+        assert grads.keys() == grads0.keys()
+        for n in grads:
+            assert torch.equal(grads[n], grads0[n]), n
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
