@@ -82,6 +82,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from ab_line_classifier_torch.ops import bn_act_cuda as BA
 from ab_line_classifier_torch.ops import conv_epilogue_cuda as CE
 from ab_line_classifier_torch.ops import depthwise as DW
 from ab_line_classifier_torch.ops.depthwise_cuda import pack_weight
@@ -306,6 +307,25 @@ class GraphModule(nn.Module):
     bfloat16, and keeps the pool apart where ``leaf`` or ``overrides``
     names the conv or the pool. The results are bit-equal on the card,
     where the library's conv adds its bias after the conv too.
+
+    The batch norm pass (``ops/bn_act_cuda.py``): a :class:`BatchNorm`
+    over whole 16-byte vectors of channels (C % 8 == 0) that normalizes
+    with its running statistics (``not training or frozen``) runs in one
+    pass, and where its only reader is a ReLU (``F.relu``), a ReLU6
+    (``op=("relu6",)``) or a swish (``F.silu``) activation and the batch
+    norm is neither captured nor the output, the same pass takes the
+    activation, and the activation's node takes that result. The batch
+    norm stays a call of its module (``act=``), so its hooks run; a forward
+    hook on it sees the activation's output where the activation is
+    folded in. Fixed from the graph here; each call keeps the library chain
+    (``F.batch_norm``, then the activation) under ``bn_stats``, where
+    autograd would record the batch norm (grad mode on and its input,
+    weight or bias requiring grad, or a ``torch.func`` transform's
+    tensors), and where its input is not 4-D NHWC memory or not float32 or
+    bfloat16; and keeps the activation apart where ``leaf`` names the
+    batch norm or ``overrides`` the activation. The results are bit-equal
+    to the chain's on the card, where the pass rounds as ATen's batch norm
+    and activation do; on the CPU the pass is the chain.
     """
 
     def __init__(self, graph: LayerGraph, capture: Tuple[str, ...] = (),
@@ -347,6 +367,19 @@ class GraphModule(nn.Module):
                     and after[0].op == ("max_pool", (2, 2), (2, 2), "VALID")
                     else None)
             self._epilogue[spec.name] = (spec.post_fn is F.relu, pool)
+        # batch norm name -> (the activation the pass takes, its node), or
+        # ("none", None) where no activation can be folded in.
+        self._bn_act: Dict[str, Tuple[str, Optional[str]]] = {}
+        for spec in graph.layers[1:]:
+            m = self._modules.get(spec.name)
+            if (spec.kind != KIND_BN or not isinstance(m, BatchNorm)
+                    or spec.post_fn is not None or m.bias.shape[0] % 8):
+                continue
+            after = readers.get(spec.name, [])
+            act = (_folded_act(after[0]) if len(after) == 1
+                   and spec.name not in keep else None)
+            self._bn_act[spec.name] = ((act, after[0].name) if act
+                                       else ("none", None))
         self.set_inference_bn(inference_bn)
 
     def set_inference_bn(self, names: Sequence[str]) -> None:
@@ -381,7 +414,8 @@ class GraphModule(nn.Module):
         acts: Dict[str, torch.Tensor] = {INPUT: _to_internal(x)}
         overrides = overrides or {}
         captured = {}
-        pooled = set()  # pools their conv's epilogue computed in this call
+        # Pools and activations the node before them computed in this call.
+        folded = set()
         for i, spec in enumerate(self.graph.layers[1:]):
             if spec.name in overrides:
                 acts[spec.name] = _to_internal(overrides[spec.name])
@@ -390,7 +424,9 @@ class GraphModule(nn.Module):
                 continue
             ins = [acts[n] for n in spec.inputs]
             epilogue = self._epilogue_of(spec.name, ins, overrides, leaf)
-            if spec.name in pooled:
+            bn = (None if bn_stats is not None
+                  else self._bn_act_of(spec.name, ins, overrides, leaf))
+            if spec.name in folded:
                 y = ins[0]
             elif epilogue is not None:
                 relu, pool = epilogue
@@ -399,7 +435,12 @@ class GraphModule(nn.Module):
                                      _cast(m.compute_dtype, m.bias)[0], relu,
                                      pool is not None)
                 if pool is not None:
-                    pooled.add(pool)
+                    folded.add(pool)
+            elif bn is not None:
+                act, reader = bn
+                y = self._modules[spec.name](ins[0], act=act)
+                if reader is not None:
+                    folded.add(reader)
             elif spec.kind == KIND_DROPOUT:
                 y = self._modules[spec.name](
                     ins[0], generator,
@@ -437,11 +478,7 @@ class GraphModule(nn.Module):
         if epilogue is None:
             return None
         m, x = self._modules[name], ins[0]
-        ts = (x, m.weight, m.bias)
-        if (any(torch._C._functorch.is_functorch_wrapped_tensor(t)
-                for t in ts)
-                or torch.is_grad_enabled() and any(t.requires_grad
-                                                   for t in ts)
+        if (_recorded(x, m.weight, m.bias)
                 or (m.compute_dtype or x.dtype) not in CE.DTYPES
                 or not x.is_contiguous(memory_format=torch.channels_last)):
             return None
@@ -449,6 +486,26 @@ class GraphModule(nn.Module):
         if pool is not None and (pool in overrides or leaf in (name, pool)):
             pool = None
         return relu, pool
+
+    def _bn_act_of(self, name: str, ins: List[torch.Tensor],
+                   overrides: Dict[str, torch.Tensor], leaf: Optional[str]
+                   ) -> Optional[Tuple[str, Optional[str]]]:
+        """``(act, its node or None)`` of batch norm ``name``'s pass in
+        this call, or ``None`` where it keeps the library chain (class
+        docstring)."""
+        route = self._bn_act.get(name)
+        if route is None:
+            return None
+        m, x = self._modules[name], ins[0]
+        if ((m.training and not m.frozen)
+                or _recorded(x, m.weight, m.bias,
+                             stats=(m.running_mean, m.running_var))
+                or x.dtype not in BA.DTYPES or x.ndim != 4
+                or not x.is_contiguous(memory_format=torch.channels_last)):
+            return None
+        if route[1] is not None and (route[1] in overrides or leaf == name):
+            return "none", None
+        return route
 
 
 # ---------------------------------------------------------------------------
@@ -463,6 +520,30 @@ def glorot_uniform_(weight: torch.Tensor, generator: torch.Generator) -> None:
     limit = math.sqrt(6.0 / (fan_in + fan_out))
     with torch.no_grad():
         weight.uniform_(-limit, limit, generator=generator)
+
+
+def _recorded(*ts: Optional[torch.Tensor],
+              stats: Tuple[torch.Tensor, ...] = ()) -> bool:
+    """Whether autograd or a ``torch.func`` transform would record a layer
+    of inputs and parameters ``ts`` (``None``: absent) and statistics
+    ``stats``: then it keeps the library chain, which they see through."""
+    return (any(t is not None
+                and torch._C._functorch.is_functorch_wrapped_tensor(t)
+                for t in (*ts, *stats))
+            or torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad for t in ts))
+
+
+def _folded_act(spec: LayerSpec) -> Optional[str]:
+    """The batch norm pass's name of the activation layer ``spec``
+    computes, or ``None`` where it is no activation the pass takes."""
+    if spec.kind != KIND_FN:
+        return None
+    if spec.op == ("relu6",):
+        return "relu6"
+    if spec.op:
+        return None
+    return {F.relu: "relu", F.silu: "swish"}.get(spec.fn)
 
 
 def _keras_init(module: nn.Module, generator: torch.Generator,
@@ -736,7 +817,14 @@ class BatchNorm(_Float32State):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                act: Optional[str] = None) -> torch.Tensor:
+        """``act``, one of ``ops/bn_act_cuda.ACTS``, runs the layer with
+        its running statistics through the batch norm pass, the activation
+        applied (:class:`GraphModule` decides where)."""
+        if act is not None:
+            return BA.bn_act(x, self.running_mean, self.running_var,
+                             self.weight, self.bias, self.epsilon, act)
         if not self.training or self.frozen:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0,

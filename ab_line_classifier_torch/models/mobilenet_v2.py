@@ -20,10 +20,10 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
-import torch
 
 from ab_line_classifier_torch import graph as G
 from ab_line_classifier_torch.models import common as C
+from ab_line_classifier_torch.ops.bn_act_cuda import relu6
 
 # Inverted-residual stages (expansion t, channels c, repeats n, stride s)
 # for alpha 1.0.
@@ -38,10 +38,8 @@ MBV2_STAGES = (
 )
 
 _BN = dict(momentum=0.999, epsilon=1e-3)  # Keras MobileNetV2's BN settings
-
-
-def relu6(x: torch.Tensor) -> torch.Tensor:
-    return torch.clamp(x, 0.0, 6.0)
+# ReLU6, stated as data so the batch norm pass can take it (graph.py).
+_RELU6 = dict(fn=relu6, op=("relu6",))
 
 
 def mobilenetv2_backbone(input_size: Tuple[int, int] = (128, 128),
@@ -54,7 +52,7 @@ def mobilenetv2_backbone(input_size: Tuple[int, int] = (128, 128),
                           strides=(2, 2), padding="SAME", use_bias=False))
     size = C.stride2_out(size)
     specs.append(G.batch_norm("bn_Conv1", "Conv1", 32, **_BN))
-    specs.append(G.activation("Conv1_relu", "bn_Conv1", relu6))
+    specs.append(G.activation("Conv1_relu", "bn_Conv1", **_RELU6))
     prev, in_ch = "Conv1_relu", 32
 
     block_id = 0
@@ -70,7 +68,7 @@ def mobilenetv2_backbone(input_size: Tuple[int, int] = (128, 128),
                 specs.append(G.batch_norm(f"{p}_expand_BN", f"{p}_expand",
                                           dw_in, **_BN))
                 specs.append(G.activation(f"{p}_expand_relu",
-                                          f"{p}_expand_BN", relu6))
+                                          f"{p}_expand_BN", **_RELU6))
                 x = f"{p}_expand_relu"
 
             if stride == 2:
@@ -85,7 +83,7 @@ def mobilenetv2_backbone(input_size: Tuple[int, int] = (128, 128),
             specs.append(G.batch_norm(f"{p}_depthwise_BN", f"{p}_depthwise",
                                       dw_in, **_BN))
             specs.append(G.activation(f"{p}_depthwise_relu",
-                                      f"{p}_depthwise_BN", relu6))
+                                      f"{p}_depthwise_BN", **_RELU6))
             specs.append(G.conv2d(f"{p}_project", f"{p}_depthwise_relu",
                                   dw_in, c, (1, 1), use_bias=False))
             specs.append(G.batch_norm(f"{p}_project_BN", f"{p}_project", c,
@@ -100,7 +98,7 @@ def mobilenetv2_backbone(input_size: Tuple[int, int] = (128, 128),
     specs.append(G.conv2d("Conv_1", prev, in_ch, 1280, (1, 1),
                           use_bias=False))
     specs.append(G.batch_norm("Conv_1_bn", "Conv_1", 1280, **_BN))
-    specs.append(G.activation("out_relu", "Conv_1_bn", relu6))
+    specs.append(G.activation("out_relu", "Conv_1_bn", **_RELU6))
     return G.graph_of(*specs)
 
 

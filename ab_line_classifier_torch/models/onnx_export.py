@@ -256,6 +256,8 @@ def _export_layer(ex: _Exporter, spec: G.LayerSpec, layer, ins: List[str],
         return ex.node("Pad", [x, ex.const([0, 0, top, left, 0, 0, bottom,
                                             right], np.int64)], name,
                        mode="constant")
+    if op == "relu6":
+        return _activation(ex, relu6, x, name)
     if op == "add":
         return ex.node("Add", ins, name)
     if op == "multiply":

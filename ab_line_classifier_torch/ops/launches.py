@@ -1,7 +1,7 @@
 """The kernels' launch counts under CUDA graphs.
 
 Each kernel wrapper (``preprocess_cuda``, ``depthwise_cuda``,
-``conv_epilogue_cuda``) adds one to
+``conv_epilogue_cuda``, ``bn_act_cuda``) adds one to
 its ``launch_count`` where it launches its kernel. A CUDA graph's capture
 calls the wrappers but launches nothing, and a replay launches the
 captured kernels without calling them. Every graph of the port (the
@@ -22,11 +22,11 @@ import contextlib
 import gc
 from typing import Dict, Iterator
 
-from ab_line_classifier_torch.ops import (conv_epilogue_cuda, depthwise_cuda,
-                                          preprocess_cuda)
+from ab_line_classifier_torch.ops import (bn_act_cuda, conv_epilogue_cuda,
+                                          depthwise_cuda, preprocess_cuda)
 
 _COUNTERS = {"preprocess": preprocess_cuda, "depthwise": depthwise_cuda,
-             "epilogue": conv_epilogue_cuda}
+             "epilogue": conv_epilogue_cuda, "bn_act": bn_act_cuda}
 
 
 def counts() -> Dict[str, int]:

@@ -329,6 +329,14 @@ no result):
    ``F.relu``, ``F.max_pool2d``); then a cutoffvgg16 serving forward and
    a ``finetune`` step on the card bit-equal to the library chain's, with
    7 and 5 launches (2 pooled).
+26. batch norm pass — the kernel of ``csrc/bn_act.cu`` at every batch norm
+   of a serving forward of efficientnetb7 at 256 x 600x600 and mobilenetv2
+   (cut at block_12_add) at 2048 x 128x128, bf16, each with the
+   activation the graph folds into it: the first and last frames within a
+   bf16 ulp of the float32 chain; per distinct layer and summed a forward
+   its device time (a CUDA graph walking copies out of L2), the bytes
+   bound at 3.35 TB/s and its share, and the library chain's it replaces
+   (``F.batch_norm``, then the activation).
 
 The last three lines of standard output are a JSON line of phases 15-24's
 summaries, a JSON line of per-kernel
@@ -347,6 +355,7 @@ runs in one replay of each latency graph, counted by the profiler, and
 the replays) and ``{"ok": true, "device": {...}}``.
 """
 
+import collections
 import concurrent.futures
 import dataclasses
 import itertools
@@ -407,11 +416,22 @@ ZOO = {"mobilenetv2": ("block_12_add", 10), "xception": ("add_6", 34),
 # conv with a bias and a ReLU or no activation through it where autograd
 # records nothing); the other served models have none.
 EPILOGUES = {"cutoffvgg16": 7, "vgg16": 13, "custom_resnetv2": 22}
+# Batch norm pass launches per serving forward (graph.GraphModule routes
+# every batch norm over whole 16-byte vectors of channels that normalizes
+# with its running statistics where autograd records nothing; mobilenetv2
+# cut at block_12_add); the other served models have none.
+BN_ACTS = {"mobilenetv2": 39, "xception": 40, "efficientnetb7": 163,
+           "custom_resnetv2": 18, "cnn0": 4}
+# The same a Grad-CAM batch: the batch norms after the tap, which autograd
+# records, keep the library chain (xception's and efficientnetb7's last).
+GRADCAM_BN_ACTS = {"mobilenetv2": 38, "xception": 39, "efficientnetb7": 162,
+                   "custom_resnetv2": 18}
 # Parts of the kernels' names as the profiler reports them.
 KERNEL_KEYS = {"preprocess": ("preprocess_kernel",),
                "depthwise": ("depthwise_tiled", "depthwise_scalar"),
                "epilogue": ("conv_epilogue_kernel",
-                            "conv_epilogue_pool_kernel")}
+                            "conv_epilogue_pool_kernel"),
+               "bn_act": ("batch_norm_act_kernel",)}
 # Phase 11 (training): batch 64 (config.yml), 344 training frames (5 full
 # batches and one of 24 real rows padded by wraparound) and 96 validation
 # frames; cutoffvgg16 extracts for 2 epochs and finetunes for 2
@@ -804,8 +824,8 @@ def serve_clips(predictor, frames480, frames128):
 
 def ptxas_report(log):
     """``[(instance, "N registers, S bytes spill stores, L bytes spill
-    loads"), ...]`` of the depthwise, preprocess and conv epilogue kernels'
-    instances in nvcc's ``-Xptxas -v`` output."""
+    loads"), ...]`` of the depthwise, preprocess, conv epilogue and batch
+    norm pass kernels' instances in nvcc's ``-Xptxas -v`` output."""
     import re
 
     out, name, spills = [], None, ""
@@ -819,6 +839,8 @@ def ptxas_report(log):
                             m.group(1))
             ep = re.search(r"(conv_epilogue(?:_pool)?)_kernelI"
                            r"(13__nv_bfloat16|f)Lb([01])E", m.group(1))
+            bn = re.search(r"batch_norm_act_kernelI(13__nv_bfloat16|f)"
+                           r"Li(\d)E", m.group(1))
             if k:
                 args = re.findall(r"Li(\d+)E", k.group(3))
                 keys = (("K", "V", "rows") if k.group(1) == "tiled"
@@ -834,6 +856,9 @@ def ptxas_report(log):
             elif ep:
                 dtype = "f32" if ep.group(2) == "f" else "bf16"
                 name = f"{ep.group(1)}<{dtype}, relu={ep.group(3)}>"
+            elif bn:
+                dtype = "f32" if bn.group(1) == "f" else "bf16"
+                name = f"batch_norm_act<{dtype}, act={bn.group(2)}>"
             else:
                 name = None
         elif name and "spill stores" in line:
@@ -1600,7 +1625,8 @@ def phase_latency(spec, state_dict, per_forward, smi):
     pre, dw = PC.launch_count, DC.launch_count
     per_step = r["graph_launches_per_step"]
     if per_step != {"preprocess": 1, "depthwise": per_forward,
-                    "epilogue": EPILOGUES.get(spec.name, 0)}:
+                    "epilogue": EPILOGUES.get(spec.name, 0),
+                    "bn_act": BN_ACTS.get(spec.name, 0)}:
         raise AssertionError(f"{spec.name}: captured per step {per_step}")
     calls = device_time_by_kernel(r["replay"], n_iters=1)["calls"]
     per_replay = {label: sum(n for k, n in calls.items()
@@ -5493,6 +5519,7 @@ def g21_case(name, fused, shape, per_forward, smi):
     """One model, mode and batch shape: the rule, the launches inside the
     replays, ms per batch graphed and eager. Returns the graphed calls'
     (B1, B2) and the case's numbers."""
+    from ab_line_classifier_torch.ops import bn_act_cuda as BA
     from ab_line_classifier_torch.ops import depthwise_cuda as DC
     from ab_line_classifier_torch.ops import preprocess_cuda as PC
 
@@ -5502,16 +5529,23 @@ def g21_case(name, fused, shape, per_forward, smi):
                                             dtype=np.uint8)).to("cuda")
                for _ in range(2)]
     runs, counts = [], []
+    bn_acts = GRADCAM_BN_ACTS.get(name, 0)
     for fn in (fused.eager, fused.eager, fused):
         # The eager pass once a batch (its outputs laid out in G21_ORDER),
         # the graphed one on every call of G21_ORDER.
         calls = range(2) if fn is fused.eager else G21_ORDER
         PC.reset_launch_count()
         DC.reset_launch_count()
+        BA.reset_launch_count()
         outs = dict(enumerate(fn(batches[i]) for i in calls))
         torch.cuda.synchronize()
         counts.append((PC.launch_count, DC.launch_count, DC.copy_count,
                        len(calls)))
+        # The batch norms before the tap take the pass, eager and graphed.
+        if BA.launch_count != bn_acts * len(calls):
+            raise AssertionError(f"{label}: batch norm pass launches "
+                                 f"{BA.launch_count} in {len(calls)} "
+                                 f"batches, want {bn_acts} a batch")
         runs.append([t for k in range(len(G21_ORDER)) for t in outs[
             k if fn is fused else G21_ORDER[k]]])
     g21_check_outputs(label, outs.values(), shape[0])
@@ -5525,7 +5559,7 @@ def g21_case(name, fused, shape, per_forward, smi):
     if (summary["eager_steps"], summary["replays"]) != (1, 3) \
             or summary["captured_launches"] != {
                 "preprocess": 1, "depthwise": per_forward,
-                "epilogue": EPILOGUES.get(name, 0)}:
+                "epilogue": EPILOGUES.get(name, 0), "bn_act": bn_acts}:
         raise AssertionError(f"{label}: program {summary}")
     verdict = g21_rule(label, *runs)
     a = batches[0]
@@ -5835,7 +5869,8 @@ def g22_case(name, pred, shape, per_forward, gen, smi):
     if (summary["eager_steps"], summary["replays"]) != (1, 3) \
             or summary["captured_launches"] != {
                 "preprocess": 1, "depthwise": per_forward,
-                "epilogue": EPILOGUES.get(name, 0)}:
+                "epilogue": EPILOGUES.get(name, 0),
+                "bn_act": BN_ACTS.get(name, 0)}:
         raise AssertionError(f"{label}: program {summary}")
     if not all(torch.equal(a, b) for a, b in zip(eager1, eager2)):
         raise AssertionError(f"{label}: the eager forward differs from "
@@ -6100,7 +6135,7 @@ def g23_case(gpu, cpu, hw, n, smi):
     if (summary["eager_steps"], summary["replays"]) != (1, G23_CLIPS - 1) \
             or summary["captured_launches"] != {"preprocess": 0,
                                                 "depthwise": 0,
-                                                "epilogue": 0}:
+                                                "epilogue": 0, "bn_act": 0}:
         raise AssertionError(f"{label}: program {summary}")
 
     def per_clip(fn):
@@ -6568,8 +6603,9 @@ def epilogue_model_check(smi):
     weights) on the card: a serving forward at 64 and a ``finetune`` step's
     loss and gradients bit-equal to the library chain's (every conv's
     bias, ReLU and pool as PyTorch runs them), cuDNN deterministic; 7
-    epilogue launches a forward (2 pooled) and 5 a training step (2
-    pooled), by the profiler's kernel names."""
+    epilogue launches a forward (2 pooled) and 5 a training step, by the
+    wrapper's count and the pool flag of each launch. (Not by the
+    profiler: this late in the script it records no kernel.)"""
     from ab_line_classifier_torch import graph as G
     from ab_line_classifier_torch.models.common import make_optimizer
     from ab_line_classifier_torch.ops import conv_epilogue_cuda as CE
@@ -6590,27 +6626,32 @@ def epilogue_model_check(smi):
         labels = torch.randint(0, 2, (TRAIN_BATCH,), device="cuda",
                                generator=gen)
         module = load_module(spec, state, torch.device("cuda"))
-        served, counts = [], []
-        for chain in (False, True):
-            table = module._epilogue
-            if chain:
-                module._epilogue = {}
-            CE.reset_launch_count()
-            with torch.inference_mode():
-                served.append(module(x.to(spec.dtype)))
-            torch.cuda.synchronize()
-            counts.append(CE.launch_count)
-            module._epilogue = table
-        with torch.inference_mode():
-            names = device_time_by_kernel(
-                lambda: module(x.to(spec.dtype)), n_iters=1)["calls"]
-        pooled = sum(n for k, n in names.items() if "epilogue_pool" in k)
-        inplace = sum(n for k, n in names.items()
-                      if "conv_epilogue_kernel" in k)
+        served, counts, pools = [], [], []
+        launch = CE.conv_epilogue
+
+        def tally(y, bias, relu, pool):
+            pools.append(pool)
+            return launch(y, bias, relu, pool)
+
+        CE.conv_epilogue = tally
+        try:
+            for chain in (False, True):
+                table = module._epilogue
+                if chain:
+                    module._epilogue = {}
+                CE.reset_launch_count()
+                with torch.inference_mode():
+                    served.append(module(x.to(spec.dtype)))
+                torch.cuda.synchronize()
+                counts.append(CE.launch_count)
+                module._epilogue = table
+        finally:
+            CE.conv_epilogue = launch
+        pooled = sum(pools)
+        inplace = len(pools) - pooled
         if counts != [7, 0] or (inplace, pooled) != (5, 2):
             raise AssertionError(f"serving: epilogue launches {counts}, "
-                                 f"profiled in place {inplace} pooled "
-                                 f"{pooled}")
+                                 f"in place {inplace} pooled {pooled}")
         if not torch.equal(served[0], served[1]):
             raise AssertionError("serving: the epilogue's forward differs "
                                  "from the library chain's by "
@@ -6645,8 +6686,8 @@ def epilogue_model_check(smi):
                                  f"{float(loss)} / {float(loss0)}, "
                                  f"gradients differing {bad}")
         print(f"  cutoffvgg16 on {smi}: serving forward at {TRAIN_BATCH} "
-              f"bit-equal to the library chain, 7 launches (profiled in "
-              f"place {inplace}, pooled {pooled}); finetune step loss "
+              f"bit-equal to the library chain, 7 launches (in place "
+              f"{inplace}, pooled {pooled}); finetune step loss "
               f"{float(loss):.6f} and {len(grads)} gradients bit-equal, 5 "
               f"launches", flush=True)
     finally:
@@ -6717,6 +6758,113 @@ def phase_conv_epilogue(smi):
     return out
 
 
+# The two serving cells' models and chunks the batch norm pass is timed at
+# (phase 26): (name, input side, batch).
+BN_ACT_MODELS = (("efficientnetb7", 600, 256), ("mobilenetv2", 128, 2048))
+
+
+def bn_act_layers(name, side):
+    """``{(C, H, W, act): count}`` of the batch norms of a serving forward
+    of zoo model ``name`` at ``side`` x ``side`` that the pass takes, with
+    the activation folded into each (``GraphModule._bn_act``), found by a
+    batch-1 forward on the card."""
+    from ab_line_classifier_torch import graph as G
+    from ab_line_classifier_torch.predict.benchmark import (build_zoo,
+                                                            seeded_state)
+    from ab_line_classifier_torch.predict.predict import load_module
+
+    spec = build_zoo(name, (side, side))
+    module = load_module(spec, seeded_state(spec, 0), torch.device("cuda"))
+    seen = collections.Counter()
+
+    def hook(layer):
+        def record(m, args):
+            _, c, h, w = args[0].shape
+            seen[(c, h, w, module._bn_act[layer][0])] += 1
+        return record
+
+    hooks = [module.get_submodule(n).register_forward_pre_hook(hook(n))
+             for n in module._bn_act]
+    try:
+        with torch.inference_mode():
+            module(torch.zeros((1, side, side, 3), dtype=spec.dtype,
+                               device="cuda"))
+    finally:
+        for h in hooks:
+            h.remove()
+    if any(isinstance(m, G.BatchNorm) and n not in module._bn_act
+           for n, m in module.named_children()):
+        raise AssertionError(f"{name}: a batch norm the pass does not take")
+    return seen
+
+
+def phase_bn_act(smi):
+    """The batch norm pass (``csrc/bn_act.cu``) at every batch norm of the
+    two serving cells' forwards (:data:`BN_ACT_MODELS`), bf16, with its
+    folded activation: bit-equal to the library chain it replaces
+    (``F.batch_norm`` and the activation), then per distinct layer its
+    device time (a CUDA graph
+    walking copies out of L2), the bytes bound at 3.35 TB/s, and the
+    library chain it replaces (``F.batch_norm`` and the activation, timed
+    the same way); the layers summed a forward. Returns ``{model: {"ms",
+    "bound_ms", "library_ms", "launches", "layers"}}``."""
+    from ab_line_classifier_torch.ops import bn_act_cuda as BA
+
+    phase("26 batch norm pass kernel")
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    out = {}
+    for name, side, batch in BN_ACT_MODELS:
+        layers = bn_act_layers(name, side)
+        rows = []
+        for (c, h, w, act), n in sorted(layers.items(), key=lambda kv: (
+                -kv[0][0] * kv[0][1] * kv[0][2], kv[0][3])):
+            mean = torch.randn(c, device="cuda", generator=gen)
+            var = 0.5 + torch.rand(c, device="cuda", generator=gen)
+            weight = 0.5 + torch.rand(c, device="cuda", generator=gen)
+            bias = torch.randn(c, device="cuda", generator=gen)
+            x = torch.randn((batch, h, w, c), device="cuda",
+                            dtype=torch.bfloat16, generator=gen)
+            x = x.mul_(var.sqrt()).add_(mean).permute(0, 3, 1, 2)
+            args = (mean, var, weight, bias, 1e-3, act)
+            got = BA.bn_act(x, *args)
+            want = BA.bn_act_plain(x, *args)
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"{name} {(c, h, w, act)}: the kernel differs from the "
+                    f"library chain by {float((got - want).abs().max())}")
+            del got, want
+            nbytes = 2 * x.numel() * 2
+            walk = max(1, int(-(-EPILOGUE_WALK // (x.numel() * 2))))
+            xs = [x] + [x.clone() for _ in range(walk - 1)]
+            ms = graph_ms(lambda: [BA.bn_act(t, *args) for t in xs],
+                          iters=10, warmup=1) / walk
+            fn = BA.ACT_FNS[act]
+            library_ms = graph_ms(lambda: [
+                (lambda y: y if fn is None else fn(y))(F.batch_norm(
+                    t, mean, var, weight, bias, False, 0.0, 1e-3))
+                for t in xs], iters=10, warmup=1) / walk
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            rows.append(dict(shape=f"{batch}x{c}x{h}x{w}", act=act, count=n,
+                             ms=ms, bound_ms=bound_ms, share=bound_ms / ms,
+                             library_ms=library_ms))
+            print(f"  {name} {rows[-1]['shape']} {act} x{n} on {smi}: "
+                  f"{ms:.4f} ms (bound {bound_ms:.4f} ms, "
+                  f"{100 * bound_ms / ms:.1f}%), library chain "
+                  f"{library_ms:.4f} ms", flush=True)
+            del x, xs
+            torch.cuda.empty_cache()
+        total = {k: sum(r[k] * r["count"] for r in rows)
+                 for k in ("ms", "bound_ms", "library_ms")}
+        out[name] = dict(total, launches=sum(layers.values()),
+                         batch=batch, side=side, layers=rows)
+        print(f"  {name} a forward at {batch} x {side}x{side}: "
+              f"{total['ms']:.4f} ms in {out[name]['launches']} launches "
+              f"(bound {total['bound_ms']:.4f} ms, "
+              f"{100 * total['bound_ms'] / total['ms']:.1f}%), library "
+              f"chain {total['library_ms']:.4f} ms", flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an "
@@ -6749,7 +6897,7 @@ def main():
         libs = list(pool.map(_build.build, _build.kernel_names()))
     print(f"built {len(libs)} kernel(s) in {time.perf_counter() - t0:.2f} s:"
           f" {[os.path.relpath(p, REPO) for p in libs]}")
-    for kernel in ("depthwise", "preprocess", "conv_epilogue"):
+    for kernel in ("depthwise", "preprocess", "conv_epilogue", "bn_act"):
         for name, line in ptxas_report(_build.build_log(kernel)):
             print(f"ptxas {name}: {line}")
 
@@ -6915,6 +7063,7 @@ def main():
     torch.cuda.synchronize()
 
     epilogue = phase_conv_epilogue(smi)
+    bn_act = phase_bn_act(smi)
 
     def graph_runs(kernel):
         """Runs on the card of ``kernel`` in one replay of each model's
@@ -6984,6 +7133,10 @@ def main():
          "shape": f"cutoffvgg16's 7 conv outputs a forward, bf16, batch "
                   f"{MAIN_BATCH}",
          "per_layer": {f"batch {b}": rows for b, rows in epilogue.items()}},
+        {"name": "bn_act", "route": "cuda",
+         "source": "ab_line_classifier_torch/csrc/bn_act.cu",
+         "replaces": None, "bound_by": "bytes",
+         "per_forward": bn_act},
     ]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -379,8 +379,11 @@ def test_graphed_gradcam_equals_the_eager_pass():
             assert not torch.equal(got[0][1], got[1][1])
             summary, = fused.summaries().values()
             assert summary["eager_steps"] == 1 and summary["replays"] == 3
+            # The batch norm pass: the 38 before the tap (the tap's
+            # block_12_project_BN is recorded by autograd).
             assert summary["captured_launches"] == {
-                "preprocess": 1, "depthwise": per_forward, "epilogue": 0}
+                "preprocess": 1, "depthwise": per_forward, "epilogue": 0,
+                "bn_act": 38}
     finally:
         torch.backends.cudnn.deterministic = flags
 
@@ -434,7 +437,7 @@ def test_graphed_serving_equals_the_eager_forward():
         assert summary["eager_steps"] == 1 and summary["replays"] == 3
         assert summary["captured_launches"] == {"preprocess": 1,
                                                 "depthwise": per_forward,
-                                                "epilogue": 0}
+                                                "epilogue": 0, "bn_act": 39}
         state = {k: v * 1.05 if k.endswith("weight") else v
                  for k, v in predictor.module.state_dict().items()}
         predictor.module.load_state_dict(state)
@@ -785,7 +788,8 @@ def test_graphed_automask_equals_the_eager_chain():
         for s in summaries.values():
             assert (s["eager_steps"], s["replays"]) == (1, 4)
             assert s["captured_launches"] == {"preprocess": 0,
-                                              "depthwise": 0, "epilogue": 0}
+                                              "depthwise": 0, "epilogue": 0,
+                                              "bn_act": 0}
         seg.model.load_state_dict(seeded_unet_state(16, 8))
         moved, _ = seg.clip_mask(clips[0], hw)
         assert torch.equal(moved, seg.eager(clips[0], hw))

@@ -273,7 +273,7 @@ def test_capture_counts_launches_per_replay():
     """The kernels' counts leave out what a capture calls (it launches
     nothing) and add it once per replay, kernel by kernel; calls outside a
     capture count as they are made."""
-    from ab_line_classifier_torch.ops import (conv_epilogue_cuda,
+    from ab_line_classifier_torch.ops import (bn_act_cuda, conv_epilogue_cuda,
                                               depthwise_cuda, launches,
                                               preprocess_cuda)
 
@@ -282,15 +282,17 @@ def test_capture_counts_launches_per_replay():
         preprocess_cuda.launch_count += 1
         depthwise_cuda.launch_count += 10
         conv_epilogue_cuda.launch_count += 7
+        bn_act_cuda.launch_count += 39
     assert captured.per_replay == {"preprocess": 1, "depthwise": 10,
-                                   "epilogue": 7}
+                                   "epilogue": 7, "bn_act": 39}
     assert launches.counts() == start
     depthwise_cuda.launch_count += 2   # eager calls
     captured.replayed()
     captured.replayed(3)
     assert launches.counts() == {"preprocess": start["preprocess"] + 4,
                                  "depthwise": start["depthwise"] + 42,
-                                 "epilogue": start["epilogue"] + 28}
+                                 "epilogue": start["epilogue"] + 28,
+                                 "bn_act": start["bn_act"] + 156}
 
 
 def test_capture_pauses_the_cycle_collector():
