@@ -85,6 +85,7 @@ from torch import nn
 from ab_line_classifier_torch.ops import bn_act_cuda as BA
 from ab_line_classifier_torch.ops import conv_epilogue_cuda as CE
 from ab_line_classifier_torch.ops import depthwise as DW
+from ab_line_classifier_torch.ops._build import DTYPES, VECTOR_CHANNELS
 from ab_line_classifier_torch.ops.depthwise_cuda import pack_weight
 from ab_line_classifier_torch.ops.padding import pad_hw, pad_same
 
@@ -294,38 +295,33 @@ class GraphModule(nn.Module):
     ``self.training``; the batch norms named in ``inference_bn`` run in
     inference mode in training too (:meth:`set_inference_bn`).
 
-    The conv epilogue (``ops/conv_epilogue_cuda.py``): a :class:`Conv2d`
-    with a bias, a ReLU or no activation, and whole 16-byte vectors of
-    channels runs without its bias, and one pass adds the bias and takes
-    the ReLU; where its only reader is a 2x2 stride-2 ``VALID`` max-pool
-    and the conv is neither captured nor the output, the same pass pools,
-    and the pool's node takes that result. Fixed from the graph here; each
-    call keeps the library chain (the bias inside the conv, the activation,
-    the pool) where autograd would record the conv (grad mode on and its
-    input, weight or bias requiring grad, or a ``torch.func`` transform's
-    tensors), where its input is not NHWC memory or not float32 or
-    bfloat16, and keeps the pool apart where ``leaf`` or ``overrides``
-    names the conv or the pool. The results are bit-equal on the card,
-    where the library's conv adds its bias after the conv too.
-
-    The batch norm pass (``ops/bn_act_cuda.py``): a :class:`BatchNorm`
-    over whole 16-byte vectors of channels (C % 8 == 0) that normalizes
-    with its running statistics (``not training or frozen``) runs in one
-    pass, and where its only reader is a ReLU (``F.relu``), a ReLU6
-    (``op=("relu6",)``) or a swish (``F.silu``) activation and the batch
-    norm is neither captured nor the output, the same pass takes the
-    activation, and the activation's node takes that result. The batch
-    norm stays a call of its module (``act=``), so its hooks run; a forward
-    hook on it sees the activation's output where the activation is
-    folded in. Fixed from the graph here; each call keeps the library chain
-    (``F.batch_norm``, then the activation) under ``bn_stats``, where
-    autograd would record the batch norm (grad mode on and its input,
-    weight or bias requiring grad, or a ``torch.func`` transform's
-    tensors), and where its input is not 4-D NHWC memory or not float32 or
-    bfloat16; and keeps the activation apart where ``leaf`` names the
-    batch norm or ``overrides`` the activation. The results are bit-equal
-    to the chain's on the card, where the pass rounds as ATen's batch norm
-    and activation do; on the CPU the pass is the chain.
+    Fused kernels. A layer runs through a hand-written kernel where the
+    route table (:class:`_Route`, fixed from the graph here) names it: a
+    :class:`Conv2d` with a bias and a ReLU or no activation, through the
+    conv epilogue (``ops/conv_epilogue_cuda.py``: the conv runs without its
+    bias, and one pass adds it and takes the ReLU); a :class:`BatchNorm`
+    with no activation of its own, through the batch norm pass
+    (``ops/bn_act_cuda.py``). Either over whole 16-byte vectors of channels
+    (``C % 8 == 0``). Where the layer's only reader is what its kernel can
+    take too (the conv's 2x2 stride-2 ``VALID`` max-pool; the batch norm's
+    ReLU, ReLU6 or swish, ``op=("relu6",)``, ``F.relu``, ``F.silu``) and the
+    layer is neither captured nor the output, the same pass folds the
+    reader in, and the reader's node takes that result. The layer stays a
+    call of its module, so its hooks run: the conv without its bias (a
+    forward hook sees the conv's output), the batch norm with ``act=``
+    (``adapt_batch_norm``'s hooks; a forward hook sees the activation's
+    output where it is folded in). Each call keeps the library chain (the
+    layer as its module computes it, then its reader) where autograd would
+    record the layer (grad mode on and its input or a parameter requiring
+    grad, or a ``torch.func`` transform's tensors), where its input is not
+    NHWC memory or it computes in a dtype the kernels do not take, and for
+    a batch norm that normalizes with its batch's statistics or under
+    ``bn_stats``; and keeps the reader apart where ``overrides`` names it,
+    or ``leaf`` names the layer or, for the conv, its pool. The results are
+    bit-equal to the chain's on the card: the library's conv adds its bias
+    after the conv too, and the batch norm pass rounds as ATen's batch norm
+    and activation do; on the CPU each kernel is its plain version, the
+    chain.
     """
 
     def __init__(self, graph: LayerGraph, capture: Tuple[str, ...] = (),
@@ -350,36 +346,38 @@ class GraphModule(nn.Module):
         for spec in graph.layers[1:]:
             if spec.module_fn is not None:
                 self.add_module(spec.name, spec.module_fn(generator))
-        # conv name -> (ReLU, the name of the pool it takes or None).
-        self._epilogue: Dict[str, Tuple[bool, Optional[str]]] = {}
         readers: Dict[str, List[LayerSpec]] = {}
         for spec in graph.layers[1:]:
             for n in spec.inputs:
                 readers.setdefault(n, []).append(spec)
+        # layer name -> its route through a fused kernel.
+        self._routes: Dict[str, _Route] = {}
         for spec in graph.layers[1:]:
             m = self._modules.get(spec.name)
-            if (spec.kind != KIND_CONV or not isinstance(m, Conv2d)
-                    or m.bias is None or spec.post_fn not in (None, F.relu)
-                    or m.out_channels % 8):
+            if spec.features is None or spec.features % VECTOR_CHANNELS:
                 continue
             after = readers.get(spec.name, [])
-            pool = (after[0].name if len(after) == 1 and spec.name not in keep
-                    and after[0].op == ("max_pool", (2, 2), (2, 2), "VALID")
-                    else None)
-            self._epilogue[spec.name] = (spec.post_fn is F.relu, pool)
-        # batch norm name -> (the activation the pass takes, its node), or
-        # ("none", None) where no activation can be folded in.
-        self._bn_act: Dict[str, Tuple[str, Optional[str]]] = {}
-        for spec in graph.layers[1:]:
-            m = self._modules.get(spec.name)
-            if (spec.kind != KIND_BN or not isinstance(m, BatchNorm)
-                    or spec.post_fn is not None or m.bias.shape[0] % 8):
-                continue
-            after = readers.get(spec.name, [])
-            act = (_folded_act(after[0]) if len(after) == 1
-                   and spec.name not in keep else None)
-            self._bn_act[spec.name] = ((act, after[0].name) if act
-                                       else ("none", None))
+            reader = (after[0] if len(after) == 1 and spec.name not in keep
+                      else None)
+            if (spec.kind == KIND_CONV and isinstance(m, Conv2d)
+                    and m.bias is not None
+                    and _activation(spec.post_fn) in CE.ACTS):
+                relu = spec.post_fn is F.relu
+                pool = (reader.name if reader is not None
+                        and reader.op == CE.POOL else None)
+                self._routes[spec.name] = _Route(
+                    _conv_epilogue, (relu, pool is not None),
+                    (relu, False), pool, (spec.name, pool))
+            elif (spec.kind == KIND_BN and isinstance(m, BatchNorm)
+                    and spec.post_fn is None):
+                act = (_activation(reader.fn, reader.op)
+                       if reader is not None and reader.kind == KIND_FN
+                       else None)
+                if act == "none" or act not in BA.ACTS:
+                    act = reader = None
+                self._routes[spec.name] = _Route(
+                    _bn_act, (act or "none",), ("none",),
+                    reader and reader.name, (spec.name,))
         self.set_inference_bn(inference_bn)
 
     def set_inference_bn(self, names: Sequence[str]) -> None:
@@ -423,32 +421,22 @@ class GraphModule(nn.Module):
                     del acts[n]
                 continue
             ins = [acts[n] for n in spec.inputs]
-            epilogue = self._epilogue_of(spec.name, ins, overrides, leaf)
-            bn = (None if bn_stats is not None
-                  else self._bn_act_of(spec.name, ins, overrides, leaf))
             if spec.name in folded:
                 y = ins[0]
-            elif epilogue is not None:
-                relu, pool = epilogue
-                m = self._modules[spec.name]
-                y = CE.conv_epilogue(m(ins[0], bias=False),
-                                     _cast(m.compute_dtype, m.bias)[0], relu,
-                                     pool is not None)
-                if pool is not None:
-                    folded.add(pool)
-            elif bn is not None:
-                act, reader = bn
-                y = self._modules[spec.name](ins[0], act=act)
+            elif spec.kind == KIND_BN and bn_stats is not None:
+                y, stats = self._modules[spec.name].stacked(ins[0])
+                if stats is not None:
+                    bn_stats[spec.name] = stats
+            elif (route := self._route(spec.name, ins[0], overrides,
+                                       leaf)) is not None:
+                run, args, reader = route
+                y = run(self._modules[spec.name], ins[0], *args)
                 if reader is not None:
                     folded.add(reader)
             elif spec.kind == KIND_DROPOUT:
                 y = self._modules[spec.name](
                     ins[0], generator,
                     mask=(dropout_masks or {}).get(spec.name))
-            elif spec.kind == KIND_BN and bn_stats is not None:
-                y, stats = self._modules[spec.name].stacked(ins[0])
-                if stats is not None:
-                    bn_stats[spec.name] = stats
             elif spec.module_fn is not None:
                 y = self._modules[spec.name](*ins)
                 if spec.post_fn is not None:
@@ -468,44 +456,55 @@ class GraphModule(nn.Module):
                         if n not in captured)
         return (out, captured) if captured else out
 
-    def _epilogue_of(self, name: str, ins: List[torch.Tensor],
-                     overrides: Dict[str, torch.Tensor],
-                     leaf: Optional[str]
-                     ) -> Optional[Tuple[bool, Optional[str]]]:
-        """``(relu, pool)`` of layer ``name``'s conv epilogue in this call,
-        or ``None`` where it keeps the library chain (class docstring)."""
-        epilogue = self._epilogue.get(name)
-        if epilogue is None:
-            return None
-        m, x = self._modules[name], ins[0]
-        if (_recorded(x, m.weight, m.bias)
-                or (m.compute_dtype or x.dtype) not in CE.DTYPES
-                or not x.is_contiguous(memory_format=torch.channels_last)):
-            return None
-        relu, pool = epilogue
-        if pool is not None and (pool in overrides or leaf in (name, pool)):
-            pool = None
-        return relu, pool
-
-    def _bn_act_of(self, name: str, ins: List[torch.Tensor],
-                   overrides: Dict[str, torch.Tensor], leaf: Optional[str]
-                   ) -> Optional[Tuple[str, Optional[str]]]:
-        """``(act, its node or None)`` of batch norm ``name``'s pass in
-        this call, or ``None`` where it keeps the library chain (class
-        docstring)."""
-        route = self._bn_act.get(name)
+    def _route(self, name: str, x: torch.Tensor,
+               overrides: Dict[str, torch.Tensor], leaf: Optional[str]
+               ) -> Optional[Tuple[Callable[..., torch.Tensor], tuple,
+                                   Optional[str]]]:
+        """``(run, its arguments, the reader it folds in or None)`` of
+        layer ``name`` on input ``x`` in this call, or ``None`` where it
+        keeps the library chain (class docstring)."""
+        route = self._routes.get(name)
         if route is None:
             return None
-        m, x = self._modules[name], ins[0]
-        if ((m.training and not m.frozen)
-                or _recorded(x, m.weight, m.bias,
-                             stats=(m.running_mean, m.running_var))
-                or x.dtype not in BA.DTYPES or x.ndim != 4
-                or not x.is_contiguous(memory_format=torch.channels_last)):
+        m = self._modules[name]
+        if (_recorded(x, *m._parameters.values(),
+                      stats=tuple(m._buffers.values()))
+                or (getattr(m, "compute_dtype", None) or x.dtype)
+                not in DTYPES
+                or not x.is_contiguous(memory_format=torch.channels_last)
+                or isinstance(m, BatchNorm) and m.training and not m.frozen):
             return None
-        if route[1] is not None and (route[1] in overrides or leaf == name):
-            return "none", None
-        return route
+        if route.reader is not None and (route.reader in overrides
+                                         or leaf in route.unfold):
+            return route.run, route.alone, None
+        return route.run, route.args, route.reader
+
+
+@dataclasses.dataclass(frozen=True)
+class _Route:
+    """A layer that runs through a fused kernel (``GraphModule``'s
+    docstring): ``run(module, x, *args)`` with ``reader`` folded in,
+    ``run(module, x, *alone)`` with it apart (``reader`` None: ``args`` is
+    ``alone``), which ``leaf`` at one of ``unfold`` asks for."""
+
+    run: Callable[..., torch.Tensor]
+    args: tuple
+    alone: tuple
+    reader: Optional[str]
+    unfold: Tuple[Optional[str], ...]
+
+
+def _conv_epilogue(m: Conv2d, x: torch.Tensor, relu: bool,
+                   pool: bool) -> torch.Tensor:
+    """The conv as its module without its bias, then its bias, ``relu``
+    and with ``pool`` its reader's pool in one pass."""
+    return CE.conv_epilogue(m(x, bias=False),
+                            _cast(m.compute_dtype, m.bias)[0], relu, pool)
+
+
+def _bn_act(m: BatchNorm, x: torch.Tensor, act: str) -> torch.Tensor:
+    """The batch norm as its module, ``act`` taken in the same pass."""
+    return m(x, act=act)
 
 
 # ---------------------------------------------------------------------------
@@ -534,16 +533,16 @@ def _recorded(*ts: Optional[torch.Tensor],
                 t is not None and t.requires_grad for t in ts))
 
 
-def _folded_act(spec: LayerSpec) -> Optional[str]:
-    """The batch norm pass's name of the activation layer ``spec``
-    computes, or ``None`` where it is no activation the pass takes."""
-    if spec.kind != KIND_FN:
-        return None
-    if spec.op == ("relu6",):
+def _activation(fn: Optional[Callable], op: Tuple[Any, ...] = ()
+                ) -> Optional[str]:
+    """The fused kernels' name (``ops/bn_act_cuda.ACTS``) of the
+    activation ``fn`` (``op``: stated as data), ``"none"`` for none, or
+    ``None`` where it is none they know."""
+    if op == ("relu6",):
         return "relu6"
-    if spec.op:
+    if op:
         return None
-    return {F.relu: "relu", F.silu: "swish"}.get(spec.fn)
+    return {None: "none", F.relu: "relu", F.silu: "swish"}.get(fn)
 
 
 def _keras_init(module: nn.Module, generator: torch.Generator,

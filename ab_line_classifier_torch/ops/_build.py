@@ -11,6 +11,12 @@ that launches a kernel (or in :func:`build`).
 
 Host libraries (``csrc/<name>.cc``: the JPEG loader) are built the same
 way by ``g++`` into ``build/native/`` (:func:`build_host`).
+
+Every kernel wrapper launches through a :class:`Kernel`: its library loaded
+and typed once, each launch on the tensors' device and current stream, a
+failed launch raised with the kernel's own error string, a launch that
+succeeded counted in ``ops/launches.py``. :func:`check_nhwc` is the input
+check the fused kernels (``conv_epilogue_cuda``, ``bn_act_cuda``) share.
 """
 
 from __future__ import annotations
@@ -20,7 +26,11 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from ab_line_classifier_torch.ops import launches
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -128,3 +138,99 @@ def load_library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(build(name))
         _loaded[name] = lib
     return lib
+
+
+#: The dtypes the kernels compute in (B2 and the fused kernels).
+DTYPES = (torch.float32, torch.bfloat16)
+#: Channels that fill whole 16-byte vectors in each of :data:`DTYPES`
+#: (bfloat16's 8): ``graph.GraphModule`` routes a layer to a fused kernel
+#: only at a multiple of it, fixed before any dtype is known.
+VECTOR_CHANNELS = 8
+
+
+def check_nhwc(x: torch.Tensor, name: str) -> None:
+    """Raise unless ``x`` is what a fused kernel reads and writes: a
+    float32 or bfloat16 ``[B, C, H, W]`` view of NHWC memory
+    (``channels_last``), 16-byte aligned, its channels whole 16-byte
+    vectors."""
+    if x.ndim != 4 or x.dtype not in DTYPES:
+        raise ValueError(f"expected a float32 or bfloat16 [B, C, H, W] "
+                         f"tensor, got {tuple(x.shape)} {x.dtype}")
+    if x.shape[1] * x.element_size() % 16:
+        raise ValueError(f"{x.shape[1]} channels of {x.dtype}: the kernel "
+                         f"takes whole 16-byte vectors")
+    if not x.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError(f"{name} must be channels_last (NHWC memory)")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+
+
+class Kernel:
+    """Kernel ``name``'s library (``csrc/<name>.cu``) and its launches,
+    counted under ``key`` in ``ops/launches.py``. ``functions`` gives each
+    C function's argument types; every one returns an ``int``, a launch
+    function's error code (0: launched) with the stream its last argument,
+    and a query's count. A launch reads nothing back to the host, so a
+    CUDA graph's capture records it."""
+
+    def __init__(self, name: str, key: str, **functions: List):
+        self.name, self.key, self.functions = name, key, functions
+        #: The typed library: loaded by :meth:`library` on first use; a
+        #: check may put another build of the source here (:meth:`typed`).
+        self.lib: Optional[ctypes.CDLL] = None
+        self._fits: Dict[tuple, Tuple[int, int]] = {}
+
+    def typed(self, lib: ctypes.CDLL) -> ctypes.CDLL:
+        """``lib``, a build of the kernel's source, its functions typed."""
+        for fn, argtypes in self.functions.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.ablc_error_string.argtypes = [ctypes.c_int]
+        lib.ablc_error_string.restype = ctypes.c_char_p
+        return lib
+
+    def library(self) -> ctypes.CDLL:
+        """The typed library, built and loaded on first use."""
+        if self.lib is None:
+            self.lib = self.typed(load_library(self.name))
+        return self.lib
+
+    def launch(self, fn: str, device: torch.device, *args,
+               count: bool = True) -> None:
+        """``fn(*args, stream)`` on ``device``'s current stream; raises
+        with the kernel's error string where the launch fails, and counts
+        one launch where it succeeds (unless not ``count``)."""
+        lib = self.lib or self.library()
+        stream = torch.cuda.current_stream(device).cuda_stream
+        if device.index == torch.cuda.current_device():
+            rc = getattr(lib, fn)(*args, stream)
+        else:
+            with torch.cuda.device(device):
+                rc = getattr(lib, fn)(*args, stream)
+        if rc != 0:
+            raise RuntimeError(f"{self.name} kernel launch failed: "
+                               + lib.ablc_error_string(rc).decode())
+        if count:
+            launches.add(self.key)
+
+    def query(self, fn: str, device: torch.device, *args) -> int:
+        """``fn(*args)`` with ``device`` current: the runtime's count of
+        the blocks of a variant of the kernel that fit on one SM."""
+        with torch.cuda.device(device):
+            return getattr(self.library(), fn)(*args)
+
+    def occupancy(self, fn: str, device: torch.device,
+                  *args) -> Tuple[int, int]:
+        """``(SMs, blocks that fit on one at once)`` of ``device`` for the
+        variant ``args`` selects (:meth:`query`), cached; raises where no
+        block fits."""
+        key = (fn, device, args)
+        fit = self._fits.get(key)
+        if fit is None:
+            n = self.query(fn, device, *args)
+            if n < 1:
+                raise RuntimeError(f"no block of the {self.name} kernel "
+                                   f"{args} fits on an SM")
+            fit = self._fits[key] = (torch.cuda.get_device_properties(
+                device).multi_processor_count, n)
+        return fit

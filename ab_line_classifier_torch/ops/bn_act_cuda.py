@@ -26,21 +26,14 @@ current stream, so a CUDA graph's capture records it.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-#: Kernel launches since the last :func:`reset_launch_count`; the launch
-#: site below adds to it, and ``ops/launches.py`` takes a CUDA graph's
-#: capture's calls back off and adds them again at each replay, where the
-#: captured launches run.
-launch_count = 0
+from ab_line_classifier_torch.ops._build import Kernel, check_nhwc
 
-#: The dtypes the kernel takes.
-DTYPES = (torch.float32, torch.bfloat16)
 #: The activations, by the kernel's code (their index).
 ACTS = ("none", "relu", "relu6", "swish")
 #: Threads a block (the kernel's ``kThreads``).
@@ -48,10 +41,11 @@ THREADS = 256
 #: Vector loads a thread has in flight (its ``kUnroll``).
 UNROLL = 4
 
-
-def reset_launch_count() -> None:
-    global launch_count
-    launch_count = 0
+_p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+KERNEL = Kernel("bn_act", "bn_act",
+                ablc_bn_act=[_p] * 6 + [ctypes.c_float, _i, _i, _ll, _i, _i,
+                                        _p],
+                ablc_bn_act_blocks_per_sm=[_i, _i])
 
 
 def relu6(x: torch.Tensor) -> torch.Tensor:
@@ -91,43 +85,8 @@ def launch_grid(units: int, cvecs: int, sms: int,
     return grid
 
 
-_lib: Optional[ctypes.CDLL] = None
-
-
-def _library() -> ctypes.CDLL:
-    """The kernel's library, built on first use, its functions typed."""
-    global _lib
-    if _lib is None:
-        from ab_line_classifier_torch.ops._build import load_library
-
-        lib = load_library("bn_act")
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.ablc_bn_act.argtypes = ([p] * 6 + [ctypes.c_float, i, i, ll, i,
-                                               i, p])
-        lib.ablc_bn_act.restype = i
-        lib.ablc_bn_act_blocks_per_sm.argtypes = [i, i]
-        lib.ablc_bn_act_blocks_per_sm.restype = i
-        lib.ablc_error_string.argtypes = [i]
-        lib.ablc_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
-
-
-@functools.lru_cache(maxsize=None)
-def _fit(device: torch.device, bf16: bool, act: int):
-    """``(SMs, blocks of the variant that fit on one at once)``."""
-    with torch.cuda.device(device):
-        n = _library().ablc_bn_act_blocks_per_sm(int(bf16), act)
-    if n < 1:
-        raise RuntimeError(f"no block of {THREADS} threads of the batch "
-                           f"norm pass fits on an SM")
-    return torch.cuda.get_device_properties(device).multi_processor_count, n
-
-
 def _check(x: torch.Tensor, vectors) -> None:
-    if x.ndim != 4 or x.dtype not in DTYPES:
-        raise ValueError(f"expected a float32 or bfloat16 [B, C, H, W] "
-                         f"tensor, got {tuple(x.shape)} {x.dtype}")
+    check_nhwc(x, "x")
     c = x.shape[1]
     for v in vectors:
         if v is not None and (v.dtype != torch.float32
@@ -137,13 +96,6 @@ def _check(x: torch.Tensor, vectors) -> None:
             raise ValueError(f"statistics and affine must be contiguous "
                              f"float32 [{c}] on {x.device}, got "
                              f"{tuple(v.shape)} {v.dtype} on {v.device}")
-    if c * x.element_size() % 16:
-        raise ValueError(f"{c} channels of {x.dtype}: the kernel takes "
-                         f"whole 16-byte vectors")
-    if not x.is_contiguous(memory_format=torch.channels_last):
-        raise ValueError("x must be channels_last (NHWC memory)")
-    if x.data_ptr() % 16:
-        raise ValueError("x must be 16-byte aligned")
 
 
 def bn_act(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
@@ -153,7 +105,6 @@ def bn_act(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
     ``weight`` (``None``: 1) and shifted by ``bias``, as a new tensor
     (module docstring): the kernel for a CUDA ``x``, which raises on what
     the kernel does not take; the plain version for a CPU one."""
-    global launch_count
     if not x.is_cuda:
         return bn_act_plain(x, mean, var, weight, bias, eps, act)
     code = ACTS.index(act)
@@ -164,20 +115,11 @@ def bn_act(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
         return out
     bf16 = x.dtype == torch.bfloat16
     cvecs = x.shape[1] * x.element_size() // 16
-    sms, fit = _fit(x.device, bf16, code)
-    grid = launch_grid(units, cvecs, sms, fit)
-    lib = _lib or _library()
-    args = (x.data_ptr(), out.data_ptr(), mean.data_ptr(), var.data_ptr(),
-            None if weight is None else weight.data_ptr(), bias.data_ptr(),
-            float(eps), int(bf16), code, units, cvecs, grid,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    if x.device.index == torch.cuda.current_device():
-        rc = lib.ablc_bn_act(*args)
-    else:
-        with torch.cuda.device(x.device):
-            rc = lib.ablc_bn_act(*args)
-    if rc != 0:
-        raise RuntimeError("batch norm kernel launch failed: "
-                           + lib.ablc_error_string(rc).decode())
-    launch_count += 1
+    sms, fit = KERNEL.occupancy("ablc_bn_act_blocks_per_sm", x.device,
+                                int(bf16), code)
+    KERNEL.launch("ablc_bn_act", x.device, x.data_ptr(), out.data_ptr(),
+                  mean.data_ptr(), var.data_ptr(),
+                  None if weight is None else weight.data_ptr(),
+                  bias.data_ptr(), float(eps), int(bf16), code, units, cvecs,
+                  launch_grid(units, cvecs, sms, fit))
     return out

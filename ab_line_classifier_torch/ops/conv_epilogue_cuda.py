@@ -23,30 +23,30 @@ so a CUDA graph's capture records it.
 from __future__ import annotations
 
 import ctypes
-import functools
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
-#: Kernel launches since the last :func:`reset_launch_count`; the launch
-#: site below adds to it, and ``ops/launches.py`` takes a CUDA graph's
-#: capture's calls back off and adds them again at each replay, where the
-#: captured launches run.
-launch_count = 0
+from ab_line_classifier_torch.ops._build import Kernel, check_nhwc
 
-#: The dtypes the kernel takes.
-DTYPES = (torch.float32, torch.bfloat16)
+#: The conv's activations the kernel applies, by the names
+#: ``bn_act_cuda.ACTS`` gives them.
+ACTS = ("none", "relu")
+#: The pool it takes from the conv's reader, as the graph's node states it
+#: (``LayerSpec.op``).
+POOL = ("max_pool", (2, 2), (2, 2), "VALID")
 #: Threads per block at most (the kernels' ``__launch_bounds__``).
 MAX_THREADS = 256
 #: Vector loads a thread has in flight in the in-place kernel (its
 #: ``kUnroll``).
 UNROLL = 4
 
-
-def reset_launch_count() -> None:
-    global launch_count
-    launch_count = 0
+_p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+KERNEL = Kernel("conv_epilogue", "epilogue",
+                ablc_conv_epilogue=[_p, _p, _p, _i, _i, _ll] + [_i] * 7
+                + [_p],
+                ablc_conv_epilogue_blocks_per_sm=[_i] * 4)
 
 
 def conv_epilogue_plain(y: torch.Tensor, bias: torch.Tensor, relu: bool,
@@ -85,58 +85,14 @@ def launch_geometry(units: int, cvecs: int, sms: int, blocks_per_sm: int,
     return threads, grid
 
 
-_lib: Optional[ctypes.CDLL] = None
-
-
-def _library() -> ctypes.CDLL:
-    """The kernel's library, built on first use, its functions typed."""
-    global _lib
-    if _lib is None:
-        from ab_line_classifier_torch.ops._build import load_library
-
-        lib = load_library("conv_epilogue")
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.ablc_conv_epilogue.argtypes = ([p, p, p, i, i, ll] + [i] * 7
-                                           + [p])
-        lib.ablc_conv_epilogue.restype = i
-        lib.ablc_conv_epilogue_blocks_per_sm.argtypes = [i] * 4
-        lib.ablc_conv_epilogue_blocks_per_sm.restype = i
-        lib.ablc_error_string.argtypes = [i]
-        lib.ablc_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
-
-
-@functools.lru_cache(maxsize=None)
-def _fit(device: torch.device, bf16: bool, relu: bool, pool: bool,
-         threads: int):
-    """``(SMs, blocks of the variant that fit on one at once)``."""
-    with torch.cuda.device(device):
-        n = _library().ablc_conv_epilogue_blocks_per_sm(
-            int(bf16), int(relu), int(pool), threads)
-    if n < 1:
-        raise RuntimeError(f"no block of {threads} threads of the conv "
-                           f"epilogue fits on an SM")
-    return torch.cuda.get_device_properties(device).multi_processor_count, n
-
-
 def _check(y: torch.Tensor, bias: torch.Tensor) -> None:
-    if y.ndim != 4 or y.dtype not in DTYPES:
-        raise ValueError(f"expected a float32 or bfloat16 [B, C, H, W] "
-                         f"tensor, got {tuple(y.shape)} {y.dtype}")
+    check_nhwc(y, "y")
     c = y.shape[1]
     if (bias.dtype != y.dtype or tuple(bias.shape) != (c,)
             or not bias.is_contiguous() or bias.device != y.device):
         raise ValueError(f"bias must be contiguous {y.dtype} [{c}] on "
                          f"{y.device}, got {tuple(bias.shape)} {bias.dtype} "
                          f"on {bias.device}")
-    if c * y.element_size() % 16:
-        raise ValueError(f"{c} channels of {y.dtype}: the kernel takes "
-                         f"whole 16-byte vectors")
-    if not y.is_contiguous(memory_format=torch.channels_last):
-        raise ValueError("y must be channels_last (NHWC memory)")
-    if y.data_ptr() % 16:
-        raise ValueError("y must be 16-byte aligned")
 
 
 def conv_epilogue(y: torch.Tensor, bias: torch.Tensor, relu: bool,
@@ -145,7 +101,6 @@ def conv_epilogue(y: torch.Tensor, bias: torch.Tensor, relu: bool,
     max-pool as a new tensor (module docstring): the kernel for a CUDA
     ``y``, which raises on what the kernel does not take; the plain version
     for a CPU one."""
-    global launch_count
     if not y.is_cuda:
         return conv_epilogue_plain(y, bias, relu, pool)
     _check(y, bias)
@@ -165,21 +120,13 @@ def conv_epilogue(y: torch.Tensor, bias: torch.Tensor, relu: bool,
     if units == 0:
         return y if out is None else out
     bf16 = y.dtype == torch.bfloat16
-    sms, fit = _fit(y.device, bf16, relu, pool, block_threads(cvecs))
+    sms, fit = KERNEL.occupancy("ablc_conv_epilogue_blocks_per_sm", y.device,
+                                int(bf16), int(relu), int(pool),
+                                block_threads(cvecs))
     threads, grid = launch_geometry(units, cvecs, sms, fit,
                                     1 if pool else UNROLL)
-    lib = _lib or _library()
-    args = (y.data_ptr(), bias.data_ptr(),
-            None if out is None else out.data_ptr(), int(bf16), int(relu),
-            units, h, w, h // 2, w // 2, cvecs, grid, threads,
-            torch.cuda.current_stream(y.device).cuda_stream)
-    if y.device.index == torch.cuda.current_device():
-        rc = lib.ablc_conv_epilogue(*args)
-    else:
-        with torch.cuda.device(y.device):
-            rc = lib.ablc_conv_epilogue(*args)
-    if rc != 0:
-        raise RuntimeError("conv epilogue kernel launch failed: "
-                           + lib.ablc_error_string(rc).decode())
-    launch_count += 1
+    KERNEL.launch("ablc_conv_epilogue", y.device, y.data_ptr(),
+                  bias.data_ptr(), None if out is None else out.data_ptr(),
+                  int(bf16), int(relu), units, h, w, h // 2, w // 2, cvecs,
+                  grid, threads)
     return y if out is None else out

@@ -33,16 +33,12 @@ from typing import Tuple
 
 import torch
 
-#: Kernel launches since the last :func:`reset_launch_count`; the launch
-#: site below adds to it, and ``ops/launches.py`` takes a CUDA graph's
-#: capture's calls back off and adds them again at each replay, where the
-#: captured launches run.
-launch_count = 0
-#: Inputs :func:`cuda_depthwise` had to copy to channels_last memory since
-#: the last :func:`reset_launch_count`.
+from ab_line_classifier_torch.ops._build import DTYPES, Kernel
+
+#: Inputs :func:`cuda_depthwise` had to copy to channels_last memory (its
+#: launches are counted in ``ops/launches.py``).
 copy_count = 0
 
-_DTYPES = (torch.float32, torch.bfloat16)
 #: Threads per block at most (the kernel's ``__launch_bounds__``).
 MAX_THREADS = 256
 #: Output rows per thread the kernel is built for.
@@ -52,11 +48,9 @@ ROWS = (4, 8)
 SMEM_MAX = 96 * 1024
 
 
-def reset_launch_count() -> None:
-    """Zero :data:`launch_count` and :data:`copy_count`."""
-    global launch_count, copy_count
-    launch_count = 0
-    copy_count = 0
+_p, _i = ctypes.c_void_p, ctypes.c_int
+KERNEL = Kernel("depthwise", "depthwise",
+                ablc_depthwise=[_p, _p, _p] + [_i] * 14 + [_p])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,41 +136,16 @@ def pack_weight(w: torch.Tensor) -> torch.Tensor:
             .reshape(k, kw, c).contiguous())
 
 
-def _bind(lib: ctypes.CDLL):
-    fn = lib.ablc_depthwise
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p] + [i] * 14 + [p]
-        fn.restype = i
-        lib.ablc_error_string.argtypes = [i]
-        lib.ablc_error_string.restype = ctypes.c_char_p
-    return fn
-
-
 def launch(xh: torch.Tensor, packed: torch.Tensor, y: torch.Tensor,
            geom: Geometry) -> None:
     """Launch the kernel on contiguous NHWC ``xh`` into ``y`` (same shape
     and dtype) with ``geom``; raises if the launch fails."""
-    global launch_count
-    from ab_line_classifier_torch.ops._build import load_library
-
     b, h, w, c = xh.shape
-    lib = load_library("depthwise")
-    fn = _bind(lib)
-    args = (xh.data_ptr(), packed.data_ptr(), y.data_ptr(),
-            int(xh.dtype == torch.bfloat16), packed.shape[0], geom.vec,
-            geom.rows, b, h, w, c, geom.row_tiles, geom.col_tiles,
-            geom.ch_tiles, *geom.block, geom.smem,
-            torch.cuda.current_stream(xh.device).cuda_stream)
-    if xh.device.index == torch.cuda.current_device():
-        rc = fn(*args)
-    else:
-        with torch.cuda.device(xh.device):
-            rc = fn(*args)
-    if rc != 0:
-        raise RuntimeError("depthwise kernel launch failed: "
-                           + lib.ablc_error_string(rc).decode())
-    launch_count += 1
+    KERNEL.launch("ablc_depthwise", xh.device, xh.data_ptr(),
+                  packed.data_ptr(), y.data_ptr(),
+                  int(xh.dtype == torch.bfloat16), packed.shape[0], geom.vec,
+                  geom.rows, b, h, w, c, geom.row_tiles, geom.col_tiles,
+                  geom.ch_tiles, *geom.block, geom.smem)
 
 
 def cuda_depthwise(x: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
@@ -187,7 +156,7 @@ def cuda_depthwise(x: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"cuda_depthwise needs a CUDA tensor, got "
                          f"{x.device}")
-    if x.ndim != 4 or x.dtype not in _DTYPES:
+    if x.ndim != 4 or x.dtype not in DTYPES:
         raise ValueError(f"expected a float32 or bfloat16 [B, C, H, W] "
                          f"tensor, got {tuple(x.shape)} {x.dtype}")
     b, c, h, w = x.shape

@@ -1,9 +1,8 @@
-"""The kernels' launch counts under CUDA graphs.
+"""The kernels' launch counts, under CUDA graphs too.
 
-Each kernel wrapper (``preprocess_cuda``, ``depthwise_cuda``,
-``conv_epilogue_cuda``, ``bn_act_cuda``) adds one to
-its ``launch_count`` where it launches its kernel. A CUDA graph's capture
-calls the wrappers but launches nothing, and a replay launches the
+The shared launch path (``ops/_build.py::Kernel.launch``) adds one to its
+kernel's count (:data:`KERNELS`) where a launch succeeds. A CUDA graph's
+capture calls the wrappers but launches nothing, and a replay launches the
 captured kernels without calling them. Every graph of the port (the
 graphed training epochs, ``train/graphed.py``; the Grad-CAM pass and the
 serving forward, one graph per input shape, ``explain/gradcam.py`` and
@@ -22,16 +21,32 @@ import contextlib
 import gc
 from typing import Dict, Iterator
 
-from ab_line_classifier_torch.ops import (bn_act_cuda, conv_epilogue_cuda,
-                                          depthwise_cuda, preprocess_cuda)
+#: The kernels, by the key their launches are counted under: B1, B2, the
+#: conv epilogue and the batch norm pass.
+KERNELS = ("preprocess", "depthwise", "epilogue", "bn_act")
 
-_COUNTERS = {"preprocess": preprocess_cuda, "depthwise": depthwise_cuda,
-             "epilogue": conv_epilogue_cuda, "bn_act": bn_act_cuda}
+_counts: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+
+
+def add(kernel: str, n: int = 1) -> None:
+    """Count ``n`` launches of ``kernel``."""
+    _counts[kernel] += n
+
+
+def count(kernel: str) -> int:
+    """Launches of ``kernel`` since the last :func:`reset`."""
+    return _counts[kernel]
 
 
 def counts() -> Dict[str, int]:
-    """Each kernel's ``launch_count``, by kernel name."""
-    return {name: mod.launch_count for name, mod in _COUNTERS.items()}
+    """Each kernel's launches since the last :func:`reset`, by kernel."""
+    return dict(_counts)
+
+
+def reset() -> None:
+    """Zero every kernel's count."""
+    for kernel in KERNELS:
+        _counts[kernel] = 0
 
 
 class CapturedLaunches:
@@ -43,8 +58,8 @@ class CapturedLaunches:
 
     def replayed(self, n: int = 1) -> None:
         """Count ``n`` replays of the graph."""
-        for name, mod in _COUNTERS.items():
-            mod.launch_count += n * self.per_replay[name]
+        for kernel, per in self.per_replay.items():
+            add(kernel, n * per)
 
 
 @contextlib.contextmanager
@@ -65,6 +80,6 @@ def capture() -> Iterator[CapturedLaunches]:
     finally:
         if collecting:
             gc.enable()
-        for name, mod in _COUNTERS.items():
-            record.per_replay[name] = mod.launch_count - before[name]
-            mod.launch_count = before[name]
+        for kernel in KERNELS:
+            record.per_replay[kernel] = _counts[kernel] - before[kernel]
+            _counts[kernel] = before[kernel]

@@ -48,14 +48,9 @@ import numpy as np
 import torch
 
 from ab_line_classifier_torch.models.preprocess import preprocess_affine_params
+from ab_line_classifier_torch.ops._build import Kernel
 from ab_line_classifier_torch.ops.image import (UI_BLANK_HW, fused_preprocess,
                                                 nearest_indices)
-
-#: Kernel launches since the last :func:`reset_launch_count`; the launch
-#: site below adds to it, and ``ops/launches.py`` takes a CUDA graph's
-#: capture's calls back off and adds them again at each replay, where the
-#: captured launches run.
-launch_count = 0
 
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
 _ITEMSIZE = {torch.float32: 4, torch.bfloat16: 2}
@@ -94,11 +89,6 @@ STAGES = 2
 WAVES = 16
 MAX_GROUP = 16
 MAX_STAGES = 4
-
-
-def reset_launch_count() -> None:
-    global launch_count
-    launch_count = 0
 
 
 def _ceil(a: int, b: int) -> int:
@@ -278,6 +268,12 @@ class _Params(ctypes.Structure):
                 ("scale", ctypes.c_float * 3), ("bias", ctypes.c_float * 3)]
 
 
+_p = ctypes.c_void_p
+KERNEL = Kernel("preprocess", "preprocess",
+                ablc_preprocess=[_p] * 5,
+                ablc_preprocess_blocks_per_sm=[_p])
+
+
 #: The kernel's paths: rows staged in shared memory or gathered from global
 #: memory, in 48-byte units with bulk stores, and the scalar branch
 #: (gathered, one pixel a thread storing its own values). The plan picks
@@ -327,7 +323,6 @@ def plan_launch(batch, src_hw, out_hw, resize_mode, preprocess_mode,
     included) for its kernel instance, threads and shared memory, which
     sizes the grid where :func:`launch_plan` uses it. ``path`` goes to
     :func:`launch_plan`."""
-    lib = _library()
     kw = dict(batch=batch, out_dtype=out_dtype,
               blank_ui_region=blank_ui_region,
               sms=torch.cuda.get_device_properties(
@@ -335,8 +330,7 @@ def plan_launch(batch, src_hw, out_hw, resize_mode, preprocess_mode,
     plan = launch_plan(src_hw, out_hw, resize_mode, **kw)
     args = LaunchArgs(plan, src_hw, batch, resize_mode, preprocess_mode,
                       out_dtype)
-    with torch.cuda.device(device):
-        fit = lib.ablc_preprocess_blocks_per_sm(args.ref)
+    fit = KERNEL.query("ablc_preprocess_blocks_per_sm", device, args.ref)
     if fit < 1:
         raise RuntimeError(f"no block of {plan.threads} threads and "
                            f"{plan.smem} bytes fits on an SM")
@@ -348,47 +342,15 @@ def plan_launch(batch, src_hw, out_hw, resize_mode, preprocess_mode,
     return plan, args
 
 
-_lib: Optional[ctypes.CDLL] = None
-
-
-def typed(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """``lib`` (a build of ``csrc/preprocess.cu``) with its functions
-    typed."""
-    p = ctypes.c_void_p
-    lib.ablc_preprocess.argtypes = [p, p, p, p, p]
-    lib.ablc_preprocess.restype = ctypes.c_int
-    lib.ablc_preprocess_blocks_per_sm.argtypes = [p]
-    lib.ablc_preprocess_blocks_per_sm.restype = ctypes.c_int
-    lib.ablc_error_string.argtypes = [ctypes.c_int]
-    lib.ablc_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _library() -> ctypes.CDLL:
-    """The kernel's library, built on first use."""
-    global _lib
-    if _lib is None:
-        from ab_line_classifier_torch.ops._build import load_library
-
-        _lib = typed(load_library("preprocess"))
-    return _lib
-
-
 def launch(frames: torch.Tensor, out: torch.Tensor, args: LaunchArgs,
-           mask: Optional[torch.Tensor] = None) -> None:
+           mask: Optional[torch.Tensor] = None, count: bool = False) -> None:
     """One launch on contiguous ``frames`` into ``out`` (the shapes, dtype
     and device ``args`` was made for; ``out`` 16-byte aligned), on the
-    current stream; raises if the launch fails. Counts nothing."""
-    lib = _lib or _library()
-    dev = frames.device
-    with torch.cuda.device(dev):
-        rc = lib.ablc_preprocess(frames.data_ptr(), out.data_ptr(),
-                                 None if mask is None else mask.data_ptr(),
-                                 args.ref,
-                                 torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError("preprocess kernel launch failed: "
-                           + lib.ablc_error_string(rc).decode())
+    current stream; raises if the launch fails. Counted only where
+    ``count``: :func:`cuda_preprocess`'s launches are."""
+    KERNEL.launch("ablc_preprocess", frames.device, frames.data_ptr(),
+                  out.data_ptr(), None if mask is None else mask.data_ptr(),
+                  args.ref, count=count)
 
 
 def cuda_preprocess(frames: torch.Tensor, *,
@@ -399,7 +361,6 @@ def cuda_preprocess(frames: torch.Tensor, *,
     """Launch the kernel on a CUDA uint8 ``[B, H, W, 3]`` (or ``[H, W, 3]``)
     tensor, on the current stream. ``mask`` is a ``[H, W]`` beam mask at
     source resolution (0/1 values; see the module note)."""
-    global launch_count
     if frames.device.type != "cuda":
         raise ValueError(f"cuda_preprocess needs a CUDA tensor, got "
                          f"{frames.device}")
@@ -437,8 +398,7 @@ def cuda_preprocess(frames: torch.Tensor, *,
         if tuple(m.shape) != (hs, ws):
             raise ValueError(f"mask shape {tuple(m.shape)} != source "
                              f"{(hs, ws)}")
-    launch(frames, out, args, m)
-    launch_count += 1
+    launch(frames, out, args, m, count=True)
     return out[0] if squeeze else out
 
 

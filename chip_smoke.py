@@ -995,6 +995,7 @@ def b1_shape_timings(gen, shapes=None):
 def phase_preprocess(kind, smi):
     """Phase 3; returns B1's timings at :data:`B1_SHAPES` and its max abs
     err, which must be 0.0."""
+    from ab_line_classifier_torch.ops import launches as LC
     from ab_line_classifier_torch.ops import preprocess_cuda as PC
     from ab_line_classifier_torch.ops.image import (
         MASK_OPTIONS, OUT_DTYPES, PREPROCESS_MODES, RESIZE_MODES,
@@ -1002,7 +1003,7 @@ def phase_preprocess(kind, smi):
 
     phase("3 preprocess kernel against its plain version")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    max_err, n_calls, count0 = 0.0, 0, PC.launch_count
+    max_err, n_calls, count0 = 0.0, 0, LC.count("preprocess")
 
     def check(x, **kw):
         """The wrapper (the plan's path, counted) and each path of the
@@ -1055,8 +1056,9 @@ def phase_preprocess(kind, smi):
               out_dtype=torch.float32, blank_ui_region=True)
     del clip
     torch.cuda.synchronize()
-    if PC.launch_count - count0 != n_calls:
-        raise AssertionError(f"launch counter: {PC.launch_count - count0} "
+    if LC.count("preprocess") - count0 != n_calls:
+        raise AssertionError(f"launch counter: "
+                             f"{LC.count('preprocess') - count0} "
                              f"for {n_calls} calls of the wrapper")
     print(f"grid (calls of the wrapper, each also on every one of the "
           f"{len(PC.PATHS)} paths): {n_grid} over 3 source sizes; {n_edge} "
@@ -1171,14 +1173,15 @@ def phase_depthwise(smi, shapes, b7_shape):
     efficientnetb7's largest 5x5 layer, and its max abs err."""
     from ab_line_classifier_torch.ops import depthwise as D
     from ab_line_classifier_torch.ops import depthwise_cuda as DC
+    from ab_line_classifier_torch.ops import launches as LC
 
     phase("4 depthwise kernel against its plain version")
     gen = torch.Generator(device="cuda").manual_seed(1)
-    count0 = DC.launch_count
+    count0 = LC.count("depthwise")
     n_calls, max_err = depthwise_grid(gen)
     n_path, path_err = depthwise_path_shapes(gen, shapes)
     torch.cuda.synchronize()
-    if DC.launch_count - count0 != n_calls + n_path:
+    if LC.count("depthwise") - count0 != n_calls + n_path:
         raise AssertionError("launch counter did not count every launch")
     print(f"grid: {n_calls} cases (K 1/3/5/7, f32/bf16, C 3..3840 with and "
           f"without whole 16-byte vectors, H/W 4..20, batch 1..3, unaligned "
@@ -1258,14 +1261,14 @@ def phase_serving(spec, state_dict, batch, frames480, frames128, tap,
     times per forward; then GPU vs CPU. Returns (predictor, B1 launches,
     B2 launches)."""
     from ab_line_classifier_torch.ops import depthwise_cuda as DC
-    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+    from ab_line_classifier_torch.ops import launches as LC
     from ab_line_classifier_torch.predict.predict import Predictor
 
     predictor = Predictor(spec, state_dict, batch_size=batch, device="cuda")
-    PC.reset_launch_count()
-    DC.reset_launch_count()
+    LC.reset()
+    DC.copy_count = 0
     probs, n_clips, seconds = serve_clips(predictor, frames480, frames128)
-    pre, dw = PC.launch_count, DC.launch_count
+    pre, dw = LC.count("preprocess"), LC.count("depthwise")
     forwards = -(-len(frames480) // batch) - (-len(frames128) // batch)
     if pre != forwards:
         raise AssertionError(f"{spec.name}: {pre} preprocess launches for "
@@ -1293,12 +1296,12 @@ def phase_serving(spec, state_dict, batch, frames480, frames128, tap,
 
 def throughput(spec, state_dict, bs, per_forward, smi):
     from ab_line_classifier_torch.ops import depthwise_cuda as DC
-    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+    from ab_line_classifier_torch.ops import launches as LC
     from ab_line_classifier_torch.predict.benchmark import (
         clip_inference_benchmark)
 
-    PC.reset_launch_count()
-    DC.reset_launch_count()
+    LC.reset()
+    DC.copy_count = 0
     r = clip_inference_benchmark(batch_size=bs, img_dim=OUT_HW,
                                  n_warmup=WARMUP, n_iters=ITERS,
                                  state_dict=state_dict, spec=spec,
@@ -1306,13 +1309,13 @@ def throughput(spec, state_dict, bs, per_forward, smi):
     # Warm-up, then n and 2n timed forwards (n more if the n-vs-2n dispatch
     # check falls back to per-iteration syncs); the FLOP count's one-frame
     # forward of the model adds one more depthwise pass.
-    forwards = PC.launch_count
+    forwards = LC.count("preprocess")
     if forwards not in (WARMUP + 3 * ITERS, WARMUP + 4 * ITERS):
         raise AssertionError(f"benchmark launched the preprocess kernel "
                              f"{forwards} times")
-    if DC.launch_count != per_forward * (forwards + 1):
+    if LC.count("depthwise") != per_forward * (forwards + 1):
         raise AssertionError(f"benchmark launched the depthwise kernel "
-                             f"{DC.launch_count} times in {forwards} "
+                             f"{LC.count('depthwise')} times in {forwards} "
                              f"forwards")
     if DC.copy_count:
         raise AssertionError(f"benchmark: the depthwise wrapper copied "
@@ -1325,7 +1328,8 @@ def throughput(spec, state_dict, bs, per_forward, smi):
           f"ms/batch, {r['flops_per_frame'] / 1e9:.4f} GFLOP/frame, "
           f"{100 * share:.2f}% of 989 TFLOP/s bf16, graphed (capture "
           f"{r['capture_seconds']:.4f} s); preprocess launches "
-          f"{forwards}, depthwise launches {DC.launch_count}", flush=True)
+          f"{forwards}, depthwise launches {LC.count('depthwise')}",
+          flush=True)
     return r
 
 
@@ -1500,15 +1504,15 @@ def phase_gradcam(spec, state_dict, per_forward, frames480, frames128, smi):
     from ab_line_classifier_torch.explain.gradcam import (GradCAMExplainer,
                                                           heatmap_overlay)
     from ab_line_classifier_torch.ops import depthwise_cuda as DC
-    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+    from ab_line_classifier_torch.ops import launches as LC
     from ab_line_classifier_torch.predict.benchmark import (
         clip_inference_benchmark, gradcam_benchmark)
 
     explainers = {mode: GradCAMExplainer(explain_config(mode), spec,
                                          state_dict, mode, "cuda")
                   for mode in ("normal", "plusplus")}
-    PC.reset_launch_count()
-    DC.reset_launch_count()
+    LC.reset()
+    DC.copy_count = 0
     t0 = time.perf_counter()
     n_batches = 0
     for mode, ex in explainers.items():
@@ -1529,7 +1533,7 @@ def phase_gradcam(spec, state_dict, per_forward, frames480, frames128, smi):
                                          f"probabilities or heatmaps out "
                                          f"of range")
     seconds = time.perf_counter() - t0
-    pre, dw = PC.launch_count, DC.launch_count
+    pre, dw = LC.count("preprocess"), LC.count("depthwise")
     if pre != n_batches or dw != per_forward * n_batches or DC.copy_count:
         raise AssertionError(f"{spec.name} Grad-CAM: {pre} preprocess and "
                              f"{dw} depthwise launches, {DC.copy_count} "
@@ -1612,17 +1616,17 @@ def phase_latency(spec, state_dict, per_forward, smi):
     bf16-vs-float32 floor. Returns (B1 launches, B2 launches, {kernel:
     runs per replay}, replays)."""
     from ab_line_classifier_torch.ops import depthwise_cuda as DC
-    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+    from ab_line_classifier_torch.ops import launches as LC
     from ab_line_classifier_torch.predict.benchmark import (
         clock_avg_runtime, single_frame_latency_benchmark)
     from ab_line_classifier_torch.predict.predict import Predictor
 
-    PC.reset_launch_count()
-    DC.reset_launch_count()
+    LC.reset()
+    DC.copy_count = 0
     r = single_frame_latency_benchmark(img_dim=OUT_HW, state_dict=state_dict,
                                        spec=spec, device="cuda",
                                        verbose=False)
-    pre, dw = PC.launch_count, DC.launch_count
+    pre, dw = LC.count("preprocess"), LC.count("depthwise")
     per_step = r["graph_launches_per_step"]
     if per_step != {"preprocess": 1, "depthwise": per_forward,
                     "epilogue": EPILOGUES.get(spec.name, 0),
@@ -1740,7 +1744,7 @@ def train_cutoffvgg16(sd, tr, va, images, labels):
     phase may move. Returns (B1, B2 launches)."""
     from ab_line_classifier_torch.models import build_model
     from ab_line_classifier_torch.ops import depthwise_cuda as DC
-    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+    from ab_line_classifier_torch.ops import launches as LC
     from ab_line_classifier_torch.predict.benchmark import (TRAIN_AUG,
                                                             ZOO_HPARAMS)
     from ab_line_classifier_torch.train.loop import Trainer
@@ -1751,15 +1755,15 @@ def train_cutoffvgg16(sd, tr, va, images, labels):
     trainer = Trainer(spec, aug_config=TRAIN_AUG, seed=10001,
                       compute_dtype=torch.bfloat16, device="cuda")
     snaps = EpochSnapshots()
-    PC.reset_launch_count()
-    DC.reset_launch_count()
+    LC.reset()
+    DC.copy_count = 0
     t0 = time.perf_counter()
     final, hist = trainer.fit(tr, va, batch_size=TRAIN_BATCH,
                               epochs=VGG_EPOCHS, patience=15, variables=sd,
                               callbacks=[snaps], verbose=False)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    b1, b2 = PC.launch_count, DC.launch_count
+    b1, b2 = LC.count("preprocess"), LC.count("depthwise")
     val_batches = len(hist) * va.n_batches(TRAIN_BATCH)
     phases = [h.phase for h in hist]
     want = ["extract"] * VGG_EXTRACT_EPOCHS + ["finetune"] * (
@@ -1799,7 +1803,7 @@ def train_cutoffvgg16(sd, tr, va, images, labels):
     losses = fixed_batch_losses("cutoffvgg16", sd, images[:TRAIN_BATCH],
                                 labels[:TRAIN_BATCH])
     check_loss_falls("cutoffvgg16", losses)
-    return PC.launch_count, DC.launch_count
+    return LC.count("preprocess"), LC.count("depthwise")
 
 
 def train_mobilenetv2(spec, sd, tr, va, images, labels):
@@ -1808,19 +1812,19 @@ def train_mobilenetv2(spec, sd, tr, va, images, labels):
     validation batch and no input copied, then 30 steps on one fixed batch.
     Returns (B1, B2 launches)."""
     from ab_line_classifier_torch.ops import depthwise_cuda as DC
-    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+    from ab_line_classifier_torch.ops import launches as LC
     from ab_line_classifier_torch.predict.benchmark import TRAIN_AUG
     from ab_line_classifier_torch.train.loop import Trainer
 
     per_forward = ZOO["mobilenetv2"][1]
     trainer = Trainer(spec, aug_config=TRAIN_AUG, seed=10001,
                       compute_dtype=torch.bfloat16, device="cuda")
-    PC.reset_launch_count()
-    DC.reset_launch_count()
+    LC.reset()
+    DC.copy_count = 0
     _, hist = trainer.fit(tr, va, batch_size=TRAIN_BATCH, epochs=1,
                           variables=sd, verbose=False)
     steps, evals = tr.n_batches(TRAIN_BATCH), va.n_batches(TRAIN_BATCH)
-    fit_counts = (PC.launch_count, DC.launch_count)
+    fit_counts = (LC.count("preprocess"), LC.count("depthwise"))
     if fit_counts != (evals, per_forward * (steps + evals)) \
             or DC.copy_count:
         raise AssertionError(f"mobilenetv2 fit: launches {fit_counts} for "
@@ -1832,15 +1836,16 @@ def train_mobilenetv2(spec, sd, tr, va, images, labels):
           f"depthwise launches {fit_counts[1]} ({per_forward} in each of "
           f"{steps} training forwards and {evals} validation batches), "
           f"input copies {DC.copy_count}", flush=True)
-    before = DC.launch_count
+    before = LC.count("depthwise")
     losses = fixed_batch_losses("mobilenetv2", sd, images[:TRAIN_BATCH],
                                 labels[:TRAIN_BATCH])
-    if DC.launch_count - before != per_forward * len(losses) \
+    if LC.count("depthwise") - before != per_forward * len(losses) \
             or DC.copy_count:
-        raise AssertionError(f"mobilenetv2: {DC.launch_count - before} "
+        raise AssertionError(f"mobilenetv2: "
+                             f"{LC.count('depthwise') - before} "
                              f"depthwise launches in {len(losses)} steps")
     check_loss_falls("mobilenetv2", losses)
-    return PC.launch_count, DC.launch_count
+    return LC.count("preprocess"), LC.count("depthwise")
 
 
 def step_gpu_vs_cpu(spec, sd, images, labels, smi):
@@ -1935,14 +1940,14 @@ def depthwise_gradients(spec, smi):
     DW_LAYER_RTOL (B2's backward is the grouped conv's gradient; its
     forward agrees with cuDNN's to float32 rounding)."""
     from ab_line_classifier_torch.ops import depthwise as DW
-    from ab_line_classifier_torch.ops import depthwise_cuda as DC
+    from ab_line_classifier_torch.ops import launches as LC
     from ab_line_classifier_torch.predict.benchmark import (
         depthwise_layer_shapes)
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     shapes = sorted(set(depthwise_layer_shapes(spec)))
     layer_err = 0.0
-    count0 = DC.launch_count
+    count0 = LC.count("depthwise")
     for (_, h, w, c), k in shapes:
         x = torch.randn((TRAIN_BATCH, h, w, c), device="cuda",
                         generator=gen).permute(0, 3, 1, 2)
@@ -1957,7 +1962,7 @@ def depthwise_gradients(spec, smi):
                         + torch.autograd.grad(y, (xi, wi), g))
         layer_err = max(layer_err,
                         *(rel_err(a, b) for a, b in zip(*outs)))
-    launches = DC.launch_count - count0
+    launches = LC.count("depthwise") - count0
     print(f"depthwise gradients through B2 vs the grouped conv, float32 "
           f"({smi}): {len(shapes)} layer shapes of {spec.name} at batch "
           f"{TRAIN_BATCH}, output and gradients max relative "
@@ -2251,7 +2256,7 @@ class RunMeter:
 
     def __enter__(self):
         from ab_line_classifier_torch.ops import depthwise_cuda as DC
-        from ab_line_classifier_torch.ops import preprocess_cuda as PC
+        from ab_line_classifier_torch.ops import launches as LC
         from ab_line_classifier_torch.train import experiment as E
         from ab_line_classifier_torch.train.loop import Trainer
 
@@ -2266,8 +2271,8 @@ class RunMeter:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             rec = {"run": key, "t0": time.perf_counter(), "train_s": 0.0,
-                   "frames": 0, "pre": PC.launch_count,
-                   "dw": DC.launch_count, "copies": DC.copy_count,
+                   "frames": 0, "pre": LC.count("preprocess"),
+                   "dw": LC.count("depthwise"), "copies": DC.copy_count,
                    "paths": set(), "captures": {},
                    "retries": alloc_retries(),
                    "reserved": torch.cuda.memory_reserved()}
@@ -2275,8 +2280,8 @@ class RunMeter:
             result = run_fn(cfg, **kw)
             torch.cuda.synchronize()
             rec.update(wall=time.perf_counter() - rec["t0"],
-                       pre=PC.launch_count - rec["pre"],
-                       dw=DC.launch_count - rec["dw"],
+                       pre=LC.count("preprocess") - rec["pre"],
+                       dw=LC.count("depthwise") - rec["dw"],
                        copies=DC.copy_count - rec["copies"],
                        peak=torch.cuda.max_memory_allocated(),
                        retries=alloc_retries() - rec["retries"],
@@ -2381,7 +2386,7 @@ def phase_experiments(smi):
     from ab_line_classifier_torch.data.pipeline import FrameArrays
     from ab_line_classifier_torch.data.splits import FoldSet
     from ab_line_classifier_torch.ops import depthwise_cuda as DC
-    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+    from ab_line_classifier_torch.ops import launches as LC
     from ab_line_classifier_torch.train import experiment as E
     from ab_line_classifier_torch.train.sweep import (make_controller,
                                                       replay_trials,
@@ -2401,8 +2406,8 @@ def phase_experiments(smi):
                             "cross_validation")
     source = E.FoldSource(frames, folds)
     records = os.path.join(cfg["PATHS"]["EXPERIMENTS"], "kfold-smoke.jsonl")
-    PC.reset_launch_count()
-    DC.reset_launch_count()
+    LC.reset()
+    DC.copy_count = 0
     t0 = time.perf_counter()
     with RunMeter(stop_at=1) as first:
         try:
@@ -2431,9 +2436,10 @@ def phase_experiments(smi):
                [folds.fold(k) for k in range(EXP_FOLDS)], 0, smi,
                path="graphed")
     if (sum(r["pre"] for r in runs), sum(r["dw"] for r in runs)) != (
-            PC.launch_count, DC.launch_count):
+            LC.count("preprocess"), LC.count("depthwise")):
         raise AssertionError("launches outside the folds' runs")
-    launches["cross_validation"] = (PC.launch_count, DC.launch_count)
+    launches["cross_validation"] = (LC.count("preprocess"),
+                                    LC.count("depthwise"))
     serial = {"cross_validation": serial_stats(runs, seconds)}
     stats = {r["fold"]: r for r in summary}
     print(f"cross_validation: {EXP_FOLDS} folds of cutoffvgg16 128x128 "
@@ -2452,8 +2458,8 @@ def phase_experiments(smi):
                             "hparam_search")
     split = FoldSet(*([part] for part in folds.fold(0)))
     source = E.FoldSource(frames, split)
-    PC.reset_launch_count()
-    DC.reset_launch_count()
+    LC.reset()
+    DC.copy_count = 0
     t0 = time.perf_counter()
     with RunMeter() as sweep:
         out = E.hparam_search(cfg, sweep_id="sweep-smoke", verbose=False,
@@ -2462,7 +2468,7 @@ def phase_experiments(smi):
     seconds = time.perf_counter() - t0
     check_runs("hparam_search trial", sweep.runs, [split.fold(0)] * len(
         sweep.runs), ZOO["mobilenetv2"][1], smi, path="graphed")
-    launches["hparam_search"] = (PC.launch_count, DC.launch_count)
+    launches["hparam_search"] = (LC.count("preprocess"), LC.count("depthwise"))
     serial["hparam_search"] = serial_stats(sweep.runs, seconds)
     trials = out["trials"]
     replay = make_controller("bayes", space_from_config(MBV2_SEARCH),
@@ -2531,6 +2537,7 @@ def trial_launch_checks(spec, smi):
     the timings by F."""
     from ab_line_classifier_torch.ops import depthwise as DW
     from ab_line_classifier_torch.ops import depthwise_cuda as DC
+    from ab_line_classifier_torch.ops import launches as LC
     from ab_line_classifier_torch.predict.benchmark import (
         depthwise_layer_shapes)
 
@@ -2543,11 +2550,13 @@ def trial_launch_checks(spec, smi):
         for shape, k in sorted(set(shapes)):
             x, wt = stacked_depthwise_case((TRAIN_BATCH,) + shape[1:], k, n,
                                            dtype, gen)
-            launches, copies = DC.launch_count, DC.copy_count
+            launches, copies = LC.count("depthwise"), DC.copy_count
             y = vdw(x, wt)
-            if (DC.launch_count - launches, DC.copy_count - copies) != (1, 0):
+            if (LC.count("depthwise") - launches,
+                    DC.copy_count - copies) != (1, 0):
                 raise AssertionError(f"trial launch at {shape} F={n}: "
-                                     f"{DC.launch_count - launches} launches"
+                                     f"{LC.count('depthwise') - launches} "
+                                     f"launches"
                                      f", {DC.copy_count - copies} copies")
             for t in range(n):
                 xt = x[:, t].contiguous(memory_format=torch.channels_last)
@@ -2645,6 +2654,7 @@ def stacked_vs_serial_step(name, n, smi):
     from ab_line_classifier_torch.models import build_model
     from ab_line_classifier_torch.ops import depthwise as DW
     from ab_line_classifier_torch.ops import depthwise_cuda as DC
+    from ab_line_classifier_torch.ops import launches as LC
     from ab_line_classifier_torch.ops import metrics as M
     from ab_line_classifier_torch.parallel.trial_parallel import (
         ParallelFoldTrainer, _stack)
@@ -2688,11 +2698,11 @@ def stacked_vs_serial_step(name, n, smi):
         buffers = {k: _stack([s[k] for s in states], "cuda")
                    for k in states[0] if k not in pnames}
         opt = pt.begin_phase(phase_idx, phase, params)
-        dc0 = (DC.launch_count, DC.copy_count)
+        dc0 = (LC.count("depthwise"), DC.copy_count)
         losses = pt.train_step(params, buffers, opt, images, labels, mask,
                                np.ones(n), np.ones(n),
                                M.init_metrics(2, device="cuda", trials=n))
-        dw = DC.launch_count - dc0[0]
+        dw = LC.count("depthwise") - dc0[0]
         step = 1.0 if phase.optimizer == "adam" else 1.0 / np.sqrt(0.1)
         upd_err, grad_err, loss_err, n_held, n_all = 0.0, 0.0, 0.0, 0, 0
         for t in range(n):
@@ -2824,14 +2834,14 @@ def run_trial_parallel(label, fn, want, smi, serial=None, **kw):
     import io
 
     from ab_line_classifier_torch.ops import depthwise_cuda as DC
-    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+    from ab_line_classifier_torch.ops import launches as LC
 
-    PC.reset_launch_count()
-    DC.reset_launch_count()
+    LC.reset()
+    DC.copy_count = 0
     out = io.StringIO()
     with TrialMeter() as meter, contextlib.redirect_stdout(out):
         result = fn(device="cuda", verbose=False, **kw)
-    got = (PC.launch_count, DC.launch_count)
+    got = (LC.count("preprocess"), LC.count("depthwise"))
     rec = meter.rec
     text = out.getvalue()
     print(f"{label} on {smi}: wall {rec['wall']:.3f} s, setup "
@@ -3112,7 +3122,7 @@ def serve_deploy_clip(name, ckpt_dir, clip, smi):
     import tempfile
 
     from ab_line_classifier_torch.ops import depthwise_cuda as DC
-    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+    from ab_line_classifier_torch.ops import launches as LC
     from ab_line_classifier_torch.ops.image import (fused_preprocess,
                                                     max_ulp_error)
     from ab_line_classifier_torch.predict import deploy as D
@@ -3121,13 +3131,14 @@ def serve_deploy_clip(name, ckpt_dir, clip, smi):
     with tempfile.TemporaryDirectory() as tmp:
         csv_path = os.path.join(tmp, "preds.csv")
         torch.cuda.synchronize()
-        PC.reset_launch_count()
-        DC.reset_launch_count()
+        LC.reset()
+        DC.copy_count = 0
         t0 = time.perf_counter()
         probs = D.predict_wavebase_mp4(ckpt_dir, "", csv_path, frames=clip,
                                        device="cuda")
         wall = time.perf_counter() - t0
-        b1, b2, copies = PC.launch_count, DC.launch_count, DC.copy_count
+        b1, b2, copies = (LC.count("preprocess"), LC.count("depthwise"),
+                          DC.copy_count)
         read_preds_csv(csv_path, probs)
     want_b2 = ZOO[name][1] if name in ZOO else 0
     if (b1, b2, copies) != (1, want_b2, 0):
@@ -3301,8 +3312,8 @@ def phase_automask(smi):
         UNET_INPUT, UnetSegmentation, ieee_float32)
     from ab_line_classifier_torch.models.unet import seeded_unet_state
     from ab_line_classifier_torch.ops import depthwise_cuda as DC
+    from ab_line_classifier_torch.ops import launches as LC
     from ab_line_classifier_torch.ops import morphology as M
-    from ab_line_classifier_torch.ops import preprocess_cuda as PC
     from ab_line_classifier_torch.ops.image import skimage_downsample
 
     state = seeded_unet_state(16, 8)
@@ -3323,15 +3334,15 @@ def phase_automask(smi):
          torch.backends.cuda.matmul.allow_tf32) = tf32_default
         try:
             torch.cuda.synchronize()
-            PC.reset_launch_count()
-            DC.reset_launch_count()
+            LC.reset()
+            DC.copy_count = 0
             t0 = time.perf_counter()
             probs = gpu.predict_masks(sampled)
             mask, bbox = gpu.clip_mask(sampled, hw)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            b1 += PC.launch_count
-            b2 += DC.launch_count
+            b1 += LC.count("preprocess")
+            b2 += LC.count("depthwise")
             t0 = time.perf_counter()
             gpu.clip_mask(sampled, hw)
             torch.cuda.synchronize()
@@ -3609,7 +3620,7 @@ def phase_attribution(smi, models, serve_ms):
     and the uint8 input). Returns ((B1, B2 launches), per-model
     summaries)."""
     from ab_line_classifier_torch.ops import depthwise_cuda as DC
-    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+    from ab_line_classifier_torch.ops import launches as LC
     from ab_line_classifier_torch.predict.attribution import (
         attribute_stages, serving_boundaries, stage_segments)
     from ab_line_classifier_torch.predict.benchmark import flops_per_frame
@@ -3621,8 +3632,8 @@ def phase_attribution(smi, models, serve_ms):
         spec, state = models[name]
         boundaries = serving_boundaries(spec.graph)
         torch.cuda.synchronize()
-        PC.reset_launch_count()
-        DC.reset_launch_count()
+        LC.reset()
+        DC.copy_count = 0
         t0 = time.perf_counter()
         rows = attribute_stages(spec, state, batch=batch,
                                 boundaries=boundaries, iters=ATTR_ITERS,
@@ -3630,7 +3641,7 @@ def phase_attribution(smi, models, serve_ms):
                                 verbose=False)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        b1, b2 = PC.launch_count, DC.launch_count
+        b1, b2 = LC.count("preprocess"), LC.count("depthwise")
         launches[0] += b1
         launches[1] += b2
         if b1 or DC.copy_count:
@@ -3704,7 +3715,7 @@ def export_roundtrip(name, spec, state, root, frames, smi):
     from ab_line_classifier_torch.export import export_checkpoint
     from ab_line_classifier_torch.models import build_model
     from ab_line_classifier_torch.ops import depthwise_cuda as DC
-    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+    from ab_line_classifier_torch.ops import launches as LC
     from ab_line_classifier_torch.ops.preprocess_cuda import preprocess_frames
     from ab_line_classifier_torch.predict.predict import Predictor
     from ab_line_classifier_torch.utils import checkpoint as ckpt
@@ -3715,8 +3726,8 @@ def export_roundtrip(name, spec, state, root, frames, smi):
     out = os.path.join(root, f"{name}.onnx")
     cfg = export_config(name)
     torch.cuda.synchronize()
-    PC.reset_launch_count()
-    DC.reset_launch_count()
+    LC.reset()
+    DC.copy_count = 0
     t0 = time.perf_counter()
     export_checkpoint(ckpt_dir, out, batch_size=EXPORT_EVAL_FRAMES, cfg=cfg,
                       device="cuda")
@@ -3730,7 +3741,7 @@ def export_roundtrip(name, spec, state, root, frames, smi):
     got = restored.predict_probs(frames)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
-    b1, b2 = PC.launch_count, DC.launch_count
+    b1, b2 = LC.count("preprocess"), LC.count("depthwise")
     want_b2 = {"cutoffvgg16": 0, **{k: v[1] for k, v in ZOO.items()}}[name]
     if b1 != 1 or b2 != want_b2 or DC.copy_count:
         raise AssertionError(f"{name} from .onnx: B1 {b1}, B2 {b2} launches "
@@ -4222,7 +4233,7 @@ def jpeg_training(vgg_sd, table, fdir, native_ok, root, smi):
                                                         FrameDataset)
     from ab_line_classifier_torch.models import build_model
     from ab_line_classifier_torch.ops import depthwise_cuda as DC
-    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+    from ab_line_classifier_torch.ops import launches as LC
     from ab_line_classifier_torch.predict.benchmark import (TRAIN_AUG,
                                                             ZOO_HPARAMS)
     from ab_line_classifier_torch.train.loop import Trainer
@@ -4245,15 +4256,15 @@ def jpeg_training(vgg_sd, table, fdir, native_ok, root, smi):
         for backend in ("wandb", "tensorboard", "local")}
     trainer = Trainer(spec, aug_config=TRAIN_AUG, seed=10001,
                       compute_dtype=torch.bfloat16, device="cuda")
-    PC.reset_launch_count()
-    DC.reset_launch_count()
+    LC.reset()
+    DC.copy_count = 0
     t0 = time.perf_counter()
     _, hist = trainer.fit(tr, va, batch_size=STREAM_BATCH, epochs=1,
                           variables=vgg_sd, verbose=False,
                           tracker=Tee(*trackers.values()))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = (PC.launch_count, DC.launch_count)
+    launches = (LC.count("preprocess"), LC.count("depthwise"))
     for t in trackers.values():
         t.finish()
     want = len(hist) * va.n_batches(STREAM_BATCH)
@@ -4360,7 +4371,7 @@ def phase_jpeg_wandb(smi, vgg_sd):
     from ab_line_classifier_torch.data.wandb_artifacts import publish_all
     from ab_line_classifier_torch.ops import _build
     from ab_line_classifier_torch.ops import depthwise_cuda as DC
-    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+    from ab_line_classifier_torch.ops import launches as LC
     from ab_line_classifier_torch.train import experiment as E
 
     t_phase = time.perf_counter()
@@ -4442,15 +4453,16 @@ def phase_jpeg_wandb(smi, vgg_sd):
               f"byte-equal to the served ones, {sizes}; the second resolve "
               f"downloaded nothing", flush=True)
 
-        PC.reset_launch_count()
-        DC.reset_launch_count()
+        LC.reset()
+        DC.copy_count = 0
         t0 = time.perf_counter()
         stand_in.logs.clear()
         with RunMeter() as sweep:
             out = E.hparam_search(cfg, verbose=False, device="cuda")
         torch.cuda.synchronize()
         sweep_s = time.perf_counter() - t0
-        launches["wandb_sweep"] = (PC.launch_count, DC.launch_count)
+        launches["wandb_sweep"] = (LC.count("preprocess"),
+                                   LC.count("depthwise"))
         check_runs("wandb sweep trial", sweep.runs,
                    [(tr, va, te)] * len(sweep.runs), ZOO["mobilenetv2"][1],
                    smi)
@@ -4468,7 +4480,8 @@ def phase_jpeg_wandb(smi, vgg_sd):
               + "; ".join(f"{t['LR']:.3e} {v:.6f}"
                           for t, v in zip(out["trials"], sent))
               + f"; best_params {out['best_params']}; preprocess launches "
-              f"{PC.launch_count}, depthwise {DC.launch_count}", flush=True)
+              f"{LC.count('preprocess')}, depthwise "
+              f"{LC.count('depthwise')}", flush=True)
         if DC.copy_count:
             raise AssertionError(f"{DC.copy_count} depthwise input copies")
 
@@ -4641,7 +4654,7 @@ def md_rank(rank, port, out):
     from ab_line_classifier_torch.data.pipeline import (
         DeviceCachedDataset, ShardedDeviceCachedDataset)
     from ab_line_classifier_torch.ops import depthwise_cuda as DC
-    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+    from ab_line_classifier_torch.ops import launches as LC
     from ab_line_classifier_torch.parallel import mesh as mesh_lib
     from ab_line_classifier_torch.predict.benchmark import build_flagship
     from ab_line_classifier_torch.predict.predict import Predictor
@@ -4657,8 +4670,8 @@ def md_rank(rank, port, out):
         images, labels, frames480, cache = md_frames()
         source = md_sweep_source()
         seconds = {}
-        PC.reset_launch_count()
-        DC.reset_launch_count()
+        LC.reset()
+        DC.copy_count = 0
 
         t0 = time.perf_counter()
         mesh = mesh_lib.make_mesh(n_data=2, n_trial=1, device=dev)
@@ -4716,7 +4729,7 @@ def md_rank(rank, port, out):
             mesh=mesh_lib.mesh_from_config(cfg, dev))
         torch.cuda.synchronize()
         seconds["bn_lr_search"] = time.perf_counter() - t0
-        launches = (PC.launch_count, DC.launch_count)
+        launches = (LC.count("preprocess"), LC.count("depthwise"))
         print(json.dumps({"rank": rank, "seconds": seconds,
                           "preprocess_launches": launches[0],
                           "depthwise_launches": launches[1],
@@ -4779,8 +4792,8 @@ def phase_multi_device(smi, vgg_sd):
     import torch.distributed as dist
 
     from ab_line_classifier_torch.ops import depthwise_cuda as DC
+    from ab_line_classifier_torch.ops import launches as LC
     from ab_line_classifier_torch.ops import metrics as M
-    from ab_line_classifier_torch.ops import preprocess_cuda as PC
     from ab_line_classifier_torch.parallel import mesh as mesh_lib
     from ab_line_classifier_torch.parallel.multihost import (free_port,
                                                              spawn_ranks)
@@ -4852,8 +4865,8 @@ def phase_multi_device(smi, vgg_sd):
             parts = [torch.empty_like(probe)]
             dist.all_gather(parts, probe)
             mesh = mesh_lib.make_mesh(1, 1, device="cuda")
-            PC.reset_launch_count()
-            DC.reset_launch_count()
+            LC.reset()
+            DC.copy_count = 0
             t0 = time.perf_counter()
             tr = md_trainer(vgg, vgg_sd, mesh)
             for _ in range(MD_STEPS):
@@ -4872,8 +4885,8 @@ def phase_multi_device(smi, vgg_sd):
                               compute_dtype=torch.bfloat16, device="cuda",
                               mesh=mesh).predict_probs(frames480)
             numbers["seconds"]["nccl_serving"] = time.perf_counter() - t0
-            launches["multi_device_nccl"] = (PC.launch_count,
-                                             DC.launch_count)
+            launches["multi_device_nccl"] = (LC.count("preprocess"),
+                                             LC.count("depthwise"))
         finally:
             dist.destroy_process_group()
         big, held, n_held = md_rule("world size 1", got_steps, ref_steps,
@@ -5155,7 +5168,7 @@ def g20_serial(name, spec, sd, train_ds, val_ds, batch, per_forward, smi,
     ``plan`` default G20_PLANS[name]); the rule, the launches (equal
     across the runs and to the data's counts), times."""
     from ab_line_classifier_torch.ops import depthwise_cuda as DC
-    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+    from ab_line_classifier_torch.ops import launches as LC
     from ab_line_classifier_torch.predict.benchmark import TRAIN_AUG
     from ab_line_classifier_torch.train.loop import Trainer
 
@@ -5165,12 +5178,13 @@ def g20_serial(name, spec, sd, train_ds, val_ds, batch, per_forward, smi,
     for per_step in (True, True, False):
         tr = Trainer(spec, aug_config=TRAIN_AUG, seed=2020,
                      compute_dtype=torch.bfloat16, device="cuda")
-        PC.reset_launch_count()
-        DC.reset_launch_count()
+        LC.reset()
+        DC.copy_count = 0
         logs, modes, programs = g20_drive(tr, plan, train_ds, val_ds, batch,
                                           per_step, sd)
         torch.cuda.synchronize()
-        counts.append((PC.launch_count, DC.launch_count, DC.copy_count))
+        counts.append((LC.count("preprocess"), LC.count("depthwise"),
+                       DC.copy_count))
         if modes != {"per-step" if per_step else path}:
             raise AssertionError(f"{name} at {batch}: paths {modes}")
         runs.append(g20_snapshot(g20_trainer_tensors(tr), logs))
@@ -5214,7 +5228,7 @@ def g20_stacked(name, spec, sd, cache, train, val, factors, batch,
     eager twice and graphed once; the second epoch of a phase with trial
     0's factor halved (a forced per-trial cut)."""
     from ab_line_classifier_torch.ops import depthwise_cuda as DC
-    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+    from ab_line_classifier_torch.ops import launches as LC
     from ab_line_classifier_torch.parallel.trial_parallel import (
         ParallelFoldTrainer)
     from ab_line_classifier_torch.predict.benchmark import TRAIN_AUG
@@ -5231,8 +5245,8 @@ def g20_stacked(name, spec, sd, cache, train, val, factors, batch,
         v_idx, v_mask = pt._batch_tables(val, batch)
         factor = np.asarray(factors, np.float32)
         active = np.ones(f, np.float32)
-        PC.reset_launch_count()
-        DC.reset_launch_count()
+        LC.reset()
+        DC.copy_count = 0
         logs, prev, programs = [], None, {}
         for epoch, p in enumerate(plan):
             if p != prev:
@@ -5254,7 +5268,8 @@ def g20_stacked(name, spec, sd, cache, train, val, factors, batch,
                 programs[f"{key}{p}" if key == "train" else key] = (
                     prog.step.summary())
         torch.cuda.synchronize()
-        counts.append((PC.launch_count, DC.launch_count, DC.copy_count))
+        counts.append((LC.count("preprocess"), LC.count("depthwise"),
+                       DC.copy_count))
         tensors = {**{f"p.{k}": v for k, v in params.items()},
                    **{f"b.{k}": v for k, v in buffers.items()},
                    **{f"opt.{n}.{k}": v for n, slots in opt.state.items()
@@ -5301,7 +5316,7 @@ def phase_graphed_epochs(smi, vgg_sd, mbv2_sd):
         DeviceCachedDataset, ShardedDeviceCachedDataset)
     from ab_line_classifier_torch.models import build_model
     from ab_line_classifier_torch.ops import depthwise_cuda as DC
-    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+    from ab_line_classifier_torch.ops import launches as LC
     from ab_line_classifier_torch.parallel import mesh as mesh_lib
     from ab_line_classifier_torch.parallel.multihost import free_port
     from ab_line_classifier_torch.predict.benchmark import ZOO_HPARAMS
@@ -5364,13 +5379,13 @@ def phase_graphed_epochs(smi, vgg_sd, mbv2_sd):
             tr = Trainer(specs["cutoffvgg16"], aug_config=TRAIN_AUG,
                          seed=2020, compute_dtype=torch.bfloat16,
                          device="cuda", mesh=mesh)
-            PC.reset_launch_count()
-            DC.reset_launch_count()
+            LC.reset()
+            DC.copy_count = 0
             logs, modes, programs = g20_drive(
                 tr, G20_PLANS["cutoffvgg16"], sharded, val_ds, TRAIN_BATCH,
                 False, vgg_sd)
             torch.cuda.synchronize()
-            b1, b2 = b1 + PC.launch_count, b2 + DC.launch_count
+            b1, b2 = b1 + LC.count("preprocess"), b2 + LC.count("depthwise")
             got = g20_snapshot(g20_trainer_tensors(tr), logs)[0]
             g20_release(tr)
         finally:
@@ -5519,9 +5534,8 @@ def g21_case(name, fused, shape, per_forward, smi):
     """One model, mode and batch shape: the rule, the launches inside the
     replays, ms per batch graphed and eager. Returns the graphed calls'
     (B1, B2) and the case's numbers."""
-    from ab_line_classifier_torch.ops import bn_act_cuda as BA
     from ab_line_classifier_torch.ops import depthwise_cuda as DC
-    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+    from ab_line_classifier_torch.ops import launches as LC
 
     label = f"{name} Grad-CAM [{fused.mode}] {'x'.join(map(str, shape))}"
     rng = np.random.default_rng(21)
@@ -5534,17 +5548,16 @@ def g21_case(name, fused, shape, per_forward, smi):
         # The eager pass once a batch (its outputs laid out in G21_ORDER),
         # the graphed one on every call of G21_ORDER.
         calls = range(2) if fn is fused.eager else G21_ORDER
-        PC.reset_launch_count()
-        DC.reset_launch_count()
-        BA.reset_launch_count()
+        LC.reset()
+        DC.copy_count = 0
         outs = dict(enumerate(fn(batches[i]) for i in calls))
         torch.cuda.synchronize()
-        counts.append((PC.launch_count, DC.launch_count, DC.copy_count,
-                       len(calls)))
+        counts.append((LC.count("preprocess"), LC.count("depthwise"),
+                       DC.copy_count, len(calls)))
         # The batch norms before the tap take the pass, eager and graphed.
-        if BA.launch_count != bn_acts * len(calls):
+        if LC.count("bn_act") != bn_acts * len(calls):
             raise AssertionError(f"{label}: batch norm pass launches "
-                                 f"{BA.launch_count} in {len(calls)} "
+                                 f"{LC.count('bn_act')} in {len(calls)} "
                                  f"batches, want {bn_acts} a batch")
         runs.append([t for k in range(len(G21_ORDER)) for t in outs[
             k if fn is fused else G21_ORDER[k]]])
@@ -5584,7 +5597,7 @@ def g21_logger(spec, sd, root, per_forward, smi):
     from ab_line_classifier_torch.data.pipeline import DeviceCachedDataset
     from ab_line_classifier_torch.explain import gradcam
     from ab_line_classifier_torch.ops import depthwise_cuda as DC
-    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+    from ab_line_classifier_torch.ops import launches as LC
     from ab_line_classifier_torch.train.callbacks import (
         PredictionTableLogger)
 
@@ -5602,8 +5615,8 @@ def g21_logger(spec, sd, root, per_forward, smi):
         return overlay(orig, cam, *args)
 
     gradcam.heatmap_overlay = record
-    PC.reset_launch_count()
-    DC.reset_launch_count()
+    LC.reset()
+    DC.copy_count = 0
     try:
         ptrs, first = None, None
         for epoch in range(G21_EPOCHS):
@@ -5644,17 +5657,19 @@ def g21_logger(spec, sd, root, per_forward, smi):
     pngs = len([f for f in os.listdir(os.path.join(root, "logger"))
                 if f.endswith(".png")])
     if (summary["eager_steps"], summary["replays"]) != (1, G21_EPOCHS - 1) \
-            or (PC.launch_count, DC.launch_count) != want \
+            or (LC.count("preprocess"), LC.count("depthwise")) != want \
             or pngs != G21_LOG_HEAT * G21_EPOCHS:
         raise AssertionError(f"logger: program {summary}, launches "
-                             f"{PC.launch_count} / {DC.launch_count} (want "
+                             f"{LC.count('preprocess')} / "
+                             f"{LC.count('depthwise')} (want "
                              f"{want}), {pngs} PNGs")
     print(f"  PredictionTableLogger (mobilenetv2, {G21_EPOCHS} epochs of "
           f"{G21_LOG_FRAMES} frames, {G21_LOG_HEAT} heatmaps an epoch, new "
           f"weights copied into one module): heatmap pass captured once "
           f"({summary['capture_seconds']:.4f} s) and replayed "
           f"{summary['replays']} times, heatmaps bit-equal to the eager "
-          f"pass each epoch, B1 {PC.launch_count} B2 {DC.launch_count}, "
+          f"pass each epoch, B1 {LC.count('preprocess')} B2 "
+          f"{LC.count('depthwise')}, "
           f"{pngs} PNGs on {smi}", flush=True)
     return {"capture_s": summary["capture_seconds"],
             "replays": summary["replays"]}
@@ -5836,7 +5851,7 @@ def g22_case(name, pred, shape, per_forward, gen, smi):
     counted inside the replays, no input copied; ms per batch graphed and
     eager. Returns the graphed run's (B1, B2) and the case's numbers."""
     from ab_line_classifier_torch.ops import depthwise_cuda as DC
-    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+    from ab_line_classifier_torch.ops import launches as LC
 
     label = f"{name} serving {'x'.join(map(str, shape))}"
     batches = [torch.randint(0, 256, (*shape, 3), dtype=torch.uint8,
@@ -5844,12 +5859,12 @@ def g22_case(name, pred, shape, per_forward, gen, smi):
     runs, counts = [], []
     for fn in (pred.eager, pred.eager, pred.forward):
         calls = G22_ORDER if fn == pred.forward else range(2)
-        PC.reset_launch_count()
-        DC.reset_launch_count()
+        LC.reset()
+        DC.copy_count = 0
         outs = [fn(batches[i]) for i in calls]
         torch.cuda.synchronize()
-        counts.append((PC.launch_count, DC.launch_count, DC.copy_count,
-                       len(calls)))
+        counts.append((LC.count("preprocess"), LC.count("depthwise"),
+                       DC.copy_count, len(calls)))
         # Laid out in G22_ORDER, the eager runs' outputs repeated.
         runs.append(outs if fn == pred.forward
                     else [outs[i] for i in G22_ORDER])
@@ -5900,16 +5915,16 @@ def g22_ragged(name, pred, host, per_forward):
     chunks padded alike; no program of another shape. Returns its (B1,
     B2)."""
     from ab_line_classifier_torch.ops import depthwise_cuda as DC
-    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+    from ab_line_classifier_torch.ops import launches as LC
 
     bs = pred.batch_size
     frames = host[:2 * bs - G22_RAGGED]
     key = f"{bs}x{OUT_HW[0]}x{OUT_HW[1]}x3"
     before = pred.summaries()
-    PC.reset_launch_count()
-    DC.reset_launch_count()
+    LC.reset()
+    DC.copy_count = 0
     got = pred.predict_probs(frames)
-    counts = (PC.launch_count, DC.launch_count)
+    counts = (LC.count("preprocess"), LC.count("depthwise"))
     after = pred.summaries()
     tail = np.zeros_like(frames[:bs])
     tail[:bs - G22_RAGGED] = frames[bs:]
@@ -6083,7 +6098,7 @@ def g23_case(gpu, cpu, hw, n, smi):
     and the eager chain from frames already on the card. Returns the
     graphed calls' (B1, B2) and the case's numbers."""
     from ab_line_classifier_torch.ops import depthwise_cuda as DC
-    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+    from ab_line_classifier_torch.ops import launches as LC
 
     label = f"{n}x{hw[0]}x{hw[1]}"
     clips = [beam_frames(n, hw, 230 + k) for k in range(G23_CLIPS)]
@@ -6095,8 +6110,8 @@ def g23_case(gpu, cpu, hw, n, smi):
     (torch.backends.cudnn.allow_tf32,
      torch.backends.cuda.matmul.allow_tf32) = (True, False)
     try:
-        PC.reset_launch_count()
-        DC.reset_launch_count()
+        LC.reset()
+        DC.copy_count = 0
         got, walls = [], []
         for c in clips:
             torch.cuda.synchronize()
@@ -6104,7 +6119,7 @@ def g23_case(gpu, cpu, hw, n, smi):
             got.append(gpu.clip_mask(c, hw))
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
-        launched = (PC.launch_count, DC.launch_count)
+        launched = (LC.count("preprocess"), LC.count("depthwise"))
         if (torch.backends.cudnn.allow_tf32,
                 torch.backends.cuda.matmul.allow_tf32) != (True, False):
             raise AssertionError(f"{label}: clip_mask left the TF32 flags "
@@ -6271,7 +6286,7 @@ def phase_graphed_automask(smi):
     from ab_line_classifier_torch.data.auto_masking import UnetSegmentation
     from ab_line_classifier_torch.models.unet import seeded_unet_state
     from ab_line_classifier_torch.ops import depthwise_cuda as DC
-    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+    from ab_line_classifier_torch.ops import launches as LC
 
     t_phase = time.perf_counter()
     root = os.path.join(REPO, "build", "phase23")
@@ -6306,10 +6321,10 @@ def phase_graphed_automask(smi):
               flush=True)
         del gpu
         torch.cuda.empty_cache()
-        PC.reset_launch_count()
-        DC.reset_launch_count()
+        LC.reset()
+        DC.copy_count = 0
         numbers["cli"] = g23_cli(state, root, smi)
-        b1, b2 = b1 + PC.launch_count, b2 + DC.launch_count
+        b1, b2 = b1 + LC.count("preprocess"), b2 + LC.count("depthwise")
     finally:
         torch.backends.cudnn.deterministic = flags
     if (b1, b2) != (0, 0):
@@ -6424,7 +6439,7 @@ def g24_trained(name, spec, sd, images, labels, per_forward, smi):
     and the numbers."""
     from ab_line_classifier_torch.data.pipeline import DeviceCachedDataset
     from ab_line_classifier_torch.ops import depthwise_cuda as DC
-    from ab_line_classifier_torch.ops import preprocess_cuda as PC
+    from ab_line_classifier_torch.ops import launches as LC
     from ab_line_classifier_torch.predict.benchmark import TRAIN_AUG
     from ab_line_classifier_torch.train.loop import Trainer
 
@@ -6444,12 +6459,12 @@ def g24_trained(name, spec, sd, images, labels, per_forward, smi):
             ("streamed", arrays, "streamed-graphed")):
         per_step = path == "per-step"
         trainer.release_programs()
-        PC.reset_launch_count()
-        DC.reset_launch_count()
+        LC.reset()
+        DC.copy_count = 0
         logs, modes, programs = g20_drive(trainer, (0,), train_ds, val_ds,
                                           TRAIN_BATCH, per_step, sd)
         torch.cuda.synchronize()
-        counts = (PC.launch_count, DC.launch_count, DC.copy_count)
+        counts = (LC.count("preprocess"), LC.count("depthwise"), DC.copy_count)
         if modes != {path} or counts != want:
             raise AssertionError(f"{name} {label}: paths {modes}, launches "
                                  f"{counts}, the data's {want}")
@@ -6609,6 +6624,7 @@ def epilogue_model_check(smi):
     from ab_line_classifier_torch import graph as G
     from ab_line_classifier_torch.models.common import make_optimizer
     from ab_line_classifier_torch.ops import conv_epilogue_cuda as CE
+    from ab_line_classifier_torch.ops import launches as LC
     from ab_line_classifier_torch.predict.benchmark import (build_flagship,
                                                             seeded_state)
     from ab_line_classifier_torch.predict.predict import load_module
@@ -6636,15 +6652,15 @@ def epilogue_model_check(smi):
         CE.conv_epilogue = tally
         try:
             for chain in (False, True):
-                table = module._epilogue
+                table = module._routes
                 if chain:
-                    module._epilogue = {}
-                CE.reset_launch_count()
+                    module._routes = {}
+                LC.reset()
                 with torch.inference_mode():
                     served.append(module(x.to(spec.dtype)))
                 torch.cuda.synchronize()
-                counts.append(CE.launch_count)
-                module._epilogue = table
+                counts.append(LC.count("epilogue"))
+                module._routes = table
         finally:
             CE.conv_epilogue = launch
         pooled = sum(pools)
@@ -6664,15 +6680,15 @@ def epilogue_model_check(smi):
             G.set_compute_dtype(m, spec.dtype)
             m.train()
             if chain:
-                m._epilogue = {}
+                m._routes = {}
             opt = make_optimizer(finetune, m)
-            CE.reset_launch_count()
+            LC.reset()
             probs = m(x, generator=torch.Generator(device="cuda"
                                                    ).manual_seed(3))
             loss = F.nll_loss(torch.log(probs), labels)
             loss.backward()
             torch.cuda.synchronize()
-            counts.append(CE.launch_count)
+            counts.append(LC.count("epilogue"))
             steps.append((loss.detach(), {n: p.grad for n, p in
                                           m.named_parameters()
                                           if p.grad is not None}))
@@ -6766,8 +6782,8 @@ BN_ACT_MODELS = (("efficientnetb7", 600, 256), ("mobilenetv2", 128, 2048))
 def bn_act_layers(name, side):
     """``{(C, H, W, act): count}`` of the batch norms of a serving forward
     of zoo model ``name`` at ``side`` x ``side`` that the pass takes, with
-    the activation folded into each (``GraphModule._bn_act``), found by a
-    batch-1 forward on the card."""
+    the activation folded into each (``GraphModule``'s route table), found
+    by a batch-1 forward on the card."""
     from ab_line_classifier_torch import graph as G
     from ab_line_classifier_torch.predict.benchmark import (build_zoo,
                                                             seeded_state)
@@ -6776,15 +6792,16 @@ def bn_act_layers(name, side):
     spec = build_zoo(name, (side, side))
     module = load_module(spec, seeded_state(spec, 0), torch.device("cuda"))
     seen = collections.Counter()
+    routes = {n: r for n, r in module._routes.items() if r.run is G._bn_act}
 
     def hook(layer):
         def record(m, args):
             _, c, h, w = args[0].shape
-            seen[(c, h, w, module._bn_act[layer][0])] += 1
+            seen[(c, h, w, routes[layer].args[0])] += 1
         return record
 
     hooks = [module.get_submodule(n).register_forward_pre_hook(hook(n))
-             for n in module._bn_act]
+             for n in routes]
     try:
         with torch.inference_mode():
             module(torch.zeros((1, side, side, 3), dtype=spec.dtype,
@@ -6792,7 +6809,7 @@ def bn_act_layers(name, side):
     finally:
         for h in hooks:
             h.remove()
-    if any(isinstance(m, G.BatchNorm) and n not in module._bn_act
+    if any(isinstance(m, G.BatchNorm) and n not in routes
            for n, m in module.named_children()):
         raise AssertionError(f"{name}: a batch norm the pass does not take")
     return seen

@@ -49,7 +49,8 @@ def split_libraries(S, _build, PC):
     src = os.path.join(_build.CSRC_DIR, "preprocess.cu")
     with open(src) as f:
         text = f.read()
-    libs = {"kernel": PC.typed(ctypes.CDLL(_build.build("preprocess")))}
+    libs = {"kernel": PC.KERNEL.typed(
+        ctypes.CDLL(_build.build("preprocess")))}
     for name, edits in SPLIT.items():
         variant = text
         for old, new in edits:
@@ -65,7 +66,7 @@ def split_libraries(S, _build, PC):
                                   f"preprocess-{name.replace(' ', '-')}")
         _build._compile([_build._nvcc(), *_build.NVCC_FLAGS, path], lib,
                         f"preprocess {name}")
-        libs[name] = PC.typed(ctypes.CDLL(lib))
+        libs[name] = PC.KERNEL.typed(ctypes.CDLL(lib))
     return libs
 
 
@@ -118,14 +119,14 @@ def main():
                                      dtype, blank, xs[0].device)
             times = []
             for name, lib in libs.items():
-                PC._lib = lib
+                PC.KERNEL.lib = lib
 
                 def run():
                     for i in range(per_graph):
                         PC.launch(xs[i % inputs], outs[i], args)
 
                 times.append(f"{name} {S.graph_ms(run) / per_graph:.4f}")
-            PC._lib = libs["kernel"]
+            PC.KERNEL.lib = libs["kernel"]
             print(f"{label} ({smi}), ms: " + ", ".join(times)
                   + f"; bytes bound {bound:.4f}", flush=True)
             continue

@@ -11,8 +11,11 @@ without a card)::
     python -m pytest tests/test_torch_bn_act.py --noconftest -m cuda
 
 Calls are counted by a spy in place of ``bn_act`` (the launch count counts
-only launches on the card). The library chain is the same module with its
-routing table emptied. The module imports only torch and the port.
+only launches on the card). The library chain is the same module with the
+batch norm pass's entries taken out of its route table. The grad mode and
+``vmap`` cases of both fused kernels' routes are in
+``tests/test_torch_conv_epilogue.py``. The module imports only torch and
+the port.
 """
 
 import collections
@@ -26,6 +29,7 @@ import torch.nn.functional as F
 from ab_line_classifier_torch import graph as G
 from ab_line_classifier_torch.models import build_model
 from ab_line_classifier_torch.ops import bn_act_cuda as BA
+from ab_line_classifier_torch.ops import launches
 from ab_line_classifier_torch.predict.benchmark import ZOO_HPARAMS, build_zoo
 
 HW = (32, 32)
@@ -48,12 +52,12 @@ def calls(monkeypatch):
 @contextlib.contextmanager
 def library_chain(module):
     """``module`` with every batch norm on the library chain."""
-    kept = module._bn_act
-    module._bn_act = {}
+    kept = module._routes
+    module._routes = {n: r for n, r in kept.items() if r.run is not G._bn_act}
     try:
         yield module
     finally:
-        module._bn_act = kept
+        module._routes = kept
 
 
 def _frames(n=2, seed=0, dtype=torch.float32, hw=HW):
@@ -115,12 +119,14 @@ def test_folded_activations_are_the_graphs():
     spec = build_zoo("mobilenetv2", HW)
     module = spec.module()
     graph = spec.graph
-    for name, (act, reader) in module._bn_act.items():
+    routes = {n: r for n, r in module._routes.items() if r.run is G._bn_act}
+    for name, route in routes.items():
         assert graph[name].kind == G.KIND_BN
-        if reader is not None:
-            assert graph[reader].inputs == (name,)
-            assert graph[reader].op == ("relu6",) and act == "relu6"
-    assert sum(r is not None for _, r in module._bn_act.values()) == 26
+        if route.reader is not None:
+            assert graph[route.reader].inputs == (name,)
+            assert graph[route.reader].op == ("relu6",)
+            assert route.args == ("relu6",)
+    assert sum(r.reader is not None for r in routes.values()) == 26
 
 
 def _small(capture=()):
@@ -198,55 +204,6 @@ def test_routing_cases(calls, case, want):
             assert torch.equal(got[1][k], ref[1][k]), k
         got, ref = got[0], ref[0]
     assert torch.equal(got, ref)
-
-
-def test_grad_mode_keeps_the_library_chain_where_autograd_records(calls):
-    """Under grad mode a batch norm whose weight or bias requires grad, or
-    whose input does, keeps the library chain (so would every layer after
-    it); under ``no_grad`` every batch norm takes the pass whatever
-    requires grad."""
-    module = _small()
-    x = _frames()
-    module(x)
-    assert calls == []
-    module.bn.requires_grad_(False)
-    module.conv.requires_grad_(False)
-    module(x)
-    assert calls == [(16, "swish")]
-    calls.clear()
-    module.requires_grad_(False)
-    module(x.clone().requires_grad_())
-    assert calls == []
-    module(x)
-    assert calls == [(16, "swish"), (8, "none")]
-    calls.clear()
-    with torch.no_grad():
-        _small()(x.clone().requires_grad_())
-    assert len(calls) == 2
-
-
-def test_vmap_keeps_the_library_chain(calls):
-    """Under ``torch.func.vmap`` over stacked parameters and statistics
-    (the stacked trials) the batch norms keep the library chain: the
-    output is the chain's bit for bit, and each trial's is its own
-    module's (to vmap's batch-norm rule's rounding)."""
-    mods = [_stats(_small(), seed=s) for s in range(3)]
-    stacked = {k: torch.stack([m.state_dict()[k] for m in mods])
-               for k in mods[0].state_dict()}
-    x = _frames()
-
-    def run():
-        return torch.func.vmap(
-            lambda p: torch.func.functional_call(mods[0], p, (x,)))(stacked)
-
-    got = run()
-    assert calls == []
-    with library_chain(mods[0]):
-        assert torch.equal(got, run())
-    with torch.no_grad():
-        for i, m in enumerate(mods):
-            torch.testing.assert_close(got[i], m(x), rtol=1e-5, atol=1e-4)
-    assert len(calls) == 6
 
 
 def test_gradcam_tail_keeps_the_library_chain(calls):
@@ -377,9 +334,9 @@ def test_kernel_within_an_ulp_of_the_float32_chain():
             for wt in (True, False)
             for s in ((2, 7, 9), (3, 19, 19))):
         x, mean, var, wt, bias = _card_case((b, c, h, w), dtype, gen, weight)
-        before = BA.launch_count
+        before = launches.count("bn_act")
         got = BA.bn_act(x, mean, var, wt, bias, 1e-3, act)
-        assert BA.launch_count == before + 1
+        assert launches.count("bn_act") == before + 1
         assert got.dtype == dtype and got.shape == x.shape
         assert got.is_contiguous(memory_format=torch.channels_last)
         if dtype == torch.bfloat16 and act == "swish":
@@ -459,9 +416,9 @@ def test_kernel_one_launch_past_2_31_elements():
     x = torch.randn((1000, 150, 150, c), device="cuda", dtype=torch.bfloat16,
                     generator=gen).permute(0, 3, 1, 2)
     assert x.numel() > 2 ** 31
-    before = BA.launch_count
+    before = launches.count("bn_act")
     got = BA.bn_act(x, mean, var, weight, bias, 1e-3, "swish")
-    assert BA.launch_count == before + 1
+    assert launches.count("bn_act") == before + 1
     assert torch.equal(got, BA.bn_act_plain(x, mean, var, weight, bias, 1e-3,
                                             "swish"))
     del got
@@ -524,11 +481,11 @@ def test_graphed_serving_counts_the_pass(name, per_forward):
             probs = predictor.forward(frames)
         summary, = predictor.summaries().values()
         assert summary["captured_launches"]["bn_act"] == per_forward
-        before = BA.launch_count
+        before = launches.count("bn_act")
         predictor.forward(frames)
-        assert BA.launch_count == before + per_forward
+        assert launches.count("bn_act") == before + per_forward
         want = predictor.eager(frames)
-        assert BA.launch_count == before + 2 * per_forward
+        assert launches.count("bn_act") == before + 2 * per_forward
         assert torch.equal(probs, want)
     finally:
         torch.backends.cudnn.deterministic = flags

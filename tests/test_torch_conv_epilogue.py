@@ -8,7 +8,9 @@ held to the plain version in ``tests/test_torch_cuda_kernels.py``.
 
 Calls are counted by a spy in place of ``conv_epilogue`` (the launch count
 counts only launches on the card). The library chain is the same module
-with its epilogue table emptied.
+with the conv epilogue's entries taken out of its route table. The grad
+mode and ``vmap`` cases hold both fused kernels' routes, this one's and
+the batch norm pass's (``tests/test_torch_bn_act.py``).
 """
 
 import contextlib
@@ -20,35 +22,56 @@ import torch.nn.functional as F
 from ab_line_classifier_torch import graph as G
 from ab_line_classifier_torch.models import build_model
 from ab_line_classifier_torch.models.common import make_optimizer
+from ab_line_classifier_torch.ops import bn_act_cuda as BA
 from ab_line_classifier_torch.ops import conv_epilogue_cuda as CE
 from ab_line_classifier_torch.predict.benchmark import ZOO_HPARAMS
+from test_torch_bn_act import _frames as _bn_frames, _small, _stats
 
 HW = (32, 32)
+
+#: Each fused kernel's wrapper, what a spy records of a call
+#: (``(channels, pool)`` of the conv epilogue, ``(channels, act)`` of the
+#: batch norm pass), and the route table's call of it.
+WRAPPERS = {
+    "epilogue": (CE, "conv_epilogue",
+                 lambda y, bias, relu, pool: (y.shape[1], pool),
+                 G._conv_epilogue),
+    "bn_act": (BA, "bn_act",
+               lambda x, mean, var, weight, bias, eps, act: (x.shape[1],
+                                                              act),
+               G._bn_act)}
+
+
+def spy(monkeypatch, kernel):
+    """Every call of ``kernel``'s wrapper from now on (:data:`WRAPPERS`)."""
+    mod, name, record, _ = WRAPPERS[kernel]
+    seen = []
+    real = getattr(mod, name)
+
+    def wrapper(*args):
+        seen.append(record(*args))
+        return real(*args)
+
+    monkeypatch.setattr(mod, name, wrapper)
+    return seen
 
 
 @pytest.fixture
 def calls(monkeypatch):
     """Every ``conv_epilogue`` call's ``(channels, pool)``."""
-    seen = []
-    real = CE.conv_epilogue
-
-    def spy(y, bias, relu, pool):
-        seen.append((y.shape[1], pool))
-        return real(y, bias, relu, pool)
-
-    monkeypatch.setattr(CE, "conv_epilogue", spy)
-    return seen
+    return spy(monkeypatch, "epilogue")
 
 
 @contextlib.contextmanager
-def library_chain(module):
-    """``module`` with every conv on the library chain."""
-    kept = module._epilogue
-    module._epilogue = {}
+def library_chain(module, kernel="epilogue"):
+    """``module`` with every layer that runs through ``kernel`` on the
+    library chain."""
+    kept, run = module._routes, WRAPPERS[kernel][3]
+    module._routes = {n: r for n, r in kept.items() if r.run is not run}
     try:
         yield module
     finally:
-        module._epilogue = kept
+        module._routes = kept
 
 
 def _spec(name, mixed=False):
@@ -189,25 +212,47 @@ def test_finetune_step_takes_the_frozen_prefix(calls, compute):
         assert torch.equal(params[n], params0[n]), n
 
 
-def test_grad_mode_keeps_the_library_chain_where_autograd_records(calls):
-    """Under grad mode a conv whose weight requires grad, or whose input
-    does, keeps the library chain (so would every conv after it); under
-    ``no_grad`` every conv takes the epilogue whatever requires grad."""
-    module = _cut_vgg()
-    x = _frames()
+#: Per kernel: a model and an input; the layers whose freezing lets the
+#: first of its routes take the kernel, and the calls that then make; the
+#: calls of a forward with every layer taking it.
+GRAD_CASES = {
+    "epilogue": (lambda: (_cut_vgg(), _frames()),
+                 ("block1_conv1", "block1_conv2"),
+                 [(64, False), (64, True)],
+                 [(64, False), (64, True), (128, False), (128, True),
+                  (256, False), (256, False), (256, False)]),
+    "bn_act": (lambda: (_small(), _bn_frames()), ("conv", "bn"),
+               [(16, "swish")], [(16, "swish"), (8, "none")])}
+
+
+@pytest.mark.parametrize("kernel", ["epilogue", "bn_act"])
+def test_grad_mode_keeps_the_library_chain_where_autograd_records(
+        monkeypatch, kernel):
+    """Under grad mode a layer whose weight or bias requires grad, or whose
+    input does, keeps the library chain (so would every layer after it);
+    with nothing requiring grad every layer takes its kernel, and under
+    ``no_grad`` every layer takes it whatever requires grad: each fused
+    kernel's route."""
+    build, prefix, first, every = GRAD_CASES[kernel]
+    calls = spy(monkeypatch, kernel)
+    module, x = build()
     module(x)
     assert calls == []
-    module.block1_conv1.requires_grad_(False)
-    module.block1_conv2.requires_grad_(False)
+    for name in prefix:
+        module.get_submodule(name).requires_grad_(False)
     module(x)
-    assert calls == [(64, False), (64, True)]
+    assert calls == first
     calls.clear()
     module.requires_grad_(False)
     module(x.clone().requires_grad_())
     assert calls == []
+    module(x)
+    assert calls == every
+    calls.clear()
     with torch.no_grad():
         module(x.clone().requires_grad_())
-    assert len(calls) == 7
+        build()[0](x.clone().requires_grad_())
+    assert calls == every * 2
 
 
 def test_gradcam_leaf_keeps_the_in_place_epilogue(calls):
@@ -228,26 +273,52 @@ def test_gradcam_leaf_keeps_the_in_place_epilogue(calls):
         assert torch.equal(a, b)
 
 
-def test_vmap_keeps_the_library_chain(calls):
-    """Under ``torch.func.vmap`` over stacked weights (the stacked trials)
-    the convs keep the library chain, and each trial's output is its own
-    module's."""
+def _vmap_convs():
+    """Three conv -> pool modules of their own weights, and an input."""
     graph = G.graph_of(
         G.conv2d("conv", G.INPUT, 3, 8, (3, 3), act=F.relu),
         G.max_pool("pool", "conv", (2, 2)))
-    mods = [G.GraphModule(graph, generator=torch.Generator().manual_seed(s))
-            for s in range(3)]
-    params = {k: torch.stack([dict(m.named_parameters())[k].detach()
-                              for m in mods])
-              for k, _ in mods[0].named_parameters()}
-    x = _frames(n=2)
-    got = torch.func.vmap(
-        lambda p: torch.func.functional_call(mods[0], p, (x,)))(params)
+    return [G.GraphModule(graph, generator=torch.Generator().manual_seed(s))
+            for s in range(3)], _frames(n=2)
+
+
+def _vmap_bns():
+    """Three small batch norm models of their own statistics, an input."""
+    return [_stats(_small(), seed=s) for s in range(3)], _bn_frames()
+
+
+#: Per kernel: the modules and input, the kernel's calls a module's
+#: forward makes, and how close a trial's output under ``vmap`` is to its
+#: own module's (the batch norms to vmap's batch-norm rule's rounding).
+VMAP_CASES = {
+    "epilogue": (_vmap_convs, 1, dict(rtol=0, atol=0)),
+    "bn_act": (_vmap_bns, 2, dict(rtol=1e-5, atol=1e-4))}
+
+
+@pytest.mark.parametrize("kernel", ["epilogue", "bn_act"])
+def test_vmap_keeps_the_library_chain(monkeypatch, kernel):
+    """Under ``torch.func.vmap`` over stacked parameters and statistics
+    (the stacked trials) every layer keeps the library chain: the output
+    is the chain's bit for bit, and each trial's is its own module's; each
+    fused kernel's route."""
+    build, per_forward, tol = VMAP_CASES[kernel]
+    mods, x = build()
+    calls = spy(monkeypatch, kernel)
+    stacked = {k: torch.stack([m.state_dict()[k] for m in mods])
+               for k in mods[0].state_dict()}
+
+    def run():
+        return torch.func.vmap(
+            lambda p: torch.func.functional_call(mods[0], p, (x,)))(stacked)
+
+    got = run()
     assert calls == []
+    with library_chain(mods[0], kernel):
+        assert torch.equal(got, run())
     with torch.no_grad():
         for i, m in enumerate(mods):
-            assert torch.equal(got[i], m(x))
-    assert len(calls) == 3
+            torch.testing.assert_close(got[i], m(x), **tol)
+    assert len(calls) == len(mods) * per_forward
 
 
 def test_plain_version_is_the_library_chain():

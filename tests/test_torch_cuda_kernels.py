@@ -21,6 +21,7 @@ import torch
 from ab_line_classifier_torch.ops import depthwise as torch_depthwise
 from ab_line_classifier_torch.ops import depthwise_cuda
 from ab_line_classifier_torch.ops import image as torch_image
+from ab_line_classifier_torch.ops import launches
 from ab_line_classifier_torch.ops import preprocess_cuda
 from ab_line_classifier_torch.ops.image import (MASK_OPTIONS, OUT_DTYPES,
                                                 PREPROCESS_MODES, RESIZE_MODES,
@@ -50,9 +51,9 @@ def test_cuda_kernel_matches_plain_version():
             kw = dict(out_hw=OUT_HW, preprocess_mode=mode,
                       resize_mode=resize, out_dtype=dtype,
                       **mask_kwargs(mask, m))
-            before = preprocess_cuda.launch_count
+            before = launches.count("preprocess")
             got = preprocess_cuda.cuda_preprocess(x, **kw)
-            assert preprocess_cuda.launch_count == before + 1
+            assert launches.count("preprocess") == before + 1
             want = torch_image.fused_preprocess(x, **kw)
             max_ulp_error(got, want, dtype, mode)
 
@@ -104,11 +105,11 @@ def _assert_preprocess_equal(x, paths=(), **kw):
     """The wrapper (the plan's path; one launch counted) and each of
     ``paths`` (none counted) bit-equal to the plain version."""
     want = torch_image.fused_preprocess(x, **kw)
-    before = preprocess_cuda.launch_count
+    before = launches.count("preprocess")
     assert torch.equal(preprocess_cuda.cuda_preprocess(x, **kw), want), kw
     for path in paths:
         assert torch.equal(_on_path(x, path, **kw), want), (path, kw)
-    assert preprocess_cuda.launch_count == before + 1
+    assert launches.count("preprocess") == before + 1
 
 
 @pytest.mark.cuda
@@ -187,9 +188,9 @@ def _depthwise_case(shape, k, dtype, gen):
 
 
 def _assert_depthwise_equal(x, wt):
-    before = depthwise_cuda.launch_count
+    before = launches.count("depthwise")
     got = depthwise_cuda.cuda_depthwise(x, depthwise_cuda.pack_weight(wt))
-    assert depthwise_cuda.launch_count == before + 1
+    assert launches.count("depthwise") == before + 1
     assert got.is_contiguous(memory_format=torch.channels_last)
     assert torch.equal(got, torch_depthwise.depthwise_plain(x, wt))
 
@@ -281,10 +282,11 @@ def test_depthwise_trial_launch_matches_plain_version():
                         generator=gen).to(dtype).permute(0, 3, 4, 1, 2)
         wt = (0.2 * torch.randn((n, c, 1, k, k), device="cuda",
                                 generator=gen)).to(dtype)
-        depthwise_cuda.reset_launch_count()
+        launches.reset()
+        depthwise_cuda.copy_count = 0
         y = torch.func.vmap(torch_depthwise.depthwise_conv,
                             in_dims=(1, 0))(x, wt)
-        assert (depthwise_cuda.launch_count,
+        assert (launches.count("depthwise"),
                 depthwise_cuda.copy_count) == (1, 0)
         for t in range(n):
             xt = x[:, t].contiguous(memory_format=torch.channels_last)
@@ -317,9 +319,9 @@ def test_gradcam_through_the_depthwise_kernel():
         frames, out_hw=(128, 128), preprocess_mode=spec.preprocess_mode,
         out_dtype=spec.dtype))
     fused = build_fused_gradcam(spec, predictor.module, "plusplus")
-    before = depthwise_cuda.launch_count
+    before = launches.count("depthwise")
     probs, cams = fused(frames)
-    assert depthwise_cuda.launch_count == before + 10
+    assert launches.count("depthwise") == before + 10
     torch.testing.assert_close(probs, predictor.forward(frames), rtol=0,
                                atol=0)
     assert cams.shape == (16, 128, 128) and cams.dtype == torch.float32
@@ -366,8 +368,8 @@ def test_graphed_gradcam_equals_the_eager_pass():
             assert fused.graph_mode == "graphed"
             runs = []
             for fn in (fused, fused.eager):
-                preprocess_cuda.reset_launch_count()
-                depthwise_cuda.reset_launch_count()
+                launches.reset()
+                depthwise_cuda.copy_count = 0
                 outs = [fn(batches[i]) for i in order]
                 torch.cuda.synchronize()
                 runs.append((outs, _launches()))
@@ -423,8 +425,8 @@ def test_graphed_serving_equals_the_eager_forward():
         order = (0, 1, 1, 0)
         runs = []
         for fn in (predictor.forward, predictor.eager):
-            preprocess_cuda.reset_launch_count()
-            depthwise_cuda.reset_launch_count()
+            launches.reset()
+            depthwise_cuda.copy_count = 0
             outs = [fn(batches[i]) for i in order]
             torch.cuda.synchronize()
             runs.append((outs, _launches()))
@@ -487,9 +489,10 @@ def test_mobilenetv2_training_step_through_the_depthwise_kernel():
         return {n: p.grad for n, p in t.module.named_parameters()
                 if p.grad is not None}
 
-    depthwise_cuda.reset_launch_count()
+    launches.reset()
+    depthwise_cuda.copy_count = 0
     got = step()
-    assert depthwise_cuda.launch_count == 10
+    assert launches.count("depthwise") == 10
     assert depthwise_cuda.copy_count == 0
     supported = torch_depthwise._supported
     torch_depthwise._supported = lambda *a: False
@@ -497,7 +500,7 @@ def test_mobilenetv2_training_step_through_the_depthwise_kernel():
         want = step()
     finally:
         torch_depthwise._supported = supported
-    assert depthwise_cuda.launch_count == 10
+    assert launches.count("depthwise") == 10
     assert set(got) == set(want)
     assert any("depthwise" in n for n in got)
     for n in want:
@@ -541,7 +544,7 @@ def _graph_case(name):
 
 
 def _launches():
-    return preprocess_cuda.launch_count, depthwise_cuda.launch_count
+    return launches.count("preprocess"), launches.count("depthwise")
 
 
 @pytest.mark.cuda
@@ -562,8 +565,8 @@ def test_graphed_epoch_equals_the_eager_epoch(name):
     try:
         runs = []
         for per_step in (False, True):
-            preprocess_cuda.reset_launch_count()
-            depthwise_cuda.reset_launch_count()
+            launches.reset()
+            depthwise_cuda.copy_count = 0
             t = Trainer(spec, seed=1, aug_config=GRAPH_AUG, device="cuda")
             t.begin_phase(0, spec.phases[0])
             run = t.run_epoch_per_step if per_step else t.run_epoch
@@ -617,8 +620,8 @@ def test_graphed_stacked_epoch_equals_the_eager_epoch(name):
     try:
         runs = []
         for per_step in (False, True):
-            preprocess_cuda.reset_launch_count()
-            depthwise_cuda.reset_launch_count()
+            launches.reset()
+            depthwise_cuda.copy_count = 0
             pt = tp.ParallelFoldTrainer(
                 spec, 2, class_weights=np.ones((2, 2), np.float32), seed=4,
                 aug_config=GRAPH_AUG, device="cuda")
@@ -675,8 +678,8 @@ def test_streamed_graph_equals_the_eager_epoch(name):
     try:
         runs = []
         for per_step in (False, True):
-            preprocess_cuda.reset_launch_count()
-            depthwise_cuda.reset_launch_count()
+            launches.reset()
+            depthwise_cuda.copy_count = 0
             t = Trainer(spec, seed=1, aug_config=GRAPH_AUG, device="cuda")
             t.begin_phase(0, spec.phases[0])
             run = t.run_epoch_per_step if per_step else t.run_epoch
@@ -767,8 +770,8 @@ def test_graphed_automask_equals_the_eager_chain():
         seg = UnetSegmentation(device="cuda")
         seg.model.load_state_dict(seeded_unet_state(16, 3))
         assert seg.graph_mode == "graphed"
-        preprocess_cuda.reset_launch_count()
-        depthwise_cuda.reset_launch_count()
+        launches.reset()
+        depthwise_cuda.copy_count = 0
         cases = (((96, 128), 11), ((200, 240), 10))
         for hw, n in cases:
             clips = [_fan_frames(n, hw, seed) for seed in (1, 2)]
@@ -844,9 +847,9 @@ def test_conv_epilogue_kernel_matches_plain_version():
             (True, False), ((2, 8, 8), (3, 7, 9), (1, 5, 6), (4, 33, 32))):
         y, bias = _epilogue_case((b, c, h, w), dtype, gen)
         x = y.clone()
-        before = CE.launch_count
+        before = launches.count("epilogue")
         got = CE.conv_epilogue(x, bias, relu, pool)
-        assert CE.launch_count == before + 1
+        assert launches.count("epilogue") == before + 1
         want = CE.conv_epilogue_plain(y.clone(), bias, relu, pool)
         assert got.is_contiguous(memory_format=torch.channels_last)
         assert got.shape == want.shape
@@ -865,7 +868,6 @@ def test_conv_epilogue_kernel_in_a_cuda_graph():
     plain version, one launch counted a replay."""
     _need_cuda()
     from ab_line_classifier_torch.ops import conv_epilogue_cuda as CE
-    from ab_line_classifier_torch.ops import launches
 
     gen = torch.Generator(device="cuda").manual_seed(22)
     for pool in (True, False):
@@ -927,7 +929,6 @@ def test_cutoffvgg16_through_the_conv_epilogue():
 
     from ab_line_classifier_torch import graph as G
     from ab_line_classifier_torch.models.common import make_optimizer
-    from ab_line_classifier_torch.ops import conv_epilogue_cuda as CE
     from ab_line_classifier_torch.predict.benchmark import (build_zoo,
                                                             seeded_state)
     from ab_line_classifier_torch.predict.predict import load_module
@@ -944,12 +945,12 @@ def test_cutoffvgg16_through_the_conv_epilogue():
         labels = torch.randint(0, 2, (16,), device="cuda", generator=gen)
         module = load_module(spec, state, torch.device("cuda"))
         served, counts = [], []
-        for table in (module._epilogue, {}):
-            module._epilogue = table
-            CE.reset_launch_count()
+        for table in (module._routes, {}):
+            module._routes = table
+            launches.reset()
             with torch.inference_mode():
                 served.append(module(x.to(spec.dtype)))
-            counts.append(CE.launch_count)
+            counts.append(launches.count("epilogue"))
         assert counts == [7, 0]
         assert torch.equal(served[0], served[1])
         finetune = {p.name: p for p in spec.phases}["finetune"]
@@ -959,14 +960,14 @@ def test_cutoffvgg16_through_the_conv_epilogue():
             m.load_state_dict(state)
             G.set_compute_dtype(m, spec.dtype)
             if chain:
-                m._epilogue = {}
+                m._routes = {}
             make_optimizer(finetune, m)
-            CE.reset_launch_count()
+            launches.reset()
             probs = m.train()(x, generator=torch.Generator(
                 device="cuda").manual_seed(3))
             loss = F.nll_loss(torch.log(probs), labels)
             loss.backward()
-            counts.append(CE.launch_count)
+            counts.append(launches.count("epilogue"))
             steps.append((loss.detach(), {n: p.grad for n, p in
                                           m.named_parameters()
                                           if p.grad is not None}))

@@ -28,7 +28,7 @@ from ab_line_classifier_tpu.ops.image import fused_preprocess
 from ab_line_classifier_tpu.predict import deploy as jax_deploy
 from ab_line_classifier_tpu.utils import checkpoint as jax_ckpt
 from ab_line_classifier_torch.models.registry import get_model
-from ab_line_classifier_torch.ops import preprocess_cuda
+from ab_line_classifier_torch.ops import launches
 from ab_line_classifier_torch.predict import deploy
 from ab_line_classifier_torch.predict.benchmark import ZOO_HPARAMS
 
@@ -104,11 +104,11 @@ def test_wavebase_probabilities_and_csv_match_jax(checkpoints, tmp_path):
     want = jax_deploy.predict_wavebase_mp4(src, "unused.mp4",
                                            str(tmp_path / "jax.csv"),
                                            frames=frames)
-    preprocess_cuda.reset_launch_count()
+    launches.reset()
     got = deploy.predict_wavebase_mp4(dst, "unused.mp4",
                                       str(tmp_path / "port.csv"),
                                       frames=frames, device="cpu")
-    assert preprocess_cuda.launch_count == 0   # the plain version on the CPU
+    assert launches.count("preprocess") == 0   # the plain version on the CPU
     assert got.dtype == np.float32 and got.shape == (12, 2)
     assert np.ptp(np.asarray(want)[:, 1]) > 1e-3, "probabilities are flat"
     np.testing.assert_allclose(got, want, rtol=0, atol=PROB_ATOL)

@@ -22,7 +22,7 @@ from ab_line_classifier_tpu.ops.depthwise_pallas import (
     _lax_reference, depthwise_conv_interpret)
 from ab_line_classifier_torch import graph as G
 from ab_line_classifier_torch.ops import depthwise as D
-from ab_line_classifier_torch.ops import depthwise_cuda
+from ab_line_classifier_torch.ops import depthwise_cuda, launches
 
 # The shapes of tests/test_depthwise_pallas.py.
 SHAPES = [
@@ -102,9 +102,9 @@ def test_supported_layer_runs_the_plain_version_on_cpu():
     x, kern = _inputs((3, 10, 9, 40), 5, 5)
     tx, tw = _port(x, kern)
     assert D._supported(tx, tw, 1, "SAME")
-    before = depthwise_cuda.launch_count
+    before = launches.count("depthwise")
     got = D.depthwise_conv(tx, tw)
-    assert depthwise_cuda.launch_count == before
+    assert launches.count("depthwise") == before
     torch.testing.assert_close(got, D.depthwise_plain(tx, tw), rtol=0,
                                atol=0)
 

@@ -273,20 +273,18 @@ def test_capture_counts_launches_per_replay():
     """The kernels' counts leave out what a capture calls (it launches
     nothing) and add it once per replay, kernel by kernel; calls outside a
     capture count as they are made."""
-    from ab_line_classifier_torch.ops import (bn_act_cuda, conv_epilogue_cuda,
-                                              depthwise_cuda, launches,
-                                              preprocess_cuda)
+    from ab_line_classifier_torch.ops import launches
 
     start = launches.counts()
     with launches.capture() as captured:
-        preprocess_cuda.launch_count += 1
-        depthwise_cuda.launch_count += 10
-        conv_epilogue_cuda.launch_count += 7
-        bn_act_cuda.launch_count += 39
+        launches.add("preprocess")
+        launches.add("depthwise", 10)
+        launches.add("epilogue", 7)
+        launches.add("bn_act", 39)
     assert captured.per_replay == {"preprocess": 1, "depthwise": 10,
                                    "epilogue": 7, "bn_act": 39}
     assert launches.counts() == start
-    depthwise_cuda.launch_count += 2   # eager calls
+    launches.add("depthwise", 2)   # eager calls
     captured.replayed()
     captured.replayed(3)
     assert launches.counts() == {"preprocess": start["preprocess"] + 4,

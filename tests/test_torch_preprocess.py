@@ -19,7 +19,7 @@ import torch
 from ab_line_classifier_tpu.ops import image as jax_image
 from ab_line_classifier_tpu.ops.preprocess_pallas import pallas_preprocess
 from ab_line_classifier_torch.ops import image as torch_image
-from ab_line_classifier_torch.ops import preprocess_cuda
+from ab_line_classifier_torch.ops import launches, preprocess_cuda
 from ab_line_classifier_torch.ops.image import (MASK_OPTIONS, OUT_DTYPES,
                                                 PREPROCESS_MODES, RESIZE_MODES,
                                                 mask_kwargs, max_ulp_error)
@@ -92,9 +92,9 @@ def test_preprocess_frames_runs_plain_version_on_cpu(frames, beam):
     tensor handed to the kernel wrapper itself raises."""
     x = torch.from_numpy(frames)
     kw = _kwargs("caffe", "tf", "beam", beam)
-    before = preprocess_cuda.launch_count
+    before = launches.count("preprocess")
     got = preprocess_cuda.preprocess_frames(x, **kw)
-    assert preprocess_cuda.launch_count == before
+    assert launches.count("preprocess") == before
     torch.testing.assert_close(got, torch_image.fused_preprocess(x, **kw),
                                rtol=0, atol=0)
     with pytest.raises(ValueError, match="CUDA tensor"):
